@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check its
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check its
 kernels against their plain torch versions.
 
 Run from the repository root, with no arguments:
@@ -7,28 +7,48 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 Phases (each raises on failure; the last line is printed only when all
-pass):
+pass; each prints its seconds):
 
 0. The machine: card, power limit, CUDA and nvcc. Exits non-zero without
    a CUDA device.
-1. Build: ``nvcc`` compiles ``spalinalg_tpu_torch/csrc`` into
-   ``build/kernels/``.
+1. Build: ``nvcc`` compiles ``spalinalg_tpu_torch/csrc`` (one process per
+   source, all at once) into ``build/kernels/``.
 2. BASELINE config[0] at its published size: a 1000 x 1000 matrix of 1 %
    random density in float64, built with ``CooMatrix.with_triplets``
    (duplicates and explicit zeros included), ``CsrMatrix.from_coo`` onto
    the card, ``csr @ x``, held against ``coo.to_dense() @ x`` on the host.
-3. Real scale: ``bench.py``'s csr_random pattern (32 uniform random columns
-   per row) at n = 2**21 rows, 67,108,864 stored entries, in float32 and
-   float64, through the same COO -> CSR path. The main path (config[0]
-   and a forward and backward SpMV in each dtype) runs once between a
-   reset and a read of the launch counts; then the kernel is held against
-   the plain version on the card, row by row, and must repeat bitwise.
-4. Times of kernel and plain version at the phase 3 shapes, in turns
+3. SpMV at real scale: ``bench.py``'s csr_random pattern (32 uniform random
+   columns per row) at n = 2**21 rows, 67,108,864 stored entries, in
+   float32 and float64, through the same COO -> CSR path. The kernel is
+   held against the plain version on the card, row by row, and must repeat
+   bitwise; edge structures.
+4. SpMV times of kernel and plain version at the phase 3 shapes, in turns
    (plain, kernel, kernel, plain), with CUDA events.
-5. Where the time goes at the phase 3 shapes: ``csr @ x`` with autograd
-   on, a forward + backward step, the transpose build alone (CUDA events),
-   and a ``torch.profiler`` trace of the steps: device time per kernel
-   name and the device's idle share.
+5. Where the SpMV time goes at the phase 3 shapes: ``csr @ x`` with
+   autograd on, a forward + backward step, the transpose build alone, and
+   a ``torch.profiler`` trace: device time per kernel name and idle share.
+6. SpMM, BASELINE config[1] at k = 64: csr_random (32 columns per row from
+   32 strata) and a banded matrix (offsets -16..16) at n = 2**19 rows, in
+   float32 and float64, built from sorted host arrays with the validating
+   constructor; ``csc @ X`` through the CSR mirror on csr_random. Kernel
+   against plain version row by row, bitwise repeats, gradients against
+   the plain version's autograd; edge structures (empty rows, padding
+   slots holding values, k in {1, 3, 32, 64, 100}).
+7. SpGEMM, BASELINE config[2]: ``A·A`` on ``bench.py``'s power-law
+   generator (zipf 1.8, capped at 512, seed 1) at n = 2**19, in float32
+   and float64; host times of the native symbolic phase and of the plan
+   upload. Kernel against plain version slot by slot, bitwise repeats,
+   gradients against the plain autograd; edge structures (empty slots, a
+   slot of more than 10k terms, n_out == 0); ``a * b``, ``csc * csc`` and
+   ``a ** 3`` at config[0]'s size against dense products.
+8. SpMM and SpGEMM times, in turns (plain, kernel, kernel, plain).
+9. Where the SpMM and SpGEMM time goes: ``torch.profiler`` over a forward +
+   backward SpMM step and a SpGEMM numeric step.
+
+The main paths (config[0], a forward and backward SpMV per dtype, config[1]
+forward and backward for each matrix and for ``csc @ X``, config[2]
+forward and backward) run once, between a reset and a read of every
+launch count, before the checks.
 
 It prints, before the last line, one JSON line describing each kernel and
 the card's ``nvidia-smi`` name and power limit; the last line is the
@@ -37,6 +57,7 @@ the card's ``nvidia-smi`` name and power limit; the last line is the
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -47,20 +68,52 @@ import torch
 
 from spalinalg_tpu_torch import CooMatrix, CsrMatrix
 from spalinalg_tpu_torch.convert.engine import major_ids, transpose_structure
+from spalinalg_tpu_torch.ops import spgemm as spgemm_mod
 from spalinalg_tpu_torch.ops.kernels import _build
-from spalinalg_tpu_torch.ops.kernels.csr_spmv import (
-    LAUNCHES, csr_spmv, csr_spmv_plain)
+from spalinalg_tpu_torch.ops.kernels import csr_spmm as spmm_mod
+from spalinalg_tpu_torch.ops.kernels import csr_spmv as spmv_mod
+from spalinalg_tpu_torch.ops.kernels import spgemm_numeric as numeric_mod
+from spalinalg_tpu_torch.ops.kernels.csr_spmm import (_row_dots, csr_spmm,
+                                                      csr_spmm_plain)
+from spalinalg_tpu_torch.ops.kernels.csr_spmv import (csr_spmv,
+                                                      csr_spmv_plain,
+                                                      transpose_plan)
+from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import (
+    spgemm_numeric, spgemm_numeric_plain)
+from spalinalg_tpu_torch.utils import metrics
 
-SOURCE = "spalinalg_tpu_torch/csrc/csr_spmv.cu"
-REPLACES = {"float32": "spalinalg_tpu/ops/kernels/csr_route.py:930",
-            "float64": "spalinalg_tpu/ops/kernels/csr_route_df.py:47"}
+KERNELS = {
+    "csr_spmv": ("spalinalg_tpu_torch/csrc/csr_spmv.cu", spmv_mod.LAUNCHES),
+    "csr_spmm": ("spalinalg_tpu_torch/csrc/csr_spmm.cu", spmm_mod.LAUNCHES),
+    "spgemm": ("spalinalg_tpu_torch/csrc/spgemm_numeric.cu",
+               numeric_mod.LAUNCHES),
+}
+REPLACES = {
+    ("csr_spmv", "float32"): "spalinalg_tpu/ops/kernels/csr_route.py:930",
+    ("csr_spmv", "float64"): "spalinalg_tpu/ops/kernels/csr_route_df.py:47",
+    ("csr_spmm", "float32"): "spalinalg_tpu/ops/kernels/csr_route.py:1112",
+    ("csr_spmm", "float64"): "spalinalg_tpu/ops/kernels/csr_route.py:1112",
+    ("spgemm", "float32"): "spalinalg_tpu/ops/kernels/pair_route.py:473",
+    ("spgemm", "float64"): "spalinalg_tpu/ops/kernels/pair_route.py:473",
+}
+# Launches of the main-path run: config[0] forward (f64) plus a forward and
+# an Aᵀ·g per SpMV matrix; a forward and an Aᵀ·G for each of csr_random,
+# banded and csc @ X; one numeric phase per SpGEMM dtype.
+MAIN_LAUNCHES = {"csr_spmv": {"float32": 2, "float64": 3},
+                 "csr_spmm": {"float32": 6, "float64": 6},
+                 "spgemm": {"float32": 1, "float64": 1}}
 TOL = {"float32": 1e-5, "float64": 1e-12}
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}
 N_BIG = 2**21
 ROW_NNZ = 32
+N_MM = 2**19
+K_MM = 64
+BAND = 16
+N_GEMM = 2**19
 HBM_TBPS = 3.35  # published H100 SXM device-memory bandwidth
 TIMED_LAUNCHES = 20
+PLAIN_SPMM_LAUNCHES = 3
 PROFILED_STEPS = 10
 
 
@@ -72,14 +125,31 @@ def nvidia_smi_card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def phase(label: str):
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    print(f"{label}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
 def within(err: torch.Tensor, scale: torch.Tensor, tol: float, what: str):
-    """Row-by-row check ``err <= tol * scale``."""
+    """Entry-by-entry check ``err <= tol * scale``."""
     bad = int((err > tol * scale).sum())
     if bad:
         worst = float((err / scale.clamp_min(1e-300)).max())
         raise AssertionError(
             f"{what}: {bad} entries outside tol {tol} (worst scaled error "
             f"{worst:.3e})")
+
+
+def bitwise_equal(*tensors) -> bool:
+    return all(torch.equal(tensors[0], t) for t in tensors[1:])
+
+
+def free_memory():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def config0(device):
@@ -124,11 +194,118 @@ def big_matrix(np_dtype, device):
     return csr, x, g, seconds
 
 
+def spmm_structures():
+    """Host CSR arrays (sorted columns) of config[1]'s two matrices at
+    n = 2**19: csr_random, 32 columns per row, one in each of 32 column
+    strata; banded, offsets -16..16 clipped at the edges."""
+    rng = np.random.default_rng(3)
+    strata = N_MM // ROW_NNZ
+    cols = (np.arange(ROW_NNZ, dtype=np.int64) * strata)[None, :] \
+        + rng.integers(0, strata, size=(N_MM, ROW_NNZ))
+    random = (np.arange(N_MM + 1, dtype=np.int64) * ROW_NNZ,
+              cols.reshape(-1))
+    lo = np.maximum(np.arange(N_MM) - BAND, 0)
+    hi = np.minimum(np.arange(N_MM) + BAND, N_MM - 1)
+    lens = hi - lo + 1
+    rowptr = np.concatenate([[0], np.cumsum(lens)])
+    banded = (rowptr, np.repeat(lo - rowptr[:-1], lens)
+              + np.arange(rowptr[-1]))
+    return {"random": random, "banded": banded}, rng
+
+
+def spmm_inputs(device):
+    """config[1] matrices, right-hand sides and output gradients, keyed by
+    (matrix, dtype), plus the csc form of csr_random."""
+    structures, rng = spmm_structures()
+    mats, rhs = {}, {}
+    for mname, (rowptr, colind) in structures.items():
+        vals = rng.normal(size=colind.size)
+        for name, (np_dtype, _) in DTYPES.items():
+            mats[mname, name] = CsrMatrix(N_MM, N_MM, rowptr, colind,
+                                          vals.astype(np_dtype),
+                                          device=device)
+    for name, (np_dtype, _) in DTYPES.items():
+        X = rng.normal(size=(N_MM, K_MM)).astype(np_dtype)
+        G = rng.normal(size=(N_MM, K_MM)).astype(np_dtype)
+        rhs[name] = (torch.from_numpy(X).to(device),
+                     torch.from_numpy(G).to(device))
+        mats["csc", name] = mats["random", name].to_csc()
+    return mats, rhs
+
+
+def power_law(device):
+    """``bench.py``'s config[2] generator (zipf 1.8 row lengths capped at
+    512, uniform random columns, seed 1) at n = 2**19, in both dtypes on
+    one structure. It can repeat a column within a row, as bench.py's
+    does, which the validating constructor refuses, so the matrix goes
+    through the trusted one; SpGEMM sums such terms like any other."""
+    rng = np.random.default_rng(1)
+    deg = np.minimum(rng.zipf(1.8, size=N_GEMM), 512)
+    rowptr = np.concatenate([[0], np.cumsum(deg)])
+    nnz = int(rowptr[-1])
+    colind = rng.integers(0, N_GEMM, size=nnz)
+    order = np.repeat(np.arange(N_GEMM), deg)
+    colind = colind[np.lexsort((colind, order))]
+    values = rng.normal(size=nnz)
+    ptr_t = torch.from_numpy(rowptr.astype(np.int32)).to(device)
+    ind_t = torch.from_numpy(colind.astype(np.int32)).to(device)
+    return {name: CsrMatrix._from_parts(
+                N_GEMM, N_GEMM, ptr_t, ind_t,
+                torch.from_numpy(values.astype(np_dtype)).to(device))
+            for name, (np_dtype, _) in DTYPES.items()}
+
+
+def spgemm_plan_timed(a):
+    """Build (and cache) the plan of ``a·a`` as ``a * a`` does; return it
+    with the host seconds of the symbolic phase, its path, and the seconds
+    of the rest (int32 conversion, upload, slot pointers)."""
+    rec = metrics.enable()
+    rec.records.clear()
+    try:
+        t0 = time.perf_counter()
+        plan = spgemm_mod._cached_plan(a, a)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        sym = [r for r in rec.records if r.op == "spgemm_symbolic"]
+    finally:
+        metrics.disable()
+        rec.records.clear()
+    if len(sym) != 1:
+        raise AssertionError(f"expected one symbolic phase, got {sym}")
+    return plan, sym[0].seconds, sym[0].path, total - sym[0].seconds
+
+
+def run_main_path(device, csr0, x0, big, mats, rhs, gemm):
+    """Every main path once, as a user calls it; returns the outputs."""
+    out = {"config0": csr0 @ torch.from_numpy(x0).to(device)}
+    for name, (csr, x, g) in big.items():
+        values = csr.values.detach().clone().requires_grad_(True)
+        xg = x.detach().clone().requires_grad_(True)
+        y = csr.with_values(values) @ xg
+        y.backward(g)
+        out["spmv", name] = (y.detach(), values.grad, xg.grad)
+    for (mname, name), mat in mats.items():
+        X, G = rhs[name]
+        values = mat.values.detach().clone().requires_grad_(True)
+        Xg = X.detach().clone().requires_grad_(True)
+        Y = mat.with_values(values) @ Xg
+        Y.backward(G)
+        out["spmm", mname, name] = (Y.detach(), values.grad, Xg.grad)
+    for name, (a, gc) in gemm.items():
+        values = a.values.detach().clone().requires_grad_(True)
+        ag = a.with_values(values)
+        c = ag * ag
+        c.values.backward(gc)
+        out["spgemm", name] = (c, values.grad)
+    torch.cuda.synchronize()
+    return out
+
+
 def edge_structures(device) -> None:
-    """Kernel against plain version on structures the main path's matrices
-    do not reach: every lane count (mean row lengths from 0.5 to 64), empty
-    rows, padding slots past ``rowptr[-1]`` holding values that must count
-    for nothing, and a matrix with no stored slots."""
+    """SpMV kernel against plain version on structures the main path's
+    matrices do not reach: every lane count (mean row lengths from 0.5 to
+    64), empty rows, padding slots past ``rowptr[-1]`` holding values that
+    must count for nothing, and a matrix with no stored slots."""
     rng = np.random.default_rng(2)
     n = 3000
     for name, (np_dtype, _) in DTYPES.items():
@@ -159,6 +336,119 @@ def edge_structures(device) -> None:
     torch.cuda.synchronize()
 
 
+def spmm_edge_structures(device) -> None:
+    """SpMM kernel against plain version: row lengths from empty to 40 on
+    average, every seventh row empty, padding slots past ``rowptr[-1]``
+    holding values, k in {1, 3, 32, 64, 100}; a matrix with no stored
+    slots, and k = 0, which launch nothing."""
+    rng = np.random.default_rng(4)
+    n, m = 3000, 2500
+    for name, (np_dtype, torch_dtype) in DTYPES.items():
+        for mean in (0.5, 3, 40):
+            lens = rng.poisson(mean, size=n)
+            lens[::7] = 0
+            ptr = np.concatenate([[0], np.cumsum(lens)])
+            nse = int(ptr[-1]) + 37
+            rowptr = torch.from_numpy(ptr.astype(np.int32)).to(device)
+            colind = torch.from_numpy(
+                rng.integers(0, m, size=nse).astype(np.int32)).to(device)
+            values = torch.from_numpy(
+                rng.normal(size=nse).astype(np_dtype)).to(device)
+            for k in (1, 3, 32, 64, 100):
+                X = torch.from_numpy(
+                    rng.normal(size=(m, k)).astype(np_dtype)).to(device)
+                Y = csr_spmm(rowptr, colind, values, X, n)
+                Y_p = csr_spmm_plain(rowptr, colind, values, X, n)
+                scale = csr_spmm_plain(rowptr, colind, values.abs(), X.abs(), n)
+                what = f"{name} SpMM edge structure, mean {mean}, k {k}"
+                within((Y - Y_p).abs(), scale, TOL[name], what)
+                if not bool((Y[::7] == 0).all()):
+                    raise AssertionError(f"{what}: an empty row is not 0")
+                if not torch.equal(Y, csr_spmm(rowptr, colind, values, X, n)):
+                    raise AssertionError(f"{what}: not bitwise repeatable")
+        before = dict(spmm_mod.LAUNCHES)
+        X = torch.ones(m, 4, dtype=torch_dtype, device=device)
+        none = csr_spmm(torch.zeros(n + 1, dtype=torch.int32, device=device),
+                        torch.zeros(0, dtype=torch.int32, device=device),
+                        torch.zeros(0, dtype=torch_dtype, device=device), X, n)
+        zero_k = csr_spmm(rowptr, colind, values, X[:, :0], n)
+        if (not bool((none == 0).all()) or zero_k.shape != (n, 0)
+                or spmm_mod.LAUNCHES != before):
+            raise AssertionError(f"{name}: no entries or k = 0 launched or "
+                                 "gave a wrong result")
+    torch.cuda.synchronize()
+
+
+def spgemm_edge_structures(device) -> None:
+    """SpGEMM kernel against plain version on term lists the main path does
+    not reach: empty slots (every ninth, and 40 in a row), one slot of
+    12,000 terms and others of thousands, a slot count that is not a
+    multiple of 32, operand padding past the referenced entries holding
+    values; and n_out == 0, which launches nothing."""
+    rng = np.random.default_rng(5)
+    n_out, nnz_a, nnz_b = 5001, 4000, 3000
+    lens = rng.poisson(1.3, size=n_out)
+    lens[::9] = 0
+    lens[200:240] = 0
+    lens[17], lens[100], lens[101], lens[4999] = 12_000, 3000, 700, 2500
+    tptr_np = np.concatenate([[0], np.cumsum(lens)])
+    n_terms = int(tptr_np[-1])
+    as_t = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)  # noqa: E731
+    tptr = as_t(tptr_np)
+    gid = as_t(np.repeat(np.arange(n_out), lens))
+    a_idx = as_t(rng.integers(0, nnz_a, size=n_terms))
+    b_idx = as_t(rng.integers(0, nnz_b, size=n_terms))
+    for name, (np_dtype, torch_dtype) in DTYPES.items():
+        a = torch.from_numpy(rng.normal(size=nnz_a + 50).astype(np_dtype)
+                             ).to(device)
+        b = torch.from_numpy(rng.normal(size=nnz_b).astype(np_dtype)
+                             ).to(device)
+        out = spgemm_numeric(tptr, gid, a_idx, b_idx, a, b, n_out)
+        ref = spgemm_numeric_plain(gid, a_idx, b_idx, a, b, n_out)
+        scale = spgemm_numeric_plain(gid, a_idx, b_idx, a.abs(), b.abs(),
+                                     n_out)
+        within((out - ref).abs(), scale, TOL[name],
+               f"{name} SpGEMM edge structure")
+        if not bool((out[torch.from_numpy(lens == 0).to(device)] == 0).all()):
+            raise AssertionError(f"{name}: an empty slot is not 0")
+        if not torch.equal(out, spgemm_numeric(tptr, gid, a_idx, b_idx, a, b,
+                                               n_out)):
+            raise AssertionError(f"{name}: SpGEMM edge structure not "
+                                 "bitwise repeatable")
+        before = dict(numeric_mod.LAUNCHES)
+        empty = spgemm_numeric(tptr[:1], gid[:0], a_idx[:0], b_idx[:0], a, b,
+                               0)
+        if empty.shape != (0,) or numeric_mod.LAUNCHES != before:
+            raise AssertionError(f"{name}: n_out == 0 launched or gave a "
+                                 "wrong result")
+    torch.cuda.synchronize()
+
+
+def spgemm_dense_checks(csr0, device) -> None:
+    """``a * b``, ``csc * csc`` and ``a ** 3`` at config[0]'s size against
+    dense products on the host, within 1e-12·(|A|·|B|)."""
+    rng = np.random.default_rng(6)
+    n = 1000
+    rows, cols = rng.integers(0, n, 10_000), rng.integers(0, n, 10_000)
+    b = CsrMatrix.from_coo(CooMatrix.with_triplets(
+        n, n, rows, cols, rng.normal(size=10_000)), device=device)
+    da, db = (m.to_dense().cpu().numpy() for m in (csr0, b))
+    checks = (("a * b", csr0 * b, da @ db, np.abs(da) @ np.abs(db)),
+              ("csc * csc", (csr0.to_csc() * b.to_csc()).to_csr(), da @ db,
+               np.abs(da) @ np.abs(db)),
+              ("a ** 3", csr0 ** 3, da @ da @ da,
+               np.abs(da) @ np.abs(da) @ np.abs(da)))
+    for what, c, ref, scale in checks:
+        got = c.to_dense().cpu().numpy()
+        if not (np.isfinite(got).all() and np.all(np.abs(got - ref)
+                                                   <= 1e-12 * scale)):
+            raise AssertionError(f"config[0] {what}: max error "
+                                 f"{np.abs(got - ref).max():.3e}")
+        print(f"phase 7: config[0] {what}: nnz {c.nnz}, matches the dense "
+              f"product within 1e-12*(|A||B|), max |err| "
+              f"{np.abs(got - ref).max():.3e}")
+
+
 def time_ms(fn, launches: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -168,6 +458,18 @@ def time_ms(fn, launches: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / launches
+
+
+def turns(kernel, plain, n_kernel: int, n_plain: int):
+    """Times in turns (plain, kernel, kernel, plain) after a warm-up:
+    ``(kernel_ms, plain_ms, (p1, k1, k2, p2))``."""
+    for fn in (plain, kernel):
+        time_ms(fn, 1)
+    p1 = time_ms(plain, n_plain)
+    k1 = time_ms(kernel, n_kernel)
+    k2 = time_ms(kernel, n_kernel)
+    p2 = time_ms(plain, n_plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
 def profile_steps(step, steps: int):
@@ -188,12 +490,25 @@ def profile_steps(step, steps: int):
     return wall, busy, sorted(per_name.items(), key=lambda kv: -kv[1][0])
 
 
+def print_profile(label: str, step, steps: int) -> None:
+    wall, busy, per_name = profile_steps(step, steps)
+    if not per_name:
+        print(f"{label} profiler saw no device kernels: device time not "
+              "measured")
+        return
+    print(f"{label} profiled {steps} steps: wall {wall:.4f} ms, device "
+          f"kernels {busy:.4f} ms, idle share {max(0.0, 1 - busy / wall):.4f}")
+    for kname, (ms, n) in per_name[:8]:
+        print(f"{label}   {ms / steps:8.4f} ms/step {n / steps:4.1f} "
+              f"launches/step  {kname[:90]}")
+
+
 def where_the_time_goes(big, card: str) -> None:
     for name, (csr, x, g) in big.items():
         values = csr.values.detach().clone().requires_grad_(True)
         xg = x.detach().clone().requires_grad_(True)
         mat = csr.with_values(values)
-        step = lambda: (mat @ xg).backward(g)
+        step = lambda: (mat @ xg).backward(g)  # noqa: E731
         for fn in (lambda: mat @ xg, step):
             time_ms(fn, 3)
         fwd = time_ms(lambda: mat @ xg, TIMED_LAUNCHES)
@@ -203,90 +518,14 @@ def where_the_time_goes(big, card: str) -> None:
         print(f"phase 5: {name} csr @ x (autograd on) {fwd:.4f} ms; forward "
               f"+ backward {fwd_bwd:.4f} ms/step; transpose_structure "
               f"{build:.4f} ms | {card}")
-        wall, busy, per_name = profile_steps(step, PROFILED_STEPS)
-        if not per_name:
-            print(f"phase 5: {name} profiler saw no device kernels: device "
-                  "time not measured")
-            continue
-        print(f"phase 5: {name} profiled {PROFILED_STEPS} steps: wall "
-              f"{wall:.4f} ms, device kernels {busy:.4f} ms, idle share "
-              f"{max(0.0, 1 - busy / wall):.4f}")
-        for kname, (ms, n) in per_name[:8]:
-            print(f"phase 5: {name}   {ms / PROFILED_STEPS:8.4f} ms/step "
-                  f"{n / PROFILED_STEPS:4.1f} launches/step  {kname[:90]}")
+        print_profile(f"phase 5: {name}", step, PROFILED_STEPS)
 
 
-def main() -> int:
-    # ---- phase 0: the machine ----------------------------------------
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs an NVIDIA GPU", file=sys.stderr)
-        return 1
-    card = nvidia_smi_card()
-    device = torch.device("cuda", 0)
-    print(f"phase 0: nvidia-smi: {card}")
-    print(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"device {torch.cuda.get_device_name(0)}, count "
-          f"{torch.cuda.device_count()}, nvcc {_build.find_nvcc()}")
-
-    # ---- phase 1: build ----------------------------------------------
-    cached = _build.library_path().exists()
-    t0 = time.perf_counter()
-    _build.load_library()
-    print(f"phase 1: nvcc {' '.join(_build.NVCC_FLAGS)} {SOURCE} -> "
-          f"build/kernels/{_build.library_path().name}: "
-          f"{time.perf_counter() - t0:.2f} s"
-          f"{' (already built)' if cached else ''}")
-
-    # ---- building the inputs (host COO -> CSR on the card) -----------
-    coo0, csr0, x0 = config0(device)
-    big = {}
-    for name, (np_dtype, _) in DTYPES.items():
-        csr, x, g, seconds = big_matrix(np_dtype, device)
-        big[name] = (csr, x, g)
-        print(f"phase 3: {name} n={N_BIG} nnz={csr.nnz}: COO build + "
-              f"CsrMatrix.from_coo(device='cuda') {seconds:.2f} s")
-
-    # ---- the main path, once, between a reset and a read of the counts
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
-    y0 = csr0 @ torch.from_numpy(x0).to(device)
-    main_out = {}
-    for name, (csr, x, g) in big.items():
-        values = csr.values.detach().clone().requires_grad_(True)
-        xg = x.detach().clone().requires_grad_(True)
-        y = csr.with_values(values) @ xg
-        y.backward(g)
-        main_out[name] = (y.detach(), values.grad, xg.grad)
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
-    print(f"main path launches: {launches}")
-    # config[0] forward (f64) plus a forward and an A^T g per big matrix.
-    if launches != {"float32": 2, "float64": 3}:
-        raise AssertionError(f"unexpected kernel launch counts {launches}")
-
-    # ---- phase 2: config[0] against the dense product -----------------
-    d0 = coo0.to_dense()
-    ref = d0 @ x0
-    err = np.abs(y0.cpu().numpy() - ref)
-    scale = np.abs(d0) @ np.abs(x0)
-    if not np.all(err <= 1e-12 * scale):
-        raise AssertionError(f"config[0]: max error {err.max():.3e}")
-    print(f"phase 2: config[0] 1000x1000 nnz={csr0.nnz} f64: csr @ x matches "
-          f"coo.to_dense() @ x, max |err| {err.max():.3e} <= 1e-12*(|A||x|)")
-    try:
-        csr0 @ torch.ones(1000, 2, dtype=torch.float64, device=device)
-    except NotImplementedError as e:
-        print(f"phase 2: a 2-D right-hand side on the card raises: {e}")
-    else:
-        raise AssertionError("SpMM on the card ran without its kernel")
-
-    # ---- phase 3: kernel against plain version on the card -----------
-    report = {}
+def check_spmv(big, main_out, report) -> None:
     for name, (csr, x, g) in big.items():
         tol = TOL[name]
         rowptr, colind, values = csr.rowptr, csr.colind, csr.values
-        y, dvals, dx = main_out[name]
+        y, dvals, dx = main_out["spmv", name]
         y_p = csr_spmv_plain(rowptr, colind, values, x, N_BIG)
         scale = csr_spmv_plain(rowptr, colind, values.abs(), x.abs(), N_BIG)
         err = (y - y_p).abs()
@@ -294,7 +533,7 @@ def main() -> int:
         y1 = csr_spmv(rowptr, colind, values, x, N_BIG)
         y2 = csr_spmv(rowptr, colind, values, x, N_BIG)
         torch.cuda.synchronize()
-        if not (torch.equal(y1, y2) and torch.equal(y1, y)):
+        if not bitwise_equal(y, y1, y2):
             raise AssertionError(f"{name}: kernel results differ run to run")
         # backward against the plain version's autograd
         v_p = values.detach().clone().requires_grad_(True)
@@ -308,29 +547,26 @@ def main() -> int:
         within((dx - dx_p).abs(), scale_dx, tol, f"{name} dx")
         within((dvals - dvals_p).abs(), (g[rows] * x[cols]).abs(), tol,
                f"{name} dvals")
-        report[name] = {"max_abs_err": float(err.max())}
+        report["csr_spmv", name] = {"max_abs_err": float(err.max())}
         print(f"phase 3: {name}: kernel == plain within {tol}*(|A||x|) row by "
               f"row (max |err| {float(err.max()):.3e}); bitwise repeatable; "
               f"dx and dvals match the plain autograd")
         del y_p, scale, y1, y2, v_p, x_p, dvals_p, dx_p, rows, cols, scale_dx
-    edge_structures(device)
+    edge_structures(big["float32"][0].device)
     print("phase 3: edge structures (lane counts 1..32, empty rows, padding, "
           "no entries): kernel == plain in float32 and float64")
 
-    # ---- phase 4: times ------------------------------------------------
+
+def time_spmv(big, report, card: str) -> None:
     for name, (csr, x, _) in big.items():
         rowptr, colind, values = csr.rowptr, csr.colind, csr.values
-        kernel = lambda: csr_spmv(rowptr, colind, values, x, N_BIG)
-        plain = lambda: csr_spmv_plain(rowptr, colind, values, x, N_BIG)
-        for fn in (plain, kernel):
-            time_ms(fn, 3)
-        p1 = time_ms(plain, TIMED_LAUNCHES)
-        k1 = time_ms(kernel, TIMED_LAUNCHES)
-        k2 = time_ms(kernel, TIMED_LAUNCHES)
-        p2 = time_ms(plain, TIMED_LAUNCHES)
+        k_ms, p_ms, (p1, k1, k2, p2) = turns(
+            lambda: csr_spmv(rowptr, colind, values, x, N_BIG),
+            lambda: csr_spmv_plain(rowptr, colind, values, x, N_BIG),
+            TIMED_LAUNCHES, TIMED_LAUNCHES)
         nnz, itemsize = csr.nse, values.element_size()
         nbytes = (itemsize + 4) * nnz + itemsize * 2 * N_BIG + 4 * (N_BIG + 1)
-        for label, ms in (("kernel", (k1 + k2) / 2), ("plain", (p1 + p2) / 2)):
+        for label, ms in (("kernel", k_ms), ("plain", p_ms)):
             gbs = nbytes / ms / 1e6
             print(f"phase 4: {name} {label}: {ms:.4f} ms/SpMV, "
                   f"{nnz / ms / 1e6:.2f} Gnnz/s, {gbs:.1f} GB/s, "
@@ -338,15 +574,269 @@ def main() -> int:
                   f"| {card}")
         print(f"phase 4: {name} turns (ms): plain {p1:.4f}, kernel {k1:.4f}, "
               f"kernel {k2:.4f}, plain {p2:.4f}")
-        report[name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+        report["csr_spmv", name].update(ms=k_ms, plain_ms=p_ms)
 
-    # ---- phase 5: where the time goes ----------------------------------
-    where_the_time_goes(big, card)
 
-    kernels = [{"name": f"csr_spmv_{name}",
-                "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-                "launches": launches[name], **report[name]}
-               for name in DTYPES]
+def check_spmm(mats, rhs, main_out, report) -> None:
+    for (mname, name), mat in mats.items():
+        if mname == "csc":
+            continue
+        tol = TOL[name]
+        X, G = rhs[name]
+        rowptr, colind, values = mat.rowptr, mat.colind, mat.values
+        Y, dvals, dX = main_out["spmm", mname, name]
+        what = f"{name} {mname} SpMM"
+        Y_p = csr_spmm_plain(rowptr, colind, values, X, N_MM)
+        err = (Y - Y_p).abs()
+        del Y_p
+        within(err, csr_spmm_plain(rowptr, colind, values.abs(), X.abs(),
+                                   N_MM), tol, f"{what} forward")
+        max_err = float(err.max())
+        del err
+        if not bitwise_equal(Y, csr_spmm(rowptr, colind, values, X, N_MM),
+                             csr_spmm(rowptr, colind, values, X, N_MM)):
+            raise AssertionError(f"{what}: kernel results differ run to run")
+        v_p = values.detach().clone().requires_grad_(True)
+        X_p = X.detach().clone().requires_grad_(True)
+        dvals_p, dX_p = torch.autograd.grad(
+            csr_spmm_plain(rowptr, colind, v_p, X_p, N_MM), (v_p, X_p), G)
+        del v_p, X_p
+        t = transpose_plan(rowptr, colind, N_MM, N_MM)
+        within((dX - dX_p).abs(), csr_spmm_plain(
+            t.ptr, t.minor, values.abs()[t.perm], G.abs(), N_MM), tol,
+            f"{what} dX")
+        within((dvals - dvals_p).abs(), _row_dots(
+            torch.cat([G.abs(), G.new_zeros(1, K_MM)]), X.abs(), t.major,
+            colind), tol, f"{what} dvals")
+        del dvals_p, dX_p
+        free_memory()
+        if mname == "random":
+            Yc, dvals_c, dX_c = main_out["spmm", "csc", name]
+            mirror = transpose_plan(mats["csc", name].colptr,
+                                    mats["csc", name].rowind, N_MM, N_MM)
+            if not bitwise_equal(Yc, Y) or not bitwise_equal(dX_c, dX) \
+                    or not bitwise_equal(dvals_c[mirror.perm], dvals):
+                raise AssertionError(f"{name}: csc @ X differs from csr @ X")
+            report["csr_spmm", name] = {"max_abs_err": max_err}
+        print(f"phase 6: {what} n={N_MM} nnz={mat.nnz} k={K_MM}: kernel == "
+              f"plain within {tol}*(|A||X|) entry by entry (max |err| "
+              f"{max_err:.3e}); bitwise repeatable; dX and dvals match the "
+              f"plain autograd"
+              + ("; csc @ X through the mirror bitwise equal to csr @ X"
+                 if mname == "random" else ""))
+    spmm_edge_structures(X.device)
+    print("phase 6: SpMM edge structures (empty rows, padding with values, k "
+          "in 1, 3, 32, 64, 100; no entries; k = 0): kernel == plain in "
+          "float32 and float64")
+
+
+def check_spgemm(gemm, plan, main_out, report) -> None:
+    for name, (a, gc) in gemm.items():
+        tol = TOL[name]
+        c, dvals = main_out["spgemm", name]
+        if not (torch.equal(c.rowptr, plan.rowptr)
+                and torch.equal(c.colind, plan.colind)
+                and c.values.shape == (plan.n_out,)
+                and c.values.dtype == a.dtype
+                and bool(torch.isfinite(c.values).all())):
+            raise AssertionError(f"{name}: A·A has the wrong structure, "
+                                 "dtype or non-finite values")
+        args = (plan.gid, plan.a_idx, plan.b_idx)
+        v = a.values
+        ref = spgemm_numeric_plain(*args, v, v, plan.n_out)
+        scale = spgemm_numeric_plain(*args, v.abs(), v.abs(), plan.n_out)
+        err = (c.values.detach() - ref).abs()
+        within(err, scale, tol, f"{name} SpGEMM")
+        again = [spgemm_numeric(plan.tptr, *args, v, v, plan.n_out)
+                 for _ in range(2)]
+        if not bitwise_equal(c.values.detach(), *again):
+            raise AssertionError(f"{name}: SpGEMM results differ run to run")
+        v_p = v.detach().clone().requires_grad_(True)
+        (dv_p,) = torch.autograd.grad(
+            spgemm_numeric_plain(*args, v_p, v_p, plan.n_out), (v_p,), gc)
+        gg = gc.abs()[plan.gid]
+        scale_dv = torch.zeros_like(v).index_add_(
+            0, plan.a_idx, gg * v.abs()[plan.b_idx]).index_add_(
+            0, plan.b_idx, gg * v.abs()[plan.a_idx])
+        within((dvals - dv_p).abs(), scale_dv, tol, f"{name} SpGEMM dvals")
+        report["spgemm", name] = {"max_abs_err": float(err.max())}
+        print(f"phase 7: {name} A·A n={N_GEMM} nnz_a={a.nnz} terms="
+              f"{plan.a_idx.numel()} n_out={plan.n_out}: kernel == plain "
+              f"within {tol}*sum|a||b| slot by slot (max |err| "
+              f"{float(err.max()):.3e}); bitwise repeatable; the gradient "
+              f"matches the plain autograd")
+        del ref, scale, err, again, v_p, dv_p, gg, scale_dv
+    spgemm_edge_structures(plan.gid.device)
+    print("phase 7: SpGEMM edge structures (empty slots, a 12,000-term slot, "
+          "n_out == 0): kernel == plain in float32 and float64")
+
+
+def time_spmm_spgemm(mats, rhs, gemm, plan, report, card: str) -> None:
+    for (mname, name), mat in mats.items():
+        if mname == "csc":
+            continue
+        X, _ = rhs[name]
+        rowptr, colind, values = mat.rowptr, mat.colind, mat.values
+        k_ms, p_ms, (p1, k1, k2, p2) = turns(
+            lambda: csr_spmm(rowptr, colind, values, X, N_MM),
+            lambda: csr_spmm_plain(rowptr, colind, values, X, N_MM),
+            TIMED_LAUNCHES, PLAIN_SPMM_LAUNCHES)
+        free_memory()
+        nnz, itemsize = mat.nse, values.element_size()
+        nbytes = ((itemsize + 4) * nnz + itemsize * K_MM * 2 * N_MM
+                  + 4 * (N_MM + 1))
+        for label, ms in (("kernel", k_ms), ("plain", p_ms)):
+            gbs = nbytes / ms / 1e6
+            print(f"phase 8: {name} {mname} SpMM k={K_MM} {label}: {ms:.4f} "
+                  f"ms, {2 * nnz * K_MM / ms / 1e6:.1f} GFLOP/s, {gbs:.1f} "
+                  f"GB/s, {100 * gbs / (HBM_TBPS * 1e3):.1f} % of "
+                  f"{HBM_TBPS} TB/s | {card}")
+        print(f"phase 8: {name} {mname} SpMM turns (ms): plain {p1:.4f}, "
+              f"kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f}")
+        if mname == "random":
+            report["csr_spmm", name].update(ms=k_ms, plain_ms=p_ms)
+    n_terms = plan.a_idx.numel()
+    args = (plan.gid, plan.a_idx, plan.b_idx)
+    for name, (a, _) in gemm.items():
+        v = a.values
+        k_ms, p_ms, (p1, k1, k2, p2) = turns(
+            lambda: spgemm_numeric(plan.tptr, *args, v, v, plan.n_out),
+            lambda: spgemm_numeric_plain(*args, v, v, plan.n_out),
+            TIMED_LAUNCHES, TIMED_LAUNCHES)
+        for label, ms in (("kernel", k_ms), ("plain", p_ms)):
+            print(f"phase 8: {name} SpGEMM numeric {label}: {ms:.4f} ms, "
+                  f"{n_terms / ms / 1e6:.3f} Gterms/s | {card}")
+        print(f"phase 8: {name} SpGEMM turns (ms): plain {p1:.4f}, kernel "
+              f"{k1:.4f}, kernel {k2:.4f}, plain {p2:.4f}")
+        report["spgemm", name].update(ms=k_ms, plain_ms=p_ms)
+
+
+def profile_spmm_spgemm(mats, rhs, gemm, card: str) -> None:
+    for name in DTYPES:
+        X, G = rhs[name]
+        mat = mats["random", name]
+        values = mat.values.detach().clone().requires_grad_(True)
+        Xg = X.detach().clone().requires_grad_(True)
+        m = mat.with_values(values)
+        step = lambda: (m @ Xg).backward(G)  # noqa: E731
+        time_ms(step, 2)
+        print(f"phase 9: {name} csr_random SpMM k={K_MM} forward + backward "
+              f"{time_ms(step, 3):.4f} ms/step | {card}")
+        print_profile(f"phase 9: {name} SpMM fwd+bwd", step, 3)
+        a, _ = gemm[name]
+        gstep = lambda: a * a  # noqa: E731
+        time_ms(gstep, 2)
+        print(f"phase 9: {name} A·A (plan cached) {time_ms(gstep, 5):.4f} "
+              f"ms/product | {card}")
+        print_profile(f"phase 9: {name} SpGEMM", gstep, 5)
+        del values, Xg, m
+        free_memory()
+
+
+def main() -> int:
+    # ---- phase 0: the machine ----------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    card = nvidia_smi_card()
+    device = torch.device("cuda", 0)
+    print(f"phase 0: nvidia-smi: {card}")
+    print(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}, count "
+          f"{torch.cuda.device_count()}, nvcc {_build.find_nvcc()}")
+
+    # ---- phase 1: build ----------------------------------------------
+    cached = _build.library_path().exists()
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"phase 1: nvcc {' '.join(_build.NVCC_FLAGS)} "
+          f"{' '.join(src for src, _ in KERNELS.values())} -> "
+          f"build/kernels/{_build.library_path().name}: "
+          f"{time.perf_counter() - t0:.2f} s"
+          f"{' (already built)' if cached else ''}")
+
+    # ---- building the inputs -----------------------------------------
+    with phase("inputs: config[0] and SpMV at n = 2**21"):
+        coo0, csr0, x0 = config0(device)
+        big = {}
+        for name, (np_dtype, _) in DTYPES.items():
+            *big[name], seconds = big_matrix(np_dtype, device)
+            print(f"phase 3: {name} n={N_BIG} nnz={big[name][0].nnz}: COO "
+                  f"build + CsrMatrix.from_coo(device='cuda') {seconds:.2f} s")
+    with phase("inputs: config[1] SpMM matrices"):
+        mats, rhs = spmm_inputs(device)
+        for mname in ("random", "banded"):
+            print(f"phase 6: {mname} n={N_MM} nnz={mats[mname, 'float32'].nnz}"
+                  f" k={K_MM}")
+    with phase("inputs: config[2] power-law matrix and A·A plan"):
+        gmats = power_law(device)
+        plan, sym_s, sym_path, upload_s = spgemm_plan_timed(gmats["float32"])
+        rng = np.random.default_rng(7)
+        gc = rng.normal(size=plan.n_out)
+        gemm = {name: (a, torch.from_numpy(gc.astype(DTYPES[name][0]))
+                       .to(device)) for name, a in gmats.items()}
+        per_slot = plan.tptr[1:] - plan.tptr[:-1]
+        print(f"phase 7: power-law n={N_GEMM} nnz={gmats['float32'].nnz}, "
+              f"A·A terms={plan.a_idx.numel()} n_out={plan.n_out} (terms per "
+              f"slot: max {int(per_slot.max())}, slots with more than one "
+              f"{int((per_slot > 1).sum())}): symbolic phase ({sym_path}) "
+              f"{sym_s:.2f} s on the host; int32 conversion + upload + slot "
+              f"pointers {upload_s:.2f} s")
+        del per_slot
+
+    # ---- the main paths, once, between a reset and a read of the counts
+    with phase("main paths"):
+        for _, counts in KERNELS.values():
+            for key in counts:
+                counts[key] = 0
+        main_out = run_main_path(device, csr0, x0, big, mats, rhs, gemm)
+        launches = {kname: dict(counts)
+                    for kname, (_, counts) in KERNELS.items()}
+    print(f"main path launches: {launches}")
+    if launches != MAIN_LAUNCHES:
+        raise AssertionError(f"unexpected kernel launch counts {launches}, "
+                             f"expected {MAIN_LAUNCHES}")
+
+    # ---- phase 2: config[0] against the dense product -----------------
+    with phase("phase 2"):
+        d0 = coo0.to_dense()
+        ref = d0 @ x0
+        err = np.abs(main_out["config0"].cpu().numpy() - ref)
+        scale = np.abs(d0) @ np.abs(x0)
+        if not np.all(err <= 1e-12 * scale):
+            raise AssertionError(f"config[0]: max error {err.max():.3e}")
+        print(f"phase 2: config[0] 1000x1000 nnz={csr0.nnz} f64: csr @ x "
+              f"matches coo.to_dense() @ x, max |err| {err.max():.3e} <= "
+              "1e-12*(|A||x|)")
+
+    report = {}
+    with phase("phase 3"):
+        check_spmv(big, main_out, report)
+    with phase("phase 4"):
+        time_spmv(big, report, card)
+    with phase("phase 5"):
+        where_the_time_goes(big, card)
+    del big
+    free_memory()
+    with phase("phase 6"):
+        check_spmm(mats, rhs, main_out, report)
+    with phase("phase 7"):
+        check_spgemm(gemm, plan, main_out, report)
+        spgemm_dense_checks(csr0, device)
+    del main_out
+    free_memory()
+    with phase("phase 8"):
+        time_spmm_spgemm(mats, rhs, gemm, plan, report, card)
+    with phase("phase 9"):
+        profile_spmm_spgemm(mats, rhs, gemm, card)
+    print(f"total: {time.perf_counter() - t_start:.2f} s")
+
+    kernels = [{"name": f"{kname}_{name}", "route": "cuda", "source": source,
+                "replaces": REPLACES[kname, name],
+                "launches": launches[kname][name], **report[kname, name]}
+               for kname, (source, _) in KERNELS.items() for name in DTYPES]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

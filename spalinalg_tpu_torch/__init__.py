@@ -3,9 +3,10 @@
 The same sparse formats and operations as ``spalinalg_tpu`` (the JAX
 package, which stays the reference), on torch tensors, with the TPU's
 Pallas kernels replaced by kernels written by hand for NVIDIA Hopper
-(``csrc/``). This slice holds the main path:
+(``csrc/``). The ported paths:
 
     CooMatrix / DokMatrix  ->  CsrMatrix.from_coo(coo, device=...)  ->  csr @ x
+    csr @ X, csc @ X (SpMM)    a * b, a @ b, a ** k (SpGEMM)    a + b, a - b, -a
 
 Builders live on the host; a compressed matrix lives on the device it was
 built for. The package imports torch and NumPy and never JAX.
@@ -23,7 +24,8 @@ from .errors import (
 from .formats.coo import CooMatrix
 from .formats.dok import DokMatrix
 from .formats.compressed import CscMatrix, CsrMatrix
-from .ops.matvec import csc_matvec, csr_matvec
+from .ops.matvec import csc_matmat, csc_matvec, csr_matmat, csr_matvec
+from .ops.spgemm import SpgemmPlan, spgemm, spgemm_apply, spgemm_plan
 from . import io
 from . import utils
 
@@ -40,7 +42,13 @@ __all__ = [
     "StructureError",
     "DTypeError",
     "csr_matvec",
+    "csr_matmat",
     "csc_matvec",
+    "csc_matmat",
+    "spgemm",
+    "spgemm_plan",
+    "spgemm_apply",
+    "SpgemmPlan",
     "io",
     "utils",
     "__version__",

@@ -336,12 +336,88 @@ class _CompressedMatrix:
                 f"dtype={self.dtype}, device={self.device})")
 
     # ------------------------------------------------------------------
-    # Products
+    # Arithmetic operators (implementations in spalinalg_tpu_torch.ops)
     # ------------------------------------------------------------------
+
+    def __add__(self, other):
+        """Union sum with cancelled zeros kept (csr/ops/add.rs)."""
+        from ..ops import elementwise
+
+        if isinstance(other, type(self)):
+            return elementwise.compressed_add(self, other, sign=+1)
+        return NotImplemented
+
+    def __sub__(self, other):
+        """Union difference with cancelled zeros kept (csr/ops/sub.rs)."""
+        from ..ops import elementwise
+
+        if isinstance(other, type(self)):
+            return elementwise.compressed_add(self, other, sign=-1)
+        return NotImplemented
+
+    def __neg__(self):
+        """Copy structure, negate values (csr/ops/neg.rs:5-18)."""
+        return self.with_values(-self._values)
+
+    def __pow__(self, k):
+        """Matrix power ``A**k`` by binary exponentiation over SpGEMM (each
+        squaring's plan is cached by structure). ``A**0`` is the identity on
+        the matrix's device and dtype (scipy semantics); needs a square
+        matrix and integer ``k >= 0``.
+
+        >>> from spalinalg_tpu_torch import CsrMatrix
+        >>> a = CsrMatrix(2, 2, [0, 2, 3], [0, 1, 1], [1.0, 1.0, 2.0])
+        >>> (a ** 3).to_dense().tolist()
+        [[1.0, 7.0], [0.0, 8.0]]
+        """
+        if not isinstance(k, (int, np.integer)) or isinstance(k, bool):
+            return NotImplemented
+        if self._nrows != self._ncols:
+            raise ShapeError(
+                f"matrix power needs a square matrix, got {self.shape}")
+        if k < 0:
+            raise ValueError(f"matrix power needs k >= 0, got {k}")
+        if k == 0:
+            return type(self).eye(self._nrows, dtype=self.dtype,
+                                  device=self.device)
+        result = None
+        base = self
+        while k:
+            if k & 1:
+                result = base if result is None else result * base
+            k >>= 1
+            if k:
+                base = base * base
+        return result
+
+    def __mul__(self, other):
+        """SpGEMM for sparse*sparse (the reference's ``Mul``,
+        csr/ops/mul.rs / csc/ops/mul.rs); scaling for a number or a 0-d
+        tensor or array."""
+        if isinstance(other, type(self)):
+            from ..ops import spgemm
+
+            return spgemm.spgemm(self, other)
+        if isinstance(other, (np.ndarray, np.generic)) and other.ndim == 0:
+            other = torch.as_tensor(other)
+        if isinstance(other, (int, float)) or (
+                isinstance(other, torch.Tensor) and other.ndim == 0):
+            return self.with_values(self._values * other)
+        return NotImplemented
+
+    def __rmul__(self, other):
+        if isinstance(other, (int, float)):
+            return self.with_values(other * self._values)
+        return NotImplemented
 
     def __matmul__(self, other):
         """``A @ x`` (SpMV) / ``A @ X`` (SpMM) for a dense tensor or NumPy
-        array on the matrix's device."""
+        array on the matrix's device; SpGEMM for a sparse matrix of the
+        same format."""
+        if isinstance(other, type(self)):
+            from ..ops import spgemm
+
+            return spgemm.spgemm(self, other)
         if isinstance(other, (torch.Tensor, np.ndarray)):
             from ..ops import matvec
 

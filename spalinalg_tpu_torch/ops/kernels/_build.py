@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels from ``spalinalg_tpu_torch/csrc``.
 
-The sources are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``. No PyTorch headers are
+The sources are compiled at first use with ``nvcc``, one process per
+``.cu`` file, all started together, and linked into one shared library with
+a plain C interface, loaded with ``ctypes``. No PyTorch headers are
 included, so a build takes seconds. The library goes under
 ``build/kernels/`` at the repository root, named by a hash of the sources
 and flags, so an edited ``.cu`` rebuilds. Nothing here runs at import: a
@@ -18,16 +19,27 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["KernelBuildError", "find_nvcc", "library_path", "load_library"]
+__all__ = ["KernelBuildError", "find_nvcc", "launch", "library_path",
+           "load_library"]
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-_SPMV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                          ctypes.c_void_p]
+_P = ctypes.c_void_p
+_ENTRIES = {
+    # (rowptr, colind, values, x, y, nrows, lanes, stream)
+    "spal_csr_spmv_f32": [_P] * 5 + [ctypes.c_longlong, ctypes.c_int, _P],
+    "spal_csr_spmv_f64": [_P] * 5 + [ctypes.c_longlong, ctypes.c_int, _P],
+    # (rowptr, colind, values, X, Y, nrows, k, stream)
+    "spal_csr_spmm_f32": [_P] * 5 + [ctypes.c_longlong] * 2 + [_P],
+    "spal_csr_spmm_f64": [_P] * 5 + [ctypes.c_longlong] * 2 + [_P],
+    # (tptr, a_idx, b_idx, a, b, out, n_out, stream)
+    "spal_spgemm_numeric_f32": [_P] * 6 + [ctypes.c_longlong, _P],
+    "spal_spgemm_numeric_f64": [_P] * 6 + [ctypes.c_longlong, _P],
+}
 
 
 class KernelBuildError(RuntimeError):
@@ -35,7 +47,7 @@ class KernelBuildError(RuntimeError):
 
 
 def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return sorted(CSRC.glob("*.cu"))
 
 
 def find_nvcc() -> str:
@@ -55,23 +67,43 @@ def find_nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libspal_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise if any of them fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        output = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} exited with {proc.returncode}:"
+                          f"\n{output}")
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+
+
 def _build(out: Path) -> None:
-    # Per-process temporary name: concurrent first uses do not collide.
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    # Per-process temporary names: concurrent first uses do not collide.
+    stem = f"{out.name}.{os.getpid()}"
+    objs = [out.with_name(f"{stem}.{src.stem}.o") for src in _sources()]
+    tmp = out.with_name(f"{stem}.tmp")
+    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc exited with {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for obj, src in zip(objs, _sources())])
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
 
 
 @functools.cache
@@ -81,10 +113,21 @@ def load_library() -> ctypes.CDLL:
     if not path.exists():
         _build(path)
     lib = ctypes.CDLL(str(path))
-    for name in ("spal_csr_spmv_f32", "spal_csr_spmv_f64"):
+    for name, argtypes in _ENTRIES.items():
         fn = getattr(lib, name)
-        fn.argtypes = _SPMV_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.spal_error_string.argtypes = [ctypes.c_int]
     lib.spal_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call the C entry point ``name`` (building and loading the library
+    if needed); raise if it reports a CUDA error."""
+    lib = load_library()
+    code = getattr(lib, name)(*args)
+    if code != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {lib.spal_error_string(code).decode()} "
+            f"(cudaError {code})")

@@ -120,22 +120,16 @@ def csr_spmv(rowptr, colind, values, x, nrows: int) -> torch.Tensor:
         raise ValueError(f"no csr_spmv kernel for device {device}")
     if nrows == 0 or colind.numel() == 0:
         return torch.zeros(nrows, dtype=acc, device=device)
-    from ._build import load_library
+    from ._build import launch
 
-    lib = load_library()
     name, key = _ENTRY[acc]
     rowptr, colind = rowptr.contiguous(), colind.contiguous()
     y = torch.empty(nrows, dtype=acc, device=device)
     with torch.cuda.device(device):
-        code = getattr(lib, name)(
-            rowptr.data_ptr(), colind.data_ptr(), values.data_ptr(),
-            x.data_ptr(), y.data_ptr(), nrows,
-            lanes_for(colind.numel(), nrows),
-            torch.cuda.current_stream(device).cuda_stream)
-    if code != 0:
-        raise RuntimeError(
-            f"{name} launch failed: {lib.spal_error_string(code).decode()} "
-            f"(cudaError {code})")
+        launch(name, rowptr.data_ptr(), colind.data_ptr(), values.data_ptr(),
+               x.data_ptr(), y.data_ptr(), nrows,
+               lanes_for(colind.numel(), nrows),
+               torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES[key] += 1
     return y
 

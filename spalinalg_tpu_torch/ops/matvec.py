@@ -1,4 +1,4 @@
-"""SpMV: sparse x dense products (counterpart of
+"""SpMV and SpMM: sparse x dense products (counterpart of
 ``spalinalg_tpu/ops/matvec.py``; absent from the reference, whose docs only
 state the intent, `csr.rs:16-17`).
 
@@ -8,9 +8,13 @@ state the intent, `csr.rs:16-17`).
 - :func:`csc_matvec` runs the same kernel on a cached CSR mirror of the CSC
   structure (the CSR of A has the transposed CSC structure and the values
   ``values[perm]``), as ``spalinalg_tpu/ops/matvec.py`` does.
-- :func:`matmul_dense` dispatches ``A @ dense``. A 2-D right-hand side
-  (SpMM) runs a plain torch version on CPU tensors; on CUDA tensors it
-  raises until its kernel is ported.
+- :func:`csr_matmat` / :func:`csc_matmat` (SpMM, ``Y = A @ X`` for dense
+  ``X`` of shape ``(ncols, k)``) run ``CsrSpmm``: the hand-written SpMM
+  kernel for CUDA tensors, its plain torch version for CPU tensors, with
+  the gradient to ``values`` and ``X``; CSC goes through the same CSR
+  mirror. Any ``k >= 1`` is taken; ``k == 0`` gives an empty result.
+- :func:`matmul_dense` dispatches ``A @ dense`` to SpMV (1-D) or SpMM
+  (2-D).
 
 Operands must lie on the matrix's device; nothing here moves them.
 """
@@ -22,9 +26,11 @@ import torch
 
 from ..errors import ShapeError
 from ..utils.metrics import instrument
-from .kernels.csr_spmv import CsrSpmv, csr_spmv_plain, path_for, transpose_plan
+from .kernels.csr_spmm import CsrSpmm
+from .kernels.csr_spmv import CsrSpmv, path_for, transpose_plan
 
-__all__ = ["matmul_dense", "csr_matvec", "csc_matvec"]
+__all__ = ["matmul_dense", "csr_matvec", "csr_matmat", "csc_matvec",
+           "csc_matmat"]
 
 
 def _dense_operand(mat, other, ndims) -> torch.Tensor:
@@ -83,24 +89,36 @@ def csc_matvec(csc, x) -> torch.Tensor:
     return _spmv("csc_spmv", csc, x)
 
 
-def _spmm_plain(mat, X) -> torch.Tensor:
-    """Plain torch ``Y = A @ X`` (CPU tensors only until the SpMM kernel,
-    ROADMAP queue B item B2, is ported)."""
-    if X.device.type != "cpu":
-        raise NotImplementedError(
-            "SpMM (2-D right-hand side) on a GPU waits for its kernel: "
-            "ROADMAP queue B, item B2")
-    rowptr, colind, values = _csr_arrays(mat)
-    return csr_spmv_plain(rowptr, colind, values, X, mat.nrows)
+def _spmm(op, mat, X):
+    X = _dense_operand(mat, X, (2,))
+    nnz, k = mat.nse, int(X.shape[1])
+    itm = mat.values.element_size()
+
+    def run():
+        rowptr, colind, values = _csr_arrays(mat)
+        return CsrSpmm.apply(values, X, rowptr, colind, mat.nrows,
+                             mat.ncols)
+
+    return instrument(op, run, path=path_for(X.device), device=X.device,
+                      nnz=nnz, flops=2 * nnz * k,
+                      bytes=(itm * (1 + 2 * k) + 4) * nnz)
+
+
+def csr_matmat(csr, X) -> torch.Tensor:
+    """``Y = A @ X`` for CSR ``A`` and dense ``X`` of shape ``(ncols, k)``."""
+    return _spmm("csr_spmm", csr, X)
+
+
+def csc_matmat(csc, X) -> torch.Tensor:
+    """``Y = A @ X`` for CSC ``A``, through the cached CSR mirror."""
+    return _spmm("csc_spmm", csc, X)
 
 
 def matmul_dense(mat, other) -> torch.Tensor:
     """Dispatch ``A @ dense`` to SpMV (1-D rhs) or SpMM (2-D rhs)."""
     other = _dense_operand(mat, other, (1, 2))
-    if other.ndim == 2:
-        return _spmm_plain(mat, other)
     from ..formats.compressed import CscMatrix
 
     if isinstance(mat, CscMatrix):
-        return csc_matvec(mat, other)
-    return csr_matvec(mat, other)
+        return (csc_matvec if other.ndim == 1 else csc_matmat)(mat, other)
+    return (csr_matvec if other.ndim == 1 else csr_matmat)(mat, other)

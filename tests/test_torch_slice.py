@@ -23,7 +23,9 @@ import jax.numpy as jnp
 import spalinalg_tpu as jsp
 import spalinalg_tpu_torch as tsp
 from spalinalg_tpu_torch.ops.kernels import _build
+from spalinalg_tpu_torch.ops.kernels.csr_spmm import csr_spmm
 from spalinalg_tpu_torch.ops.kernels.csr_spmv import csr_spmv
+from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import spgemm_numeric
 
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 
@@ -84,7 +86,12 @@ def test_slice_matches_jax(dtype, builder):
 
 def test_port_never_imports_jax():
     code = ("import sys, spalinalg_tpu_torch, "
-            "spalinalg_tpu_torch.ops.kernels.csr_spmv, chip_smoke; "
+            "spalinalg_tpu_torch.ops.kernels.csr_spmv, "
+            "spalinalg_tpu_torch.ops.kernels.csr_spmm, "
+            "spalinalg_tpu_torch.ops.kernels.spgemm_numeric, "
+            "spalinalg_tpu_torch.ops.spgemm, "
+            "spalinalg_tpu_torch.ops.elementwise, "
+            "spalinalg_tpu_torch.native.lib, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'spalinalg_tpu' or "
             "m.startswith('spalinalg_tpu.')]; "
@@ -117,15 +124,30 @@ def test_port_sources_import_no_jax():
 
 
 def test_no_build_on_cpu(monkeypatch):
-    """Running the slice on CPU tensors never reaches the kernel build."""
+    """Running the slices on CPU tensors (SpMV, SpMM and SpGEMM, with their
+    gradients) never reaches the kernel build or ``nvcc``."""
     calls = []
     monkeypatch.setattr(_build, "find_nvcc", lambda: calls.append(1))
     monkeypatch.setattr(_build, "_build", lambda out: calls.append(1))
+    monkeypatch.setattr(_build, "_run_all", lambda cmds: calls.append(cmds))
     _build.load_library.cache_clear()
     args, x, g = _triplets(np.float64)
     csr = tsp.CsrMatrix.from_coo(tsp.CooMatrix.with_triplets(*args))
     _port_slice(csr, x, g)
     _port_slice(csr.to_csc(), x, g)
+    for mat in (csr, csr.to_csc()):
+        values = mat.values.clone().requires_grad_(True)
+        X = torch.from_numpy(np.stack([x, -x], 1)).requires_grad_(True)
+        (mat.with_values(values) @ X).sum().backward()
+    rng = np.random.default_rng(6)
+    sq = tsp.CsrMatrix.from_coo(tsp.CooMatrix.with_triplets(
+        300, 300, rng.integers(0, 300, 6000), rng.integers(0, 300, 6000),
+        rng.normal(size=6000)))
+    assert sq.nnz > 4096   # the native symbolic phase: g++, not nvcc
+    values = sq.values.clone().requires_grad_(True)
+    (sq.with_values(values) * sq).values.sum().backward()
+    ((sq ** 3) + sq - sq.to_csc().to_csr()).to_dense()
+    assert values.grad is not None
     assert calls == []
     assert _build.load_library.cache_info().currsize == 0
 
@@ -146,8 +168,8 @@ def test_metrics_record_the_path():
 
 
 def test_no_plain_torch_off_the_cpu():
-    """Off the CPU the wrapper launches a kernel or raises; it never runs
-    the plain version. SpMM has no kernel yet and raises there."""
+    """Off the CPU each wrapper launches its kernel or raises; it never
+    runs the plain version. The meta device has no kernel."""
     ptr = torch.tensor([0, 1, 2], dtype=torch.int32, device="meta")
     ind = torch.tensor([0, 1], dtype=torch.int32, device="meta")
     val = torch.ones(2, dtype=torch.float64, device="meta")
@@ -155,8 +177,13 @@ def test_no_plain_torch_off_the_cpu():
     with pytest.raises(ValueError, match="no csr_spmv kernel"):
         csr_spmv(ptr, ind, val, x, 2)
     mat = tsp.CsrMatrix._from_parts(2, 2, ptr, ind, val)
-    with pytest.raises(NotImplementedError, match="B2"):
+    with pytest.raises(ValueError, match="no csr_spmm kernel for device"):
         mat @ torch.ones(2, 3, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="no csr_spmm kernel for device"):
+        csr_spmm(ptr, ind, val, torch.ones(2, 3, dtype=torch.float64,
+                                           device="meta"), 2)
+    with pytest.raises(ValueError, match="no spgemm_numeric kernel for device"):
+        spgemm_numeric(ptr, ind, ind, ind, val, val, 2)
 
 
 @pytest.mark.parametrize("module", [
@@ -164,6 +191,8 @@ def test_no_plain_torch_off_the_cpu():
     "spalinalg_tpu_torch.formats.coo",
     "spalinalg_tpu_torch.formats.dok",
     "spalinalg_tpu_torch.formats.compressed",
+    "spalinalg_tpu_torch.ops.elementwise",
+    "spalinalg_tpu_torch.ops.spgemm",
     "spalinalg_tpu_torch.utils.metrics",
     "spalinalg_tpu_torch.utils.plancache",
 ])
