@@ -44,11 +44,25 @@ pass; each prints its seconds):
 8. SpMM and SpGEMM times, in turns (plain, kernel, kernel, plain).
 9. Where the SpMM and SpGEMM time goes: ``torch.profiler`` over a forward +
    backward SpMM step and a SpGEMM numeric step.
+10. BSR: tri128, ``bench.py``'s block-tridiagonal pattern of 128 x 128
+    blocks at 4096 block rows (n = 524,288, 12,286 blocks, 201M stored
+    values), generated on the card from a seeded generator, through the
+    validating constructor, in float32, bfloat16 (``astype``) and float64;
+    banded8, config[1]'s banded matrix through ``CsrMatrix.to_bsr(8)``, in
+    float32 and float64. ``bsr @ x`` and ``bsr @ X`` (k = 64): kernel
+    against plain version row by row, bitwise repeats, gradients against
+    the plain autograd, banded8's ``bsr @ X`` against its ``csr @ X``; edge
+    structures (empty block rows, padding blocks, bs 1, 3 and 384,
+    rectangular blocks, k in {1, 3, 32, 64, 100}, no blocks); the card's
+    peak memory.
+11. BSR times, in turns, and ``torch.profiler`` over forward + backward
+    steps.
 
-The main paths (config[0], a forward and backward SpMV per dtype, config[1]
-forward and backward for each matrix and for ``csc @ X``, config[2]
-forward and backward) run once, between a reset and a read of every
-launch count, before the checks.
+Each main path (config[0]; a forward and backward SpMV per dtype; config[1]
+forward and backward for each matrix and for ``csc @ X``; config[2]
+forward and backward; BSR ``bsr @ x`` and ``bsr @ X`` forward and backward
+on every BSR matrix) runs once, between a reset and a read of every launch
+count, before its checks; the counts must be exactly the path's.
 
 It prints, before the last line, one JSON line describing each kernel and
 the card's ``nvidia-smi`` name and power limit; the last line is the
@@ -66,13 +80,19 @@ import time
 import numpy as np
 import torch
 
-from spalinalg_tpu_torch import CooMatrix, CsrMatrix
+from spalinalg_tpu_torch import BsrMatrix, CooMatrix, CsrMatrix
 from spalinalg_tpu_torch.convert.engine import major_ids, transpose_structure
 from spalinalg_tpu_torch.ops import spgemm as spgemm_mod
 from spalinalg_tpu_torch.ops.kernels import _build
+from spalinalg_tpu_torch.ops.kernels import bsr_spmm as bsr_spmm_mod
+from spalinalg_tpu_torch.ops.kernels import bsr_spmv as bsr_spmv_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmm as spmm_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmv as spmv_mod
 from spalinalg_tpu_torch.ops.kernels import spgemm_numeric as numeric_mod
+from spalinalg_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm
+from spalinalg_tpu_torch.ops.kernels.bsr_spmv import (_block_outer, bsr_spmv,
+                                                      bsr_spmv_plain,
+                                                      transposed_blocks)
 from spalinalg_tpu_torch.ops.kernels.csr_spmm import (_row_dots, csr_spmm,
                                                       csr_spmm_plain)
 from spalinalg_tpu_torch.ops.kernels.csr_spmv import (csr_spmv,
@@ -87,6 +107,10 @@ KERNELS = {
     "csr_spmm": ("spalinalg_tpu_torch/csrc/csr_spmm.cu", spmm_mod.LAUNCHES),
     "spgemm": ("spalinalg_tpu_torch/csrc/spgemm_numeric.cu",
                numeric_mod.LAUNCHES),
+    "bsr_spmv": ("spalinalg_tpu_torch/csrc/bsr_spmv.cu",
+                 bsr_spmv_mod.LAUNCHES),
+    "bsr_spmm": ("spalinalg_tpu_torch/csrc/bsr_spmm.cu",
+                 bsr_spmm_mod.LAUNCHES),
 }
 REPLACES = {
     ("csr_spmv", "float32"): "spalinalg_tpu/ops/kernels/csr_route.py:930",
@@ -95,14 +119,26 @@ REPLACES = {
     ("csr_spmm", "float64"): "spalinalg_tpu/ops/kernels/csr_route.py:1112",
     ("spgemm", "float32"): "spalinalg_tpu/ops/kernels/pair_route.py:473",
     ("spgemm", "float64"): "spalinalg_tpu/ops/kernels/pair_route.py:473",
+    ("bsr_spmv", "float32"): "spalinalg_tpu/ops/kernels/bsr_stream.py:71",
+    ("bsr_spmv", "bfloat16"): "spalinalg_tpu/ops/kernels/bsr_stream.py:71",
+    ("bsr_spmv", "float64"): "spalinalg_tpu/ops/kernels/bsr_df.py:66",
+    ("bsr_spmm", "float32"): "spalinalg_tpu/ops/kernels/bsr_stream.py:194",
+    ("bsr_spmm", "bfloat16"): "spalinalg_tpu/ops/kernels/bsr_stream.py:194",
+    ("bsr_spmm", "float64"): "spalinalg_tpu/ops/kernels/bsr_stream.py:194",
 }
-# Launches of the main-path run: config[0] forward (f64) plus a forward and
-# an Aᵀ·g per SpMV matrix; a forward and an Aᵀ·G for each of csr_random,
-# banded and csc @ X; one numeric phase per SpGEMM dtype.
-MAIN_LAUNCHES = {"csr_spmv": {"float32": 2, "float64": 3},
-                 "csr_spmm": {"float32": 6, "float64": 6},
-                 "spgemm": {"float32": 1, "float64": 1}}
-TOL = {"float32": 1e-5, "float64": 1e-12}
+# Launches of each main path: config[0] forward (f64); a forward and an
+# Aᵀ·g per SpMV matrix; a forward and an Aᵀ·G for each of csr_random,
+# banded and csc @ X; one numeric phase per SpGEMM dtype; a forward and an
+# Aᵀ·g (Aᵀ·G) for each BSR matrix: tri128 in three dtypes, banded8 in two.
+MAIN_LAUNCHES = {
+    "config[0]": {"csr_spmv": {"float64": 1}},
+    "SpMV": {"csr_spmv": {"float32": 2, "float64": 2}},
+    "SpMM": {"csr_spmm": {"float32": 6, "float64": 6}},
+    "SpGEMM": {"spgemm": {"float32": 1, "float64": 1}},
+    "BSR bsr @ x": {"bsr_spmv": {"float32": 4, "bfloat16": 2, "float64": 4}},
+    "BSR bsr @ X": {"bsr_spmm": {"float32": 4, "bfloat16": 2, "float64": 4}},
+}
+TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}
 N_BIG = 2**21
@@ -115,6 +151,12 @@ HBM_TBPS = 3.35  # published H100 SXM device-memory bandwidth
 TIMED_LAUNCHES = 20
 PLAIN_SPMM_LAUNCHES = 3
 PROFILED_STEPS = 10
+TRI_NBR = 4096   # bench.py's bsr cells: 1024 block rows of 128 x 128
+TRI_BS = 128
+BAND_BS = 8
+PLAIN_BSR_SPMM_LAUNCHES = 5
+BSR_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float64": torch.float64}
 
 
 def nvidia_smi_card() -> str:
@@ -275,15 +317,52 @@ def spgemm_plan_timed(a):
     return plan, sym[0].seconds, sym[0].path, total - sym[0].seconds
 
 
-def run_main_path(device, csr0, x0, big, mats, rhs, gemm):
-    """Every main path once, as a user calls it; returns the outputs."""
-    out = {"config0": csr0 @ torch.from_numpy(x0).to(device)}
+def reset_launches() -> None:
+    for _, counts in KERNELS.values():
+        for key in counts:
+            counts[key] = 0
+
+
+def drive(label: str, path, totals) -> dict:
+    """Run one main path between a reset and a read of every launch count;
+    fail unless the counts are exactly the path's (MAIN_LAUNCHES). Adds
+    them to ``totals``; returns the path's outputs."""
+    with phase(f"main path {label}"):
+        reset_launches()
+        out = path()
+        torch.cuda.synchronize()
+        got = {kname: {key: n for key, n in counts.items() if n}
+               for kname, (_, counts) in KERNELS.items()}
+        got = {kname: per for kname, per in got.items() if per}
+    print(f"main path {label} launches: {got}")
+    if got != MAIN_LAUNCHES[label]:
+        raise AssertionError(f"main path {label}: kernel launch counts {got},"
+                             f" expected {MAIN_LAUNCHES[label]}")
+    for kname, per in got.items():
+        for key, n in per.items():
+            totals[kname][key] += n
+    return out
+
+
+def run_config0(device, csr0, x0):
+    return {"config0": csr0 @ torch.from_numpy(x0).to(device)}
+
+
+def run_spmv(big):
+    """A forward and backward ``csr @ x`` per dtype."""
+    out = {}
     for name, (csr, x, g) in big.items():
         values = csr.values.detach().clone().requires_grad_(True)
         xg = x.detach().clone().requires_grad_(True)
         y = csr.with_values(values) @ xg
         y.backward(g)
         out["spmv", name] = (y.detach(), values.grad, xg.grad)
+    return out
+
+
+def run_spmm(mats, rhs):
+    """A forward and backward ``mat @ X`` per config[1] matrix."""
+    out = {}
     for (mname, name), mat in mats.items():
         X, G = rhs[name]
         values = mat.values.detach().clone().requires_grad_(True)
@@ -291,13 +370,33 @@ def run_main_path(device, csr0, x0, big, mats, rhs, gemm):
         Y = mat.with_values(values) @ Xg
         Y.backward(G)
         out["spmm", mname, name] = (Y.detach(), values.grad, Xg.grad)
+    return out
+
+
+def run_spgemm(gemm):
+    """A forward and backward ``a * a`` per dtype."""
+    out = {}
     for name, (a, gc) in gemm.items():
         values = a.values.detach().clone().requires_grad_(True)
         ag = a.with_values(values)
         c = ag * ag
         c.values.backward(gc)
         out["spgemm", name] = (c, values.grad)
-    torch.cuda.synchronize()
+    return out
+
+
+def run_bsr(op: str, bsr_in):
+    """A forward and backward ``bsr @ x`` (op ``bsr_spmv``) or ``bsr @ X``
+    (``bsr_spmm``) per BSR matrix; bfloat16 blocks take no gradient, their
+    operand does."""
+    out = {}
+    for (shape, name), (bsr, x, g, X, G) in bsr_in.items():
+        rhs, gout = (x, g) if op == "bsr_spmv" else (X, G)
+        data = bsr.data.detach().requires_grad_(name != "bfloat16")
+        rg = rhs.detach().requires_grad_(True)
+        y = bsr.with_data(data) @ rg
+        y.backward(gout)
+        out[op, shape, name] = (y.detach(), data.grad, rg.grad)
     return out
 
 
@@ -733,6 +832,229 @@ def profile_spmm_spgemm(mats, rhs, gemm, card: str) -> None:
         free_memory()
 
 
+def tri128_matrices(device, gen):
+    """``bench.py::_make_bsr``'s block-tridiagonal pattern of 128 x 128
+    blocks at TRI_NBR block rows, data generated on the card, through the
+    validating constructor: float32 and float64 data drawn separately,
+    bfloat16 as ``astype`` of the float32 matrix."""
+    i = np.arange(TRI_NBR)
+    cols = np.stack([i - 1, i, i + 1], 1)
+    keep = (cols >= 0) & (cols < TRI_NBR)
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(1))])
+    indices = cols[keep]
+    n = TRI_NBR * TRI_BS
+    out = {}
+    for name in ("float32", "float64"):
+        data = torch.randn((indices.size, TRI_BS, TRI_BS), generator=gen,
+                           dtype=BSR_DTYPES[name], device=device)
+        out[name] = BsrMatrix(n, n, TRI_BS, indptr, indices, data,
+                              device=device)
+    out["bfloat16"] = out["float32"].astype(torch.bfloat16)
+    return out
+
+
+def bsr_inputs(device, mats):
+    """The BSR matrices with ``x``, ``g``, ``X`` and ``G`` (k = K_MM) on the
+    card, keyed by (shape, dtype): tri128 in three dtypes; banded8, the
+    config[1] banded CSR matrices through ``to_bsr(8)``, in two."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    t0 = time.perf_counter()
+    shapes = {"tri128": tri128_matrices(device, gen)}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    shapes["banded8"] = {name: mats["banded", name].to_bsr(BAND_BS)
+                         for name in DTYPES}
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = {}
+    for shape, by_dtype in shapes.items():
+        for name, bsr in by_dtype.items():
+            acc = torch.float64 if name == "float64" else torch.float32
+            n = bsr.nrows
+            out[shape, name] = (bsr, *(
+                torch.randn(size, generator=gen, dtype=acc, device=device)
+                for size in ((n,), (n,), (n, K_MM), (n, K_MM))))
+            print(f"phase 10: {shape} {name}: n={n} blocksize={bsr.blocksize}"
+                  f" blocks={bsr.n_blocks} stored values={bsr.nnz} data "
+                  f"{bsr.data.numel() * bsr.data.element_size() / 1e6:.1f} MB")
+    print(f"phase 10: tri128 generation + BsrMatrix(...) {t1 - t0:.2f} s; "
+          f"banded8 CsrMatrix.to_bsr(8) in two dtypes {t2 - t1:.2f} s")
+    return out
+
+
+def bsr_edge_structures(device) -> None:
+    """BSR kernels against plain versions on structures the main path does
+    not reach: block sizes 1, 3, 8, 384 and rectangular (4, 8), (8, 4),
+    (5, 40); every fourth block row empty; padding blocks past
+    ``indptr[-1]`` holding values that must count for nothing; k in
+    {1, 3, 32, 64, 100}; a matrix with no blocks and k = 0, which launch
+    nothing."""
+    rng = np.random.default_rng(8)
+    gen = torch.Generator(device=device).manual_seed(12)
+    for br, bc in ((1, 1), (3, 3), (8, 8), (4, 8), (8, 4), (5, 40),
+                   (384, 384)):
+        nbr, nbc = (60, 50) if max(br, bc) < 100 else (6, 5)
+        lens = rng.poisson(2.0, nbr)
+        lens[::4] = 0
+        ptr = np.concatenate([[0], np.cumsum(lens)])
+        nblocks = int(ptr[-1]) + 3
+        indptr = torch.from_numpy(ptr.astype(np.int32)).to(device)
+        indices = torch.from_numpy(
+            rng.integers(0, nbc, nblocks).astype(np.int32)).to(device)
+        empty = torch.from_numpy(np.repeat(lens == 0, br)).to(device)
+        for name, dtype in BSR_DTYPES.items():
+            acc = torch.float64 if name == "float64" else torch.float32
+            data = torch.randn((nblocks, br, bc), generator=gen, dtype=acc,
+                               device=device).to(dtype)
+            for k in (None, 1, 3, 32, 64, 100):
+                kern = bsr_spmv if k is None else bsr_spmm
+                size = (nbc * bc,) if k is None else (nbc * bc, k)
+                x = torch.randn(size, generator=gen, dtype=acc, device=device)
+                y = kern(indptr, indices, data, x)
+                what = f"{name} BSR edge structure ({br}, {bc}), k {k}"
+                within((y - bsr_spmv_plain(indptr, indices, data, x)).abs(),
+                       bsr_spmv_plain(indptr, indices, data.abs(), x.abs()),
+                       TOL[name], what)
+                if not bool((y[empty] == 0).all()):
+                    raise AssertionError(f"{what}: an empty row is not 0")
+                if not torch.equal(y, kern(indptr, indices, data, x)):
+                    raise AssertionError(f"{what}: not bitwise repeatable")
+            before = (dict(bsr_spmv_mod.LAUNCHES), dict(bsr_spmm_mod.LAUNCHES))
+            none = (torch.zeros(nbr + 1, dtype=torch.int32, device=device),
+                    indices[:0], data[:0])
+            x = torch.ones(nbc * bc, dtype=acc, device=device)
+            zero_mv = bsr_spmv(*none, x)
+            zero_mm = bsr_spmm(*none, x[:, None].expand(-1, 4))
+            zero_k = bsr_spmm(indptr, indices, data, x[:, None][:, :0])
+            if (not bool((zero_mv == 0).all()) or not bool((zero_mm == 0).all())
+                    or zero_k.shape != (nbr * br, 0)
+                    or (bsr_spmv_mod.LAUNCHES, bsr_spmm_mod.LAUNCHES)
+                    != before):
+                raise AssertionError(f"{name} ({br}, {bc}): no blocks or k = 0"
+                                     " launched or gave a wrong result")
+    torch.cuda.synchronize()
+
+
+def check_bsr(bsr_in, main_out, mats, report) -> None:
+    for (shape, name), (bsr, x, g, X, G) in bsr_in.items():
+        tol = TOL[name]
+        ip, ix, data = bsr.indptr, bsr.indices, bsr.data
+        br, bc = bsr.blocksize
+        t, data_t = transposed_blocks(ip, ix, data, bsr.ncols)
+        abs_t = data_t.abs()
+        del data_t
+        for op, kern, rhs, gout in (("bsr_spmv", bsr_spmv, x, g),
+                                    ("bsr_spmm", bsr_spmm, X, G)):
+            what = f"{shape} {name} " + ("bsr @ x" if op == "bsr_spmv"
+                                         else f"bsr @ X k={K_MM}")
+            y, ddata, dx = main_out[op, shape, name]
+            err = (y - bsr_spmv_plain(ip, ix, data, rhs)).abs()
+            within(err, bsr_spmv_plain(ip, ix, data.abs(), rhs.abs()), tol,
+                   f"{what} forward")
+            max_err = float(err.max())
+            del err
+            if not bitwise_equal(y, kern(ip, ix, data, rhs),
+                                 kern(ip, ix, data, rhs)):
+                raise AssertionError(f"{what}: kernel results differ run to "
+                                     "run")
+            grad_data = name != "bfloat16"
+            d_p = data.detach().clone().requires_grad_(grad_data)
+            r_p = rhs.detach().clone().requires_grad_(True)
+            grads = torch.autograd.grad(
+                bsr_spmv_plain(ip, ix, d_p, r_p),
+                (d_p, r_p) if grad_data else (r_p,), gout)
+            del d_p, r_p
+            within((dx - grads[-1]).abs(), bsr_spmv_plain(
+                t.ptr, t.minor, abs_t, gout.abs()), tol, f"{what} dx")
+            if grad_data:
+                within((ddata - grads[0]).abs(), _block_outer(
+                    gout.abs(), rhs.abs(), t.major, ix, br, bc), tol,
+                    f"{what} ddata")
+            del grads
+            free_memory()
+            if shape == "tri128":
+                report[op, name] = {"max_abs_err": max_err}
+            print(f"phase 10: {what}: kernel == plain within {tol}*(|A||x|) "
+                  f"row by row (max |err| {max_err:.3e}); bitwise repeatable; "
+                  + ("dx and ddata match" if grad_data else "dx matches")
+                  + " the plain autograd")
+        del abs_t
+        if shape == "banded8":
+            csr = mats["banded", name]
+            Y_csr = csr_spmm(csr.rowptr, csr.colind, csr.values, X, N_MM)
+            err = (main_out["bsr_spmm", shape, name][0] - Y_csr).abs()
+            within(err, csr_spmm_plain(csr.rowptr, csr.colind,
+                                       csr.values.abs(), X.abs(), N_MM),
+                   tol, f"banded8 {name} bsr @ X against csr @ X")
+            print(f"phase 10: banded8 {name} bsr @ X matches the same "
+                  f"matrix's csr @ X (kernel B2) within {tol}*(|A||X|) (max "
+                  f"|err| {float(err.max()):.3e})")
+            del Y_csr, err
+    bsr_edge_structures(x.device)
+    print("phase 10: BSR edge structures (bs 1, 3, 8, 384; (4, 8), (8, 4), "
+          "(5, 40); empty block rows; padding blocks; k in 1, 3, 32, 64, "
+          "100; no blocks; k = 0): kernel == plain in float32, bfloat16 and "
+          "float64")
+
+
+def time_bsr(bsr_in, report, card: str) -> None:
+    for (shape, name), (bsr, x, _, X, _) in bsr_in.items():
+        ip, ix, data = bsr.indptr, bsr.indices, bsr.data
+        nblocks = bsr.n_blocks
+        nbr = ip.numel() - 1
+        for op, kern, rhs, n_plain in (
+                ("bsr_spmv", bsr_spmv, x, TIMED_LAUNCHES),
+                ("bsr_spmm", bsr_spmm, X, PLAIN_BSR_SPMM_LAUNCHES)):
+            k = 1 if rhs.ndim == 1 else rhs.shape[1]
+            k_ms, p_ms, (p1, k1, k2, p2) = turns(
+                lambda: kern(ip, ix, data, rhs),
+                lambda: bsr_spmv_plain(ip, ix, data, rhs),
+                TIMED_LAUNCHES, n_plain)
+            free_memory()
+            # compulsory bytes: blocks, block indices, pointer, x/X and y/Y
+            nbytes = (data.element_size() * bsr.nnz + 4 * nblocks
+                      + 4 * (nbr + 1)
+                      + rhs.element_size() * k * (bsr.nrows + bsr.ncols))
+            for label, ms in (("kernel", k_ms), ("plain", p_ms)):
+                gbs = nbytes / ms / 1e6
+                print(f"phase 11: {shape} {name} {op} k={k} {label}: "
+                      f"{ms:.4f} ms, {bsr.nnz / ms / 1e6:.2f} Gnnz/s, "
+                      f"{2 * bsr.nnz * k / ms / 1e6:.1f} GFLOP/s, {gbs:.1f} "
+                      f"GB/s, {100 * gbs / (HBM_TBPS * 1e3):.1f} % of "
+                      f"{HBM_TBPS} TB/s | {card}")
+            print(f"phase 11: {shape} {name} {op} turns (ms): plain "
+                  f"{p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain "
+                  f"{p2:.4f}")
+            if shape == "tri128":
+                report[op, name].update(ms=k_ms, plain_ms=p_ms)
+
+
+def profile_bsr(bsr_in, card: str) -> None:
+    for shape, name in (("tri128", "float32"), ("tri128", "bfloat16"),
+                        ("tri128", "float64"), ("banded8", "float32")):
+        bsr, x, g, X, G = bsr_in[shape, name]
+        data = bsr.data.detach().requires_grad_(name != "bfloat16")
+        m = bsr.with_data(data)
+        for what, rhs, gout in (("bsr @ x", x, g), (f"bsr @ X k={K_MM}", X, G)):
+            rg = rhs.detach().requires_grad_(True)
+            step = lambda: (m @ rg).backward(gout)  # noqa: E731
+            free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            time_ms(step, 2)
+            print(f"phase 11: {shape} {name} {what} forward + backward "
+                  f"{time_ms(step, 3):.4f} ms/step; peak {peak / 1e9:.3f} GB "
+                  f"above the inputs (gradients included) | {card}")
+            print_profile(f"phase 11: {shape} {name} {what} fwd+bwd", step, 3)
+            data.grad = None
+            del rg
+        del data, m
+        free_memory()
+
+
 def main() -> int:
     # ---- phase 0: the machine ----------------------------------------
     if not torch.cuda.is_available():
@@ -786,18 +1108,15 @@ def main() -> int:
               f"pointers {upload_s:.2f} s")
         del per_slot
 
-    # ---- the main paths, once, between a reset and a read of the counts
-    with phase("main paths"):
-        for _, counts in KERNELS.values():
-            for key in counts:
-                counts[key] = 0
-        main_out = run_main_path(device, csr0, x0, big, mats, rhs, gemm)
-        launches = {kname: dict(counts)
-                    for kname, (_, counts) in KERNELS.items()}
-    print(f"main path launches: {launches}")
-    if launches != MAIN_LAUNCHES:
-        raise AssertionError(f"unexpected kernel launch counts {launches}, "
-                             f"expected {MAIN_LAUNCHES}")
+    # ---- the main paths, each once, between a reset and a read of the
+    # counts
+    launches = {kname: dict.fromkeys(counts, 0)
+                for kname, (_, counts) in KERNELS.items()}
+    main_out = drive("config[0]", lambda: run_config0(device, csr0, x0),
+                     launches)
+    main_out.update(drive("SpMV", lambda: run_spmv(big), launches))
+    main_out.update(drive("SpMM", lambda: run_spmm(mats, rhs), launches))
+    main_out.update(drive("SpGEMM", lambda: run_spgemm(gemm), launches))
 
     # ---- phase 2: config[0] against the dense product -----------------
     with phase("phase 2"):
@@ -831,12 +1150,39 @@ def main() -> int:
         time_spmm_spgemm(mats, rhs, gemm, plan, report, card)
     with phase("phase 9"):
         profile_spmm_spgemm(mats, rhs, gemm, card)
+    del gemm, plan
+    free_memory()
+
+    # ---- BSR: its main paths, checks (phase 10) and times (phase 11) --
+    with phase("inputs: BSR tri128 and banded8"):
+        bsr_in = bsr_inputs(device, mats)
+    bsr_out = drive("BSR bsr @ x", lambda: run_bsr("bsr_spmv", bsr_in),
+                    launches)
+    bsr_out.update(drive("BSR bsr @ X", lambda: run_bsr("bsr_spmm", bsr_in),
+                         launches))
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    with phase("phase 10"):
+        check_bsr(bsr_in, bsr_out, mats, report)
+    print(f"phase 10: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, of which "
+          f"{resident / 1e9:.2f} GB resident before the checks (every "
+          f"phase's inputs and the main paths' outputs)")
+    del bsr_out
+    free_memory()
+    with phase("phase 11"):
+        time_bsr(bsr_in, report, card)
+        profile_bsr(bsr_in, card)
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
     kernels = [{"name": f"{kname}_{name}", "route": "cuda", "source": source,
                 "replaces": REPLACES[kname, name],
                 "launches": launches[kname][name], **report[kname, name]}
-               for kname, (source, _) in KERNELS.items() for name in DTYPES]
+               for kname, (source, counts) in KERNELS.items()
+               for name in counts]
+    if any(k["launches"] == 0 for k in kernels):
+        raise AssertionError("a kernel was not launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

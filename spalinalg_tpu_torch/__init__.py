@@ -7,6 +7,7 @@ Pallas kernels replaced by kernels written by hand for NVIDIA Hopper
 
     CooMatrix / DokMatrix  ->  CsrMatrix.from_coo(coo, device=...)  ->  csr @ x
     csr @ X, csc @ X (SpMM)    a * b, a @ b, a ** k (SpGEMM)    a + b, a - b, -a
+    csr.to_bsr(bs) | BsrMatrix(...)  ->  bsr.astype(torch.bfloat16)  ->  bsr @ x, bsr @ X
 
 Builders live on the host; a compressed matrix lives on the device it was
 built for. The package imports torch and NumPy and never JAX.
@@ -24,6 +25,7 @@ from .errors import (
 from .formats.coo import CooMatrix
 from .formats.dok import DokMatrix
 from .formats.compressed import CscMatrix, CsrMatrix
+from .formats.bsr import BsrMatrix
 from .ops.matvec import csc_matmat, csc_matvec, csr_matmat, csr_matvec
 from .ops.spgemm import SpgemmPlan, spgemm, spgemm_apply, spgemm_plan
 from . import io
@@ -36,6 +38,7 @@ __all__ = [
     "DokMatrix",
     "CsrMatrix",
     "CscMatrix",
+    "BsrMatrix",
     "SpalinalgError",
     "ShapeError",
     "IndexError_",

@@ -500,6 +500,12 @@ class CsrMatrix(_CompressedMatrix):
 
         return conversions.csr_to_csc(self)
 
+    def to_bsr(self, blocksize):
+        """BSR of this matrix on its device (``BsrMatrix.from_csr``)."""
+        from .bsr import BsrMatrix
+
+        return BsrMatrix.from_csr(self, blocksize)
+
 
 class CscMatrix(_CompressedMatrix):
     """Compressed sparse column matrix (reference: `src/csc.rs:66-511`).

@@ -1,5 +1,6 @@
 """I/O tier: carrying matrices across from the JAX package."""
 
-from .arrays import csc_from_arrays, csr_from_arrays, to_arrays
+from .arrays import bsr_from_arrays, csc_from_arrays, csr_from_arrays, to_arrays
 
-__all__ = ["csr_from_arrays", "csc_from_arrays", "to_arrays"]
+__all__ = ["csr_from_arrays", "csc_from_arrays", "bsr_from_arrays",
+           "to_arrays"]

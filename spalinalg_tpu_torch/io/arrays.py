@@ -1,10 +1,13 @@
-"""Carry compressed matrices between the JAX package and the port.
+"""Carry compressed and BSR matrices between the JAX package and the port.
 
 The JAX package's ``CsrMatrix``/``CscMatrix`` hold ``(ptr, minor, values)``
 device arrays; ``np.asarray`` of each gives host arrays that
 :func:`csr_from_arrays` / :func:`csc_from_arrays` turn into the port's
-matrix on a named device, and :func:`to_arrays` turns back. Neither side
-imports the other: the arrays cross as NumPy.
+matrix on a named device, and :func:`to_arrays` turns back. A
+``BsrMatrix`` crosses the same way as ``(indptr, indices, data)``
+(:func:`bsr_from_arrays`); bfloat16 blocks cross as float32 and are cast on
+the device, which is exact. Neither side imports the other: the arrays
+cross as NumPy.
 
 A structure may carry padding (``nse > ptr[-1]``), as matrices produced
 under ``jit`` do: the first ``ptr[-1]`` entries are validated like the
@@ -14,12 +17,15 @@ constructor's input, and the padding slots must hold in-range indices.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..dtypes import numpy_dtype
 from ..errors import StructureError
+from ..formats.bsr import BsrMatrix
 from ..formats.compressed import CscMatrix, CsrMatrix, _index_tensor, _values_tensor
 
-__all__ = ["csr_from_arrays", "csc_from_arrays", "to_arrays"]
+__all__ = ["csr_from_arrays", "csc_from_arrays", "bsr_from_arrays",
+           "to_arrays"]
 
 
 def _from_arrays(cls, nrows, ncols, ptr, minor, values, device):
@@ -58,10 +64,32 @@ def csc_from_arrays(nrows, ncols, colptr, rowind, values, *,
                         values, device)
 
 
+def bsr_from_arrays(nrows, ncols, blocksize, indptr, indices, data, *,
+                    device="cpu") -> BsrMatrix:
+    """The port's BSR matrix from host arrays (e.g. ``np.asarray`` of a JAX
+    ``BsrMatrix``'s ``indptr``, ``indices`` and ``data``), through the
+    validating constructor. A bfloat16 ``data`` array crosses as float32
+    and is cast back on ``device``."""
+    data = np.asarray(data)
+    bf16 = data.dtype.name == "bfloat16"
+    mat = BsrMatrix(nrows, ncols, blocksize, indptr, indices,
+                    data.astype(np.float32) if bf16 else data, device=device)
+    return mat.astype(torch.bfloat16) if bf16 else mat
+
+
 def to_arrays(mat):
     """``(nrows, ncols, ptr, minor, values)`` as host NumPy arrays (int32
     indices, padding slots included), ready for the JAX package's
-    ``CsrMatrix._from_parts`` / ``CscMatrix._from_parts``."""
+    ``CsrMatrix._from_parts`` / ``CscMatrix._from_parts``; for a
+    ``BsrMatrix`` ``(nrows, ncols, (br, bc), indptr, indices, data)``, with
+    bfloat16 blocks as float32 (exact), ready for ``BsrMatrix(...)`` or
+    ``BsrMatrix._from_parts``."""
+    if isinstance(mat, BsrMatrix):
+        data = mat.data.detach()
+        if data.dtype == torch.bfloat16:
+            data = data.float()
+        return (mat.nrows, mat.ncols, mat.blocksize, mat.indptr.cpu().numpy(),
+                mat.indices.cpu().numpy(), data.cpu().numpy())
     numpy_dtype(mat.dtype)  # DTypeError for bfloat16
     return (mat.nrows, mat.ncols, mat._ptr.cpu().numpy(),
             mat._minor.cpu().numpy(), mat._values.detach().cpu().numpy())

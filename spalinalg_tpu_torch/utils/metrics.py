@@ -4,7 +4,10 @@ Per-op structured metrics (nnz, flops, bytes moved, achieved rate) through
 a host-side recorder with optional JSON-lines output. Each record also
 names the dispatch path that ran, for example ``csr_spmv:cuda`` (the
 hand-written kernel) or ``csr_spmv:plain`` (the plain torch version on
-CPU tensors), so a reader of the records can tell the two apart.
+CPU tensors), so a reader of the records can tell the two apart. The
+paths: ``csr_spmv``, ``csc_spmv``, ``csr_spmm``, ``csc_spmm``, ``spgemm``,
+``bsr_spmv`` and ``bsr_spmm``, each ``:cuda`` or ``:plain``, and
+``spgemm_symbolic:native|numpy``.
 
 Examples
 --------

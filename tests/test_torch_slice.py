@@ -26,6 +26,8 @@ from spalinalg_tpu_torch.ops.kernels import _build
 from spalinalg_tpu_torch.ops.kernels.csr_spmm import csr_spmm
 from spalinalg_tpu_torch.ops.kernels.csr_spmv import csr_spmv
 from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import spgemm_numeric
+from spalinalg_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm
+from spalinalg_tpu_torch.ops.kernels.bsr_spmv import bsr_spmv
 
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 
@@ -91,6 +93,10 @@ def test_port_never_imports_jax():
             "spalinalg_tpu_torch.ops.kernels.spgemm_numeric, "
             "spalinalg_tpu_torch.ops.spgemm, "
             "spalinalg_tpu_torch.ops.elementwise, "
+            "spalinalg_tpu_torch.formats.bsr, "
+            "spalinalg_tpu_torch.ops.bsr_ops, "
+            "spalinalg_tpu_torch.ops.kernels.bsr_spmv, "
+            "spalinalg_tpu_torch.ops.kernels.bsr_spmm, "
             "spalinalg_tpu_torch.native.lib, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'spalinalg_tpu' or "
@@ -124,8 +130,8 @@ def test_port_sources_import_no_jax():
 
 
 def test_no_build_on_cpu(monkeypatch):
-    """Running the slices on CPU tensors (SpMV, SpMM and SpGEMM, with their
-    gradients) never reaches the kernel build or ``nvcc``."""
+    """Running the slices on CPU tensors (SpMV, SpMM, SpGEMM and BSR, with
+    their gradients) never reaches the kernel build or ``nvcc``."""
     calls = []
     monkeypatch.setattr(_build, "find_nvcc", lambda: calls.append(1))
     monkeypatch.setattr(_build, "_build", lambda out: calls.append(1))
@@ -148,6 +154,13 @@ def test_no_build_on_cpu(monkeypatch):
     (sq.with_values(values) * sq).values.sum().backward()
     ((sq ** 3) + sq - sq.to_csc().to_csr()).to_dense()
     assert values.grad is not None
+    for bsr in (sq.to_bsr(4), sq.to_bsr(4).astype(torch.float32)):
+        for rhs in (torch.ones(300), torch.ones(300, 3)):
+            data = bsr.data.clone().requires_grad_(True)
+            xg = rhs.to(torch.float64).requires_grad_(True)
+            (bsr.with_data(data) @ xg).sum().backward()
+            assert data.grad is not None and xg.grad is not None
+    (sq.to_bsr(4).astype(torch.bfloat16) @ torch.ones(300)).sum()
     assert calls == []
     assert _build.load_library.cache_info().currsize == 0
 
@@ -184,6 +197,17 @@ def test_no_plain_torch_off_the_cpu():
                                            device="meta"), 2)
     with pytest.raises(ValueError, match="no spgemm_numeric kernel for device"):
         spgemm_numeric(ptr, ind, ind, ind, val, val, 2)
+    blocks = torch.ones(2, 1, 1, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="no bsr_spmv kernel for device"):
+        bsr_spmv(ptr, ind, blocks, x)
+    with pytest.raises(ValueError, match="no bsr_spmm kernel for device"):
+        bsr_spmm(ptr, ind, blocks, torch.ones(2, 3, dtype=torch.float64,
+                                              device="meta"))
+    bsr = tsp.BsrMatrix._from_parts(2, 2, 1, 1, ptr, ind, blocks)
+    with pytest.raises(ValueError, match="no bsr_spmv kernel for device"):
+        bsr @ x
+    with pytest.raises(ValueError, match="no bsr_spmm kernel for device"):
+        bsr.astype(torch.bfloat16) @ torch.ones(2, 3, device="meta")
 
 
 @pytest.mark.parametrize("module", [
@@ -193,6 +217,10 @@ def test_no_plain_torch_off_the_cpu():
     "spalinalg_tpu_torch.formats.compressed",
     "spalinalg_tpu_torch.ops.elementwise",
     "spalinalg_tpu_torch.ops.spgemm",
+    "spalinalg_tpu_torch.formats.bsr",
+    "spalinalg_tpu_torch.ops.bsr_ops",
+    "spalinalg_tpu_torch.ops.kernels.bsr_spmv",
+    "spalinalg_tpu_torch.ops.kernels.bsr_spmm",
     "spalinalg_tpu_torch.utils.metrics",
     "spalinalg_tpu_torch.utils.plancache",
 ])
