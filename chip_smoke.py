@@ -57,16 +57,41 @@ pass; each prints its seconds):
     peak memory.
 11. BSR times, in turns, and ``torch.profiler`` over forward + backward
     steps.
+12. DeviceCoo: ``coo.to_device().to_csr_device()`` on the card for phase 3's
+    triplets (both dtypes) and config[0]'s (duplicates and zeros): the
+    padded CSR holds ``CsrMatrix.from_coo``'s structure exactly and its
+    values within tol; config[0]'s padded result times x against the dense
+    product; seconds beside the host conversion's.
+13. DIA: dia9 (``bench.py``'s 9-diagonal pattern at n = 2**25, drawn on the
+    card) and lap3d (the 7-point Laplacian of a 256**3 grid, built on the
+    host with ``DiaMatrix.from_diagonals``), in float32 and float64. Kernel
+    against plain version row by row, bitwise repeats, gradients against
+    the plain autograd; edge structures (D = 1, offsets at +-(n - 1),
+    rectangular 300 x 1000 and 1000 x 300, D = 0, unsorted offsets); the
+    stencil path: the 64**3 Laplacian through ``diags`` + ``kron`` + ``+``
+    into CSR on the card, then ``DiaMatrix.from_csr``, whose ``dia @ x``
+    is held against ``csr @ x`` (kernel B1) and ``dia.T @ g`` against the
+    backward's dx.
+14. DIA times, in turns, forward and transposed; the card's peak memory.
+15. B10: the wide-gather probe (``spalinalg_tpu_torch/tools/
+    probe_widegather.py``) at its tool's shapes, kernel against plain
+    version, out-of-range indices, microseconds per take and Gelem/s.
 
 Each main path (config[0]; a forward and backward SpMV per dtype; config[1]
 forward and backward for each matrix and for ``csc @ X``; config[2]
 forward and backward; BSR ``bsr @ x`` and ``bsr @ X`` forward and backward
-on every BSR matrix) runs once, between a reset and a read of every launch
-count, before its checks; the counts must be exactly the path's.
+on every BSR matrix; DIA ``dia @ x`` forward and backward on dia9 and
+lap3d per dtype; the probe's ``run``) runs once, between a reset and a read
+of every launch count, before its checks; the counts must be exactly the
+path's. Phase 2 also checks that ``CsrMatrix.from_coo`` with no device
+lands on ``cuda:0``.
 
-It prints, before the last line, one JSON line describing each kernel and
-the card's ``nvidia-smi`` name and power limit; the last line is the
-``{"ok": true, "device": ...}`` record.
+It prints, before the last line, one JSON line describing each kernel (its
+launches on the main path, max |err| against the plain version, its time,
+the plain version's, the bound from compulsory bytes or operations, and the
+time of one PyTorch library call that computes the same function, or null
+where there is none) and the card's ``nvidia-smi`` name and power limit;
+the last line is the ``{"ok": true, "device": ...}`` record.
 """
 
 from __future__ import annotations
@@ -76,17 +101,21 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
-from spalinalg_tpu_torch import BsrMatrix, CooMatrix, CsrMatrix
+from spalinalg_tpu_torch import (BsrMatrix, CooMatrix, CsrMatrix, DiaMatrix,
+                                 diags, kron)
 from spalinalg_tpu_torch.convert.engine import major_ids, transpose_structure
+from spalinalg_tpu_torch.formats.dia import _diag_span
 from spalinalg_tpu_torch.ops import spgemm as spgemm_mod
 from spalinalg_tpu_torch.ops.kernels import _build
 from spalinalg_tpu_torch.ops.kernels import bsr_spmm as bsr_spmm_mod
 from spalinalg_tpu_torch.ops.kernels import bsr_spmv as bsr_spmv_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmm as spmm_mod
+from spalinalg_tpu_torch.ops.kernels import dia_spmv as dia_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmv as spmv_mod
 from spalinalg_tpu_torch.ops.kernels import spgemm_numeric as numeric_mod
 from spalinalg_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm
@@ -98,8 +127,12 @@ from spalinalg_tpu_torch.ops.kernels.csr_spmm import (_row_dots, csr_spmm,
 from spalinalg_tpu_torch.ops.kernels.csr_spmv import (csr_spmv,
                                                       csr_spmv_plain,
                                                       transpose_plan)
+from spalinalg_tpu_torch.ops.kernels.dia_spmv import (_shifted_products,
+                                                      dia_spmv,
+                                                      dia_spmv_plain)
 from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import (
     spgemm_numeric, spgemm_numeric_plain)
+from spalinalg_tpu_torch.tools import probe_widegather as probe
 from spalinalg_tpu_torch.utils import metrics
 
 KERNELS = {
@@ -111,6 +144,9 @@ KERNELS = {
                  bsr_spmv_mod.LAUNCHES),
     "bsr_spmm": ("spalinalg_tpu_torch/csrc/bsr_spmm.cu",
                  bsr_spmm_mod.LAUNCHES),
+    "dia_spmv": ("spalinalg_tpu_torch/csrc/dia_spmv.cu", dia_mod.LAUNCHES),
+    "wide_gather": ("spalinalg_tpu_torch/csrc/wide_gather.cu",
+                    probe.LAUNCHES),
 }
 REPLACES = {
     ("csr_spmv", "float32"): "spalinalg_tpu/ops/kernels/csr_route.py:930",
@@ -125,11 +161,16 @@ REPLACES = {
     ("bsr_spmm", "float32"): "spalinalg_tpu/ops/kernels/bsr_stream.py:194",
     ("bsr_spmm", "bfloat16"): "spalinalg_tpu/ops/kernels/bsr_stream.py:194",
     ("bsr_spmm", "float64"): "spalinalg_tpu/ops/kernels/bsr_stream.py:194",
+    ("dia_spmv", "float32"): "spalinalg_tpu/ops/kernels/dia_stream.py:58",
+    ("dia_spmv", "float64"): "spalinalg_tpu/ops/kernels/dia_df.py:59",
+    ("wide_gather", "float32"): "tools/probe_widegather.py:39",
 }
 # Launches of each main path: config[0] forward (f64); a forward and an
 # Aᵀ·g per SpMV matrix; a forward and an Aᵀ·G for each of csr_random,
 # banded and csc @ X; one numeric phase per SpGEMM dtype; a forward and an
-# Aᵀ·g (Aᵀ·G) for each BSR matrix: tri128 in three dtypes, banded8 in two.
+# Aᵀ·g (Aᵀ·G) for each BSR matrix: tri128 in three dtypes, banded8 in two;
+# a forward and an Aᵀ·g for each DIA matrix, dia9 and lap3d, per dtype; the
+# probe's check, warm-up and timed launches.
 MAIN_LAUNCHES = {
     "config[0]": {"csr_spmv": {"float64": 1}},
     "SpMV": {"csr_spmv": {"float32": 2, "float64": 2}},
@@ -137,6 +178,8 @@ MAIN_LAUNCHES = {
     "SpGEMM": {"spgemm": {"float32": 1, "float64": 1}},
     "BSR bsr @ x": {"bsr_spmv": {"float32": 4, "bfloat16": 2, "float64": 4}},
     "BSR bsr @ X": {"bsr_spmm": {"float32": 4, "bfloat16": 2, "float64": 4}},
+    "DIA dia @ x": {"dia_spmv": {"float32": 4, "float64": 4}},
+    "B10 probe": {"wide_gather": {"float32": 1 + probe.WARMUP + probe.TIMED}},
 }
 TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
 DTYPES = {"float32": (np.float32, torch.float32),
@@ -148,6 +191,11 @@ K_MM = 64
 BAND = 16
 N_GEMM = 2**19
 HBM_TBPS = 3.35  # published H100 SXM device-memory bandwidth
+# Published peak operation rates of the H100 SXM (dense, FLOP/s), for the
+# type of the stored values: float32 outside the tensor cores; bfloat16 on
+# the tensor cores; float64 on the tensor cores (34 TFLOP/s outside them),
+# the data sheet's fastest float64 rate.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 67e12}
 TIMED_LAUNCHES = 20
 PLAIN_SPMM_LAUNCHES = 3
 PROFILED_STEPS = 10
@@ -157,6 +205,10 @@ BAND_BS = 8
 PLAIN_BSR_SPMM_LAUNCHES = 5
 BSR_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "float64": torch.float64}
+N_DIA = 2**25    # bench.py's dia cells (n = 2**22) scaled past the L2
+DIA9_OFFSETS = [-300, -130, -1, 0, 1, 7, 129, 250, 333]
+LAP_K = 256      # lap3d: the 7-point Laplacian of a LAP_K**3 grid
+STENCIL_K = 64   # the stencil path's grid
 
 
 def nvidia_smi_card() -> str:
@@ -233,7 +285,7 @@ def big_matrix(np_dtype, device):
                              f"{csr.nnz}")
     x = torch.from_numpy(rng.normal(size=N_BIG).astype(np_dtype)).to(device)
     g = torch.from_numpy(rng.normal(size=N_BIG).astype(np_dtype)).to(device)
-    return csr, x, g, seconds
+    return csr, x, g, coo, seconds
 
 
 def spmm_structures():
@@ -571,6 +623,23 @@ def turns(kernel, plain, n_kernel: int, n_plain: int):
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
+def bound(nbytes: float, flops: float, name: str) -> dict:
+    """The least time the card could take for the work: compulsory bytes
+    over the published bandwidth or operations over the published peak for
+    the type, whichever is larger, and which of the two it is."""
+    by_bytes = nbytes / (HBM_TBPS * 1e12) * 1e3
+    by_ops = flops / PEAK_FLOPS[name] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def library_ms(fn) -> float:
+    """Time of one PyTorch library call (a yardstick only: the port never
+    calls it), after a warm-up."""
+    time_ms(fn, 3)
+    return time_ms(fn, TIMED_LAUNCHES)
+
+
 def profile_steps(step, steps: int):
     """Run ``step`` ``steps`` times under ``torch.profiler``. Returns the
     wall ms (CUDA events), the summed device ms of every kernel, and per
@@ -673,7 +742,15 @@ def time_spmv(big, report, card: str) -> None:
                   f"| {card}")
         print(f"phase 4: {name} turns (ms): plain {p1:.4f}, kernel {k1:.4f}, "
               f"kernel {k2:.4f}, plain {p2:.4f}")
-        report["csr_spmv", name].update(ms=k_ms, plain_ms=p_ms)
+        lib = torch.sparse_csr_tensor(rowptr, colind, values, (N_BIG, N_BIG))
+        lib_ms = library_ms(lambda: lib @ x)
+        diff = (lib @ x - csr_spmv(rowptr, colind, values, x, N_BIG)).abs()
+        print(f"phase 4: {name} library torch.sparse_csr_tensor @ x: "
+              f"{lib_ms:.4f} ms (max |diff| to the kernel "
+              f"{float(diff.max()):.3e}) | {card}")
+        report["csr_spmv", name].update(
+            ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+            **bound(nbytes, 2 * nnz, name))
 
 
 def check_spmm(mats, rhs, main_out, report) -> None:
@@ -792,8 +869,16 @@ def time_spmm_spgemm(mats, rhs, gemm, plan, report, card: str) -> None:
                   f"{HBM_TBPS} TB/s | {card}")
         print(f"phase 8: {name} {mname} SpMM turns (ms): plain {p1:.4f}, "
               f"kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f}")
+        lib = torch.sparse_csr_tensor(rowptr, colind, values, (N_MM, N_MM))
+        lib_ms = library_ms(lambda: lib @ X)
+        print(f"phase 8: {name} {mname} library torch.sparse_csr_tensor @ X: "
+              f"{lib_ms:.4f} ms | {card}")
+        del lib
+        free_memory()
         if mname == "random":
-            report["csr_spmm", name].update(ms=k_ms, plain_ms=p_ms)
+            report["csr_spmm", name].update(
+                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                **bound(nbytes, 2 * nnz * K_MM, name))
     n_terms = plan.a_idx.numel()
     args = (plan.gid, plan.a_idx, plan.b_idx)
     for name, (a, _) in gemm.items():
@@ -807,7 +892,15 @@ def time_spmm_spgemm(mats, rhs, gemm, plan, report, card: str) -> None:
                   f"{n_terms / ms / 1e6:.3f} Gterms/s | {card}")
         print(f"phase 8: {name} SpGEMM turns (ms): plain {p1:.4f}, kernel "
               f"{k1:.4f}, kernel {k2:.4f}, plain {p2:.4f}")
-        report["spgemm", name].update(ms=k_ms, plain_ms=p_ms)
+        # compulsory bytes: term lists, slot pointers, the value array (A·A
+        # reads one array as both operands, counted once) and the output;
+        # one multiply-add per term
+        itemsize = v.element_size()
+        nbytes = (8 * n_terms + 4 * (plan.n_out + 1)
+                  + itemsize * (v.numel() + plan.n_out))
+        report["spgemm", name].update(ms=k_ms, plain_ms=p_ms,
+                                      library_ms=None,
+                                      **bound(nbytes, 2 * n_terms, name))
 
 
 def profile_spmm_spgemm(mats, rhs, gemm, card: str) -> None:
@@ -1025,8 +1118,21 @@ def time_bsr(bsr_in, report, card: str) -> None:
             print(f"phase 11: {shape} {name} {op} turns (ms): plain "
                   f"{p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain "
                   f"{p2:.4f}")
+            # torch's BSR product takes bfloat16 blocks only with a bfloat16
+            # operand (and refuses them for a vector): not this function
+            lib_ms = None
+            if name != "bfloat16":
+                lib = torch.sparse_bsr_tensor(ip, ix, data, bsr.shape)
+                lib_ms = library_ms(lambda: lib @ rhs)
+                del lib
+                free_memory()
+                print(f"phase 11: {shape} {name} {op} library "
+                      f"torch.sparse_bsr_tensor @ {'x' if k == 1 else 'X'}: "
+                      f"{lib_ms:.4f} ms | {card}")
             if shape == "tri128":
-                report[op, name].update(ms=k_ms, plain_ms=p_ms)
+                report[op, name].update(
+                    ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                    **bound(nbytes, 2 * bsr.nnz * k, name))
 
 
 def profile_bsr(bsr_in, card: str) -> None:
@@ -1055,8 +1161,344 @@ def profile_bsr(bsr_in, card: str) -> None:
         free_memory()
 
 
+def check_device_coo(coos, big, host_seconds, coo0, csr0, x0,
+                     device) -> None:
+    """Phase 12: ``coo.to_device().to_csr_device()`` on the card against
+    ``CsrMatrix.from_coo``: the structure exactly, the values within tol
+    (phase 3's triplets hold no duplicates, config[0]'s do); config[0]'s
+    padded result times x0 against the dense product."""
+    for name, coo in coos.items():
+        csr = big[name][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = coo.to_device(device).to_csr_device()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        nnz = csr.nnz
+        if not (dev.nnz == nnz and dev.nse == coo.length
+                and torch.equal(dev.rowptr, csr.rowptr)
+                and torch.equal(dev.colind[:nnz], csr.colind)):
+            raise AssertionError(f"{name}: DeviceCoo.to_csr_device structure "
+                                 "differs from CsrMatrix.from_coo")
+        err = (dev.values[:nnz] - csr.values).abs()
+        within(err, csr.values.abs(), TOL[name], f"{name} DeviceCoo values")
+        print(f"phase 12: {name} n={N_BIG} {coo.length} triplets: "
+              f"coo.to_device() + to_csr_device() {seconds:.2f} s on the card "
+              f"(upload included); the host's CsrMatrix.from_coo took "
+              f"{host_seconds[name]:.2f} s in this run; structure equal, max "
+              f"|err| {float(err.max()):.3e}")
+        del dev, err
+        free_memory()
+    t0 = time.perf_counter()
+    dev0 = coo0.to_device(device).to_csr_device()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    nnz = csr0.nnz
+    if not (dev0.nnz == nnz and dev0.nse == coo0.length
+            and torch.equal(dev0.rowptr, csr0.rowptr)
+            and torch.equal(dev0.colind[:nnz], csr0.colind)
+            and not bool(dev0.values[nnz:].any())):
+        raise AssertionError("config[0]: DeviceCoo.to_csr_device structure "
+                             "differs from CsrMatrix.from_coo")
+    d0 = coo0.to_dense()
+    rows, cols, vals = coo0.to_arrays()
+    abs_sums = CooMatrix.with_triplets(*coo0.shape, rows, cols,
+                                       np.abs(vals)).to_dense()
+    r, c, _ = csr0.to_coo().to_arrays()
+    within((dev0.values[:nnz] - csr0.values).abs(),
+           torch.from_numpy(abs_sums[r, c]).to(device), 1e-12,
+           "config[0] DeviceCoo values")
+    y = (dev0 @ torch.from_numpy(x0).to(device)).cpu().numpy()
+    err = np.abs(y - d0 @ x0)
+    if not np.all(err <= 1e-12 * (np.abs(d0) @ np.abs(x0))):
+        raise AssertionError(f"config[0] DeviceCoo @ x0: max error "
+                             f"{err.max():.3e}")
+    print(f"phase 12: config[0] {coo0.length} triplets (duplicates, zeros): "
+          f"to_csr_device {seconds:.3f} s, nnz {nnz} of nse {dev0.nse}: "
+          f"structure equal to from_coo; padded csr @ x0 matches the dense "
+          f"product within 1e-12*(|A||x|), max |err| {err.max():.3e}")
+
+
+def laplacian_diagonals(k: int):
+    """The 7 diagonals of the 7-point Laplacian of a k**3 grid (6 on the
+    main diagonal, -1 towards each neighbour, 0 where the neighbour lies
+    outside the grid) and their offsets."""
+    n = k ** 3
+    i = np.arange(n)
+    near = np.where(i[:-1] % k != k - 1, -1.0, 0.0)
+    row = np.where((i[:-k] // k) % k != k - 1, -1.0, 0.0)
+    plane = -np.ones(n - k * k)
+    return ([plane, row, near, 6.0, near, row, plane],
+            [-k * k, -k, -1, 0, 1, k, k * k])
+
+
+def dia_inputs(device):
+    """dia9 drawn on the card (out-of-range slots zeroed), lap3d built on
+    the host with ``DiaMatrix.from_diagonals``, each in float32 and float64,
+    with x and g drawn on the card, keyed by (shape, dtype)."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    out = {}
+    t0 = time.perf_counter()
+    for name, (_, dtype) in DTYPES.items():
+        data = torch.randn((len(DIA9_OFFSETS), N_DIA), generator=gen,
+                           dtype=dtype, device=device)
+        for k, o in enumerate(DIA9_OFFSETS):
+            i0, length = _diag_span(o, N_DIA, N_DIA)
+            data[k, :i0] = 0
+            data[k, i0 + length:] = 0
+        out["dia9", name] = DiaMatrix(N_DIA, N_DIA, DIA9_OFFSETS, data,
+                                      device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    diagonals, offsets = laplacian_diagonals(LAP_K)
+    for name, (np_dtype, _) in DTYPES.items():
+        out["lap3d", name] = DiaMatrix.from_diagonals(
+            diagonals, offsets, LAP_K ** 3, dtype=np_dtype, device=device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for key, dia in out.items():
+        n = dia.nrows
+        out[key] = (dia, *(torch.randn(n, generator=gen, dtype=dia.dtype,
+                                       device=device) for _ in range(2)))
+        print(f"phase 13: {key[0]} {key[1]}: n={n} D={dia.offsets.size} "
+              f"in-range slots {dia.nnz} data "
+              f"{dia.data.numel() * dia.data.element_size() / 1e9:.3f} GB")
+    print(f"phase 13: dia9 drawn on the card {t1 - t0:.2f} s; lap3d "
+          f"DiaMatrix.from_diagonals on the host + upload, two dtypes "
+          f"{t2 - t1:.2f} s")
+    return out
+
+
+def run_dia(dia_in):
+    """A forward and backward ``dia @ x`` per DIA matrix, with gradients to
+    the diagonals and to x."""
+    out = {}
+    for key, (dia, x, g) in dia_in.items():
+        data = dia.data.detach().requires_grad_(True)
+        xg = x.detach().requires_grad_(True)
+        y = DiaMatrix(dia.nrows, dia.ncols, dia.offsets, data,
+                      device=dia.device) @ xg
+        y.backward(g)
+        out[key] = (y.detach(), data.grad, xg.grad)
+    return out
+
+
+def dia_edge_structures(device) -> None:
+    """DIA kernel against plain version, forward and transposed, on
+    structures the main path does not reach: one diagonal (at 0 and at 5),
+    offsets at +-(n - 1), the rectangular cases 300 x 1000 and 1000 x 300
+    of ``tests/test_dia.py:118-121``, an unsorted offset order, and D = 0,
+    which launches nothing and gives zeros."""
+    gen = torch.Generator(device=device).manual_seed(14)
+    cases = [(5000, 5000, [0]), (5000, 5000, [5]),
+             (5000, 5000, [4999, -4999, 0]), (300, 1000, [0, 5, 600]),
+             (1000, 300, [-299, -1, 0, 200]),
+             (7000, 7000, [5, -3, 0, 100, -700, 6999])]
+    for name, (_, dtype) in DTYPES.items():
+        for n, m, offs in cases:
+            off_t = torch.tensor(offs, dtype=torch.int64, device=device)
+            data = torch.randn((len(offs), n), generator=gen, dtype=dtype,
+                               device=device)
+            x = torch.randn(m, generator=gen, dtype=dtype, device=device)
+            g = torch.randn(n, generator=gen, dtype=dtype, device=device)
+            what = f"{name} DIA edge structure {n}x{m} offsets {offs}"
+            for rhs, transposed in ((x, False), (g, True)):
+                y = dia_spmv(off_t, data, rhs, n, m, transposed=transposed)
+                within((y - dia_spmv_plain(offs, data, rhs, n, m,
+                                           transposed=transposed)).abs(),
+                       dia_spmv_plain(offs, data.abs(), rhs.abs(), n, m,
+                                      transposed=transposed),
+                       TOL[name], what + (" transposed" if transposed
+                                          else ""))
+                if not torch.equal(y, dia_spmv(off_t, data, rhs, n, m,
+                                               transposed=transposed)):
+                    raise AssertionError(f"{what}: not bitwise repeatable")
+        before = dict(dia_mod.LAUNCHES)
+        no_offs = torch.zeros(0, dtype=torch.int64, device=device)
+        none = dia_spmv(no_offs, torch.zeros(0, 40, dtype=dtype,
+                                             device=device),
+                        torch.ones(50, dtype=dtype, device=device), 40, 50)
+        none_t = dia_spmv(no_offs, torch.zeros(0, 40, dtype=dtype,
+                                               device=device),
+                          torch.ones(40, dtype=dtype, device=device), 40, 50,
+                          transposed=True)
+        if (none.shape != (40,) or none_t.shape != (50,) or none.any()
+                or none_t.any() or dia_mod.LAUNCHES != before):
+            raise AssertionError(f"{name}: D = 0 launched or gave a wrong "
+                                 "result")
+    torch.cuda.synchronize()
+
+
+def stencil_path(device) -> None:
+    """The 64**3 Laplacian through ``diags`` + ``kron`` + ``+`` into CSR on
+    the card (no device named: the default), then ``DiaMatrix.from_csr``;
+    its diagonals equal ``from_diagonals``'s, ``dia @ x`` matches ``csr @
+    x`` (kernel B1) and ``dia.T @ g`` the backward's dx, in both dtypes."""
+    k = STENCIL_K
+    n = k ** 3
+    t0 = time.perf_counter()
+    t = diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(k, k))
+    eye = diags([1.0], [0], shape=(k, k))
+    csr = (kron(kron(t, eye), eye) + kron(kron(eye, t), eye)
+           + kron(kron(eye, eye), t))
+    dia = DiaMatrix.from_csr(csr)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    diagonals, offsets = laplacian_diagonals(k)
+    ref = DiaMatrix.from_diagonals(diagonals, offsets, n, device=device)
+    if not (csr.device == device and dia.device == device
+            and csr.nnz == 7 * n - 6 * k * k
+            and dia.nnz == sum(n - abs(o) for o in offsets)
+            and list(dia.offsets) == offsets
+            and torch.equal(dia.data, ref.data)):
+        raise AssertionError(
+            f"stencil path: csr on {csr.device} nnz {csr.nnz}, dia on "
+            f"{dia.device} offsets {dia.offsets.tolist()}, not the 7-point "
+            "Laplacian")
+    gen = torch.Generator(device=device).manual_seed(15)
+    for name, (_, dtype) in DTYPES.items():
+        c, d = csr.astype(dtype), dia.astype(dtype)
+        x = torch.randn(n, generator=gen, dtype=dtype, device=device)
+        g = torch.randn(n, generator=gen, dtype=dtype, device=device)
+        xg = x.clone().requires_grad_(True)
+        y = d @ xg
+        y.backward(g)
+        scale = dia_spmv_plain(d.offsets, d.data.abs(), x.abs(), n, n)
+        err = (y.detach() - c @ x).abs()
+        within(err, scale, TOL[name], f"stencil {name} dia @ x vs csr @ x")
+        err_t = (xg.grad - d.T @ g).abs()
+        within(err_t, dia_spmv_plain(d.offsets, d.data.abs(), g.abs(), n, n,
+                                     transposed=True), TOL[name],
+               f"stencil {name} dia.T @ g vs the backward's dx")
+        print(f"phase 13: stencil {name} {k}^3: dia @ x matches csr @ x "
+              f"(kernel B1) within {TOL[name]}*(|A||x|) (max |err| "
+              f"{float(err.max()):.3e}); dia.T @ g matches the backward's dx "
+              f"(max |err| {float(err_t.max()):.3e})")
+    print(f"phase 13: stencil {k}^3 diags + kron + + -> CSR on {csr.device} "
+          f"-> DiaMatrix.from_csr: {seconds:.2f} s, nnz {csr.nnz}, offsets "
+          f"{dia.offsets.tolist()}")
+
+
+def check_dia(dia_in, main_out, report) -> None:
+    for key, (dia, x, g) in dia_in.items():
+        shape, name = key
+        tol = TOL[name]
+        offs, data, n = dia.offsets, dia.data, dia.nrows
+        y, ddata, dx = main_out[key]
+        err = (y - dia_spmv_plain(offs, data, x, n, n)).abs()
+        within(err, dia_spmv_plain(offs, data.abs(), x.abs(), n, n), tol,
+               f"{shape} {name} forward")
+        max_err = float(err.max())
+        del err
+        off = dia._device_offsets()
+        if not bitwise_equal(y, dia_spmv(off, data, x, n, n),
+                             dia_spmv(off, data, x, n, n)):
+            raise AssertionError(f"{shape} {name}: kernel results differ run "
+                                 "to run")
+        d_p = data.detach().clone().requires_grad_(True)
+        x_p = x.detach().clone().requires_grad_(True)
+        ddata_p, dx_p = torch.autograd.grad(
+            dia_spmv_plain(offs, d_p, x_p, n, n), (d_p, x_p), g)
+        del d_p, x_p
+        within((dx - dx_p).abs(), dia_spmv_plain(
+            offs, data.abs(), g.abs(), n, n, transposed=True), tol,
+            f"{shape} {name} dx")
+        del dx_p
+        within((ddata - ddata_p).abs(), _shifted_products(
+            offs, g.abs(), x.abs(), n), tol, f"{shape} {name} ddata")
+        del ddata_p
+        free_memory()
+        if shape == "dia9":
+            report["dia_spmv", name] = {"max_abs_err": max_err}
+        print(f"phase 13: {shape} {name} n={n} D={offs.size}: kernel == "
+              f"plain within {tol}*(|A||x|) row by row (max |err| "
+              f"{max_err:.3e}); bitwise repeatable; dx and ddata match the "
+              f"plain autograd")
+    dia_edge_structures(x.device)
+    print("phase 13: DIA edge structures (D = 1, offsets at +-(n - 1), "
+          "300 x 1000, 1000 x 300, unsorted offsets, D = 0), forward and "
+          "transposed: kernel == plain in float32 and float64")
+
+
+def time_dia(dia_in, report, card: str) -> None:
+    for key, (dia, x, g) in dia_in.items():
+        shape, name = key
+        offs, data, n = dia.offsets, dia.data, dia.nrows
+        # the offsets already on the card, as DiaMatrix.__matmul__ has them
+        off = dia._device_offsets()
+        k_ms, p_ms, (p1, k1, k2, p2) = turns(
+            lambda: dia_spmv(off, data, x, n, n),
+            lambda: dia_spmv_plain(offs, data, x, n, n),
+            TIMED_LAUNCHES, PLAIN_BSR_SPMM_LAUNCHES)
+        t_ms = time_ms(lambda: dia_spmv(off, data, g, n, n,
+                                        transposed=True), TIMED_LAUNCHES)
+        free_memory()
+        # compulsory bytes: the diagonals, x, y and the offsets
+        itemsize = data.element_size()
+        nbytes = itemsize * (data.numel() + 2 * n) + 8 * offs.size
+        for label, ms in (("kernel", k_ms), ("plain", p_ms),
+                          ("kernel transposed", t_ms)):
+            gbs = nbytes / ms / 1e6
+            print(f"phase 14: {shape} {name} dia @ x {label}: {ms:.4f} ms, "
+                  f"{dia.nnz / ms / 1e6:.2f} Gnnz/s, {gbs:.1f} GB/s, "
+                  f"{100 * gbs / (HBM_TBPS * 1e3):.1f} % of {HBM_TBPS} TB/s "
+                  f"| {card}")
+        print(f"phase 14: {shape} {name} turns (ms): plain {p1:.4f}, kernel "
+              f"{k1:.4f}, kernel {k2:.4f}, plain {p2:.4f}")
+        data_g = data.detach().requires_grad_(True)
+        xg = x.detach().requires_grad_(True)
+        mat = DiaMatrix(n, n, offs, data_g, device=data.device)
+        step = lambda: (mat @ xg).backward(g)  # noqa: E731
+        time_ms(step, 2)
+        print(f"phase 14: {shape} {name} dia @ x forward + backward "
+              f"{time_ms(step, 3):.4f} ms/step | {card}")
+        print_profile(f"phase 14: {shape} {name} dia @ x fwd+bwd", step, 3)
+        del data_g, xg, mat, step
+        free_memory()
+        if shape == "dia9":
+            report["dia_spmv", name].update(
+                ms=k_ms, plain_ms=p_ms, library_ms=None,
+                **bound(nbytes, 2 * dia.nnz, name))
+
+
+def check_probe(res, device, report, card: str) -> None:
+    """Phase 15: the probe's kernel against its plain version at the
+    tool's shapes and with out-of-range indices; its time per take."""
+    xt, idx, val = probe.inputs(device)
+    out = res["out"]
+    ref = probe.wide_gather_mac_plain(xt, idx, val)
+    scale = probe.wide_gather_mac_plain(xt.abs(), idx, val.abs())
+    err = (out - ref).abs()
+    within(err, scale, TOL["float32"], "B10 wide gather")
+    if not bitwise_equal(out, probe.wide_gather_mac(xt, idx, val)):
+        raise AssertionError("B10 wide gather: not bitwise repeatable")
+    gen = torch.Generator(device=device).manual_seed(16)
+    bad = torch.randint(-3 * probe.N, 3 * probe.N, idx.shape, generator=gen,
+                        dtype=torch.int32, device=device)
+    within((probe.wide_gather_mac(xt, bad, val)
+            - probe.wide_gather_mac_plain(xt, bad, val)).abs(),
+           probe.wide_gather_mac_plain(xt.abs(), bad, val.abs()),
+           TOL["float32"], "B10 wide gather, out-of-range indices")
+    p_ms = time_ms(lambda: probe.wide_gather_mac_plain(xt, idx, val), 5)
+    s, n = xt.shape
+    k, lanes = idx.shape
+    nbytes = 4 * (s * n + 2 * k * lanes + s * lanes)
+    report["wide_gather", "float32"] = {
+        "max_abs_err": float(err.max()), "ms": res["us_per_call"] / 1e3,
+        "plain_ms": p_ms, "library_ms": None,
+        **bound(nbytes, 2 * s * lanes * k, "float32")}
+    print(f"phase 15: B10 wide gather ({s}, {n}) x {k} takes of {lanes}: "
+          f"kernel == plain within 1e-5*sum|xt||val| (max |err| "
+          f"{float(err.max()):.3e}, the probe's rel err "
+          f"{res['rel_err']:.2e}); out-of-range indices read 0; bitwise "
+          f"repeatable; {res['us_per_call']:.3f} us per call, "
+          f"{res['us_per_take']:.4f} us per take, {res['gelem_per_s']:.1f} "
+          f"Gelem/s gathered; plain {p_ms:.4f} ms | {card}")
+
+
 def main() -> int:
     # ---- phase 0: the machine ----------------------------------------
+    warnings.filterwarnings("ignore", message="Sparse", category=UserWarning)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1082,11 +1524,13 @@ def main() -> int:
     # ---- building the inputs -----------------------------------------
     with phase("inputs: config[0] and SpMV at n = 2**21"):
         coo0, csr0, x0 = config0(device)
-        big = {}
+        big, coos, host_seconds = {}, {}, {}
         for name, (np_dtype, _) in DTYPES.items():
-            *big[name], seconds = big_matrix(np_dtype, device)
+            *big[name], coos[name], host_seconds[name] = big_matrix(np_dtype,
+                                                                    device)
             print(f"phase 3: {name} n={N_BIG} nnz={big[name][0].nnz}: COO "
-                  f"build + CsrMatrix.from_coo(device='cuda') {seconds:.2f} s")
+                  f"build + CsrMatrix.from_coo(device='cuda') "
+                  f"{host_seconds[name]:.2f} s")
     with phase("inputs: config[1] SpMM matrices"):
         mats, rhs = spmm_inputs(device)
         for mname in ("random", "banded"):
@@ -1129,6 +1573,15 @@ def main() -> int:
         print(f"phase 2: config[0] 1000x1000 nnz={csr0.nnz} f64: csr @ x "
               f"matches coo.to_dense() @ x, max |err| {err.max():.3e} <= "
               "1e-12*(|A||x|)")
+        unnamed = CsrMatrix.from_coo(coo0)
+        if not (unnamed.device == torch.device("cuda", 0)
+                and torch.equal(unnamed.rowptr, csr0.rowptr)
+                and torch.equal(unnamed.values, csr0.values)):
+            raise AssertionError(f"CsrMatrix.from_coo with no device landed "
+                                 f"on {unnamed.device}, not cuda:0")
+        print(f"phase 2: CsrMatrix.from_coo(coo) with no device lands on "
+              f"{unnamed.device}")
+        del unnamed
 
     report = {}
     with phase("phase 3"):
@@ -1137,7 +1590,7 @@ def main() -> int:
         time_spmv(big, report, card)
     with phase("phase 5"):
         where_the_time_goes(big, card)
-    del big
+    big = {name: (csr,) for name, (csr, _, _) in big.items()}
     free_memory()
     with phase("phase 6"):
         check_spmm(mats, rhs, main_out, report)
@@ -1174,6 +1627,39 @@ def main() -> int:
     with phase("phase 11"):
         time_bsr(bsr_in, report, card)
         profile_bsr(bsr_in, card)
+    del bsr_in, mats, rhs
+    free_memory()
+
+    # ---- DeviceCoo: COO -> CSR on the card (phase 12) -------------------
+    with phase("phase 12"):
+        check_device_coo(coos, big, host_seconds, coo0, csr0, x0, device)
+    del coos, big
+    free_memory()
+
+    # ---- DIA: its main path, checks (phase 13) and times (phase 14) ----
+    torch.cuda.reset_peak_memory_stats()
+    with phase("inputs: DIA dia9 and lap3d"):
+        dia_in = dia_inputs(device)
+    dia_out = drive("DIA dia @ x", lambda: run_dia(dia_in), launches)
+    with phase("phase 13"):
+        check_dia(dia_in, dia_out, report)
+        stencil_path(device)
+    del dia_out
+    free_memory()
+    with phase("phase 14"):
+        time_dia(dia_in, report, card)
+    dia_bytes = sum(d.data.numel() * d.data.element_size()
+                    for d, _, _ in dia_in.values())
+    print(f"phase 14: peak device memory over the DIA phases "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the DIA "
+          f"matrices hold {dia_bytes / 1e9:.2f} GB)")
+    del dia_in
+    free_memory()
+
+    # ---- B10: the wide-gather probe (phase 15) --------------------------
+    probe_out = drive("B10 probe", lambda: probe.run(device), launches)
+    with phase("phase 15"):
+        check_probe(probe_out, device, report, card)
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
     kernels = [{"name": f"{kname}_{name}", "route": "cuda", "source": source,

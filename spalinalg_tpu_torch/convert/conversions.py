@@ -16,7 +16,7 @@ All 12 directed conversions of the reference, with its exact semantics
   (`coo.rs:629-749`, `dok.rs:676-720`), copied to the host.
 
 Host-builder sources (COO/DOK) run the exact host engine and land on the
-``device`` the caller names.
+``device`` the caller names, else on the default device (``device.py``).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def _host_compress_to(cls, rows, cols, vals, nrows, ncols, *, dedup,
 # ----------------------------------------------------------------------
 
 
-def coo_to_csr(coo: CooMatrix, *, device="cpu") -> CsrMatrix:
+def coo_to_csr(coo: CooMatrix, *, device=None) -> CsrMatrix:
     """COO->CSR with duplicate merge + zero drop (`csr/conv/coo.rs:4-124`)."""
     rows, cols, vals = coo.to_arrays()
     return _host_compress_to(
@@ -62,7 +62,7 @@ def coo_to_csr(coo: CooMatrix, *, device="cpu") -> CsrMatrix:
     )
 
 
-def coo_to_csc(coo: CooMatrix, *, device="cpu") -> CscMatrix:
+def coo_to_csc(coo: CooMatrix, *, device=None) -> CscMatrix:
     """COO->CSC, mirror of :func:`coo_to_csr` (`csc/conv/coo.rs:4-124`)."""
     rows, cols, vals = coo.to_arrays()
     return _host_compress_to(
@@ -71,7 +71,7 @@ def coo_to_csc(coo: CooMatrix, *, device="cpu") -> CscMatrix:
     )
 
 
-def dok_to_csr(dok: DokMatrix, *, device="cpu") -> CsrMatrix:
+def dok_to_csr(dok: DokMatrix, *, device=None) -> CsrMatrix:
     """DOK->CSR: unique keys, zeros kept (`csr/conv/dok.rs:4-85`)."""
     rows, cols, vals = dok.to_arrays()
     return _host_compress_to(
@@ -80,7 +80,7 @@ def dok_to_csr(dok: DokMatrix, *, device="cpu") -> CsrMatrix:
     )
 
 
-def dok_to_csc(dok: DokMatrix, *, device="cpu") -> CscMatrix:
+def dok_to_csc(dok: DokMatrix, *, device=None) -> CscMatrix:
     """DOK->CSC mirror (`csc/conv/dok.rs:4-85`)."""
     rows, cols, vals = dok.to_arrays()
     return _host_compress_to(

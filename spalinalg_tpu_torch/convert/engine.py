@@ -9,10 +9,13 @@ One sort/segment pipeline serves every format change:
   by the constructors from the host builders (COO, DOK). It is the JAX
   package's NumPy path, so both packages build the same structure and the
   same values bit for bit.
-- **Device path** (torch, :func:`transpose_structure`): re-keys a
-  compressed structure by its minor axis with one stable ``torch.sort``,
-  on whatever device the structure lives. It gives CSR<->CSC, transpose,
-  and the transposed structure that the SpMV backward runs on.
+- **Device path** (torch, on whatever device the tensors live):
+  :func:`transpose_structure` re-keys a compressed structure by its minor
+  axis with one stable ``torch.sort``; it gives CSR<->CSC, transpose, and
+  the transposed structure that the SpMV backward runs on.
+  :func:`compress_device` is the whole pipeline with static shapes
+  (``nse`` kept, merged and dropped slots as sentinel padding), behind
+  ``DeviceCoo.to_csr_device``.
 
 Padding convention: a compressed structure may store ``nse`` slots past
 its logical ``nnz = ptr[-1]``. Those slots exist in storage and contribute
@@ -35,6 +38,8 @@ from ..dtypes import INDEX_DTYPE
 
 __all__ = [
     "compress_host",
+    "compress_device",
+    "ptr_from_major",
     "expand_ptr_host",
     "major_ids",
     "TransposeStructure",
@@ -148,6 +153,69 @@ def transpose_structure(ptr: torch.Tensor, minor: torch.Tensor, *,
     new_ptr = torch.searchsorted(key_sorted, targets).to(INDEX_DTYPE)
     return TransposeStructure(new_ptr, new_minor.to(INDEX_DTYPE),
                               perm.to(INDEX_DTYPE), major)
+
+
+def ptr_from_major(major_sorted: torch.Tensor, n_major: int) -> torch.Tensor:
+    """``ptr[i]`` = the number of entries with major < ``i``, over sorted
+    majors (sentinel padding ``n_major`` at the end), int32; ``ptr[n_major]``
+    is the true nnz."""
+    targets = torch.arange(n_major + 1, dtype=major_sorted.dtype,
+                           device=major_sorted.device)
+    return torch.searchsorted(major_sorted, targets).to(INDEX_DTYPE)
+
+
+def _sort_triplets(major, minor, values, n_minor: int):
+    """Stable sort of triplets by (major, minor): one stable ``argsort`` of
+    the int64 key ``major·(n_minor + 1) + minor``, which orders as the JAX
+    package's one- or two-pass stable sort does. Sentinel padding
+    (``major == n_major``) sorts to the end."""
+    key = major.to(torch.int64) * (n_minor + 1) + minor.to(torch.int64)
+    order = torch.argsort(key, stable=True)
+    return major[order], minor[order], values[order]
+
+
+def compress_device(major: torch.Tensor, minor: torch.Tensor,
+                    values: torch.Tensor, *, n_major: int, n_minor: int,
+                    dedup: bool, drop_zeros: bool):
+    """Device-side compress (``spalinalg_tpu/convert/engine.py:174-235``):
+    ``(ptr, minor, values)`` with static shapes, on the tensors' device.
+
+    ``nse`` is kept: merged and dropped slots become sentinel padding
+    (``major == n_major``, minor 0, value 0), exactly as the JAX arrays have
+    them. ``ptr`` has ``n_major + 1`` entries and ``ptr[-1]`` is the true
+    nnz. Plain torch: the JAX package has no Pallas kernel here.
+    """
+    nse = major.shape[0]
+    if nse == 0:
+        return (torch.zeros(n_major + 1, dtype=INDEX_DTYPE,
+                            device=major.device), minor.to(INDEX_DTYPE),
+                values)
+    major = major.to(INDEX_DTYPE)
+    minor = minor.to(INDEX_DTYPE)
+    major, minor, values = _sort_triplets(major, minor, values, n_minor)
+    if dedup:
+        is_new = torch.ones(nse, dtype=torch.bool, device=major.device)
+        is_new[1:] = (major[1:] != major[:-1]) | (minor[1:] != minor[:-1])
+        # Padding slots share (n_major, minor) keys: they collapse into
+        # groups of their own, which stay padding below.
+        gid = torch.cumsum(is_new, 0) - 1
+        summed = values.new_zeros(nse).index_add_(0, gid, values)
+        rep_major = torch.full((nse,), n_major, dtype=INDEX_DTYPE,
+                               device=major.device)
+        rep_major[gid] = major
+        rep_minor = torch.zeros(nse, dtype=INDEX_DTYPE, device=major.device)
+        rep_minor[gid] = minor
+        live = torch.arange(nse, device=major.device) <= gid[-1]
+        major = torch.where(live, rep_major, n_major)
+        minor = torch.where(live, rep_minor, 0)
+        values = torch.where(live, summed, 0)
+    if drop_zeros:
+        drop = (values == 0) | (major >= n_major)
+        major = torch.where(drop, n_major, major)
+        minor = torch.where(drop, 0, minor)
+        major, minor, values = _sort_triplets(major, minor, values, n_minor)
+        values = torch.where(major >= n_major, 0, values)
+    return ptr_from_major(major, n_major), minor, values
 
 
 def transpose_compressed(ptr, minor, values, *, n_major: int, n_minor: int):

@@ -45,6 +45,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..dtypes import INDEX_DTYPE, canonical_value_dtype, result_dtype
 from ..errors import ShapeError, StructureError
 from .compressed import _host, _index_tensor, _values_tensor
@@ -64,11 +65,12 @@ class BsrMatrix:
                  "_bc")
 
     def __init__(self, nrows, ncols, blocksize, indptr, indices, data, *,
-                 device="cpu"):
+                 device=None):
         """Validating constructor (``spalinalg_tpu/formats/bsr.py:58-93``):
         the same checks, raising the same errors, on host copies of
         ``indptr`` and ``indices`` and on the shape of ``data``, which is
-        not copied to the host. ``blocksize`` is a scalar or ``(br, bc)``.
+        not copied to the host. ``blocksize`` is a scalar or ``(br, bc)``;
+        ``device`` ``None`` is the default device (``device.py``).
         """
         nrows, ncols = int(nrows), int(ncols)
         br, bc = _blocksize(blocksize)
@@ -92,6 +94,7 @@ class BsrMatrix:
         if shape != (ix.size, br, bc):
             raise StructureError(
                 f"data must have shape {(ix.size, br, bc)}, got {shape}")
+        device = resolve_device(device)
         self._nrows, self._ncols, self._br, self._bc = nrows, ncols, br, bc
         self._indptr = _index_tensor(indptr, device)
         self._indices = _index_tensor(indices, device)
@@ -158,12 +161,13 @@ class BsrMatrix:
 
     @classmethod
     def eye(cls, size: int, blocksize: int = 8, *, dtype=torch.float64,
-            device="cpu") -> "BsrMatrix":
+            device=None) -> "BsrMatrix":
         """Identity of ``size`` rows in square blocks (``bsr.py:163``)."""
         if size % blocksize:
             raise ShapeError(
                 f"size {size} not divisible by blocksize {blocksize}")
         nb = size // blocksize
+        device = resolve_device(device)
         indptr = torch.arange(nb + 1, dtype=INDEX_DTYPE, device=device)
         indices = torch.arange(nb, dtype=INDEX_DTYPE, device=device)
         data = torch.eye(blocksize, dtype=canonical_value_dtype(dtype),

@@ -28,6 +28,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..dtypes import INDEX_DTYPE, canonical_value_dtype, check_nse, numpy_dtype
 from ..errors import ShapeError, StructureError
 
@@ -74,11 +75,12 @@ class _CompressedMatrix:
     __slots__ = ("_ptr", "_minor", "_values", "_nrows", "_ncols")
 
     def __init__(self, nrows: int, ncols: int, ptr, minor, values, *,
-                 device="cpu"):
+                 device=None):
         """Validating constructor (reference ``new``: `csr.rs:137-177`).
 
         All eight reference asserts are checked on host copies of the
-        inputs; the tensors are then made on ``device``.
+        inputs; the tensors are then made on ``device`` (``None``: the
+        default device, see ``spalinalg_tpu_torch/device.py``).
         """
         nrows, ncols = int(nrows), int(ncols)
         if nrows <= 0 or ncols <= 0:
@@ -87,6 +89,7 @@ class _CompressedMatrix:
                 "(reference: csr.rs:144-145)"
             )
         self._validate(nrows, ncols, _host(ptr), _host(minor), _host(values))
+        device = resolve_device(device)
         self._nrows, self._ncols = nrows, ncols
         self._ptr = _index_tensor(ptr, device)
         self._minor = _index_tensor(minor, device)
@@ -163,8 +166,10 @@ class _CompressedMatrix:
 
     @classmethod
     def _from_host(cls, nrows, ncols, ptr, minor, values, device):
-        """Trusted constructor from exact host arrays (the engine's output)."""
+        """Trusted constructor from exact host arrays (the engine's output)
+        onto ``device`` (``None``: the default device)."""
         check_nse(len(minor))
+        device = resolve_device(device)
         return cls._from_parts(
             nrows, ncols,
             _index_tensor(ptr, device), _index_tensor(minor, device),
@@ -175,9 +180,10 @@ class _CompressedMatrix:
     # ------------------------------------------------------------------
 
     @classmethod
-    def eye(cls, size: int, *, dtype=torch.float64, device="cpu"):
+    def eye(cls, size: int, *, dtype=torch.float64, device=None):
         """Identity matrix (reference ``eye``, csr.rs:179-198)."""
         dtype = canonical_value_dtype(dtype)
+        device = resolve_device(device)
         ptr = torch.arange(size + 1, dtype=INDEX_DTYPE, device=device)
         minor = torch.arange(size, dtype=INDEX_DTYPE, device=device)
         values = torch.ones(size, dtype=dtype, device=device)
@@ -452,7 +458,7 @@ class CsrMatrix(_CompressedMatrix):
     _MAJOR_AXIS = 0
     __slots__ = ()
 
-    def __init__(self, nrows, ncols, rowptr, colind, values, *, device="cpu"):
+    def __init__(self, nrows, ncols, rowptr, colind, values, *, device=None):
         super().__init__(nrows, ncols, rowptr, colind, values, device=device)
 
     @property
@@ -468,13 +474,13 @@ class CsrMatrix(_CompressedMatrix):
     # ---- conversions (implementations in spalinalg_tpu_torch.convert) ----
 
     @classmethod
-    def from_coo(cls, coo, *, device="cpu") -> "CsrMatrix":
+    def from_coo(cls, coo, *, device=None) -> "CsrMatrix":
         from ..convert import conversions
 
         return conversions.coo_to_csr(coo, device=device)
 
     @classmethod
-    def from_dok(cls, dok, *, device="cpu") -> "CsrMatrix":
+    def from_dok(cls, dok, *, device=None) -> "CsrMatrix":
         from ..convert import conversions
 
         return conversions.dok_to_csr(dok, device=device)
@@ -517,7 +523,7 @@ class CscMatrix(_CompressedMatrix):
     _MAJOR_AXIS = 1
     __slots__ = ()
 
-    def __init__(self, nrows, ncols, colptr, rowind, values, *, device="cpu"):
+    def __init__(self, nrows, ncols, colptr, rowind, values, *, device=None):
         super().__init__(nrows, ncols, colptr, rowind, values, device=device)
 
     @property
@@ -533,13 +539,13 @@ class CscMatrix(_CompressedMatrix):
     # ---- conversions ----
 
     @classmethod
-    def from_coo(cls, coo, *, device="cpu") -> "CscMatrix":
+    def from_coo(cls, coo, *, device=None) -> "CscMatrix":
         from ..convert import conversions
 
         return conversions.coo_to_csc(coo, device=device)
 
     @classmethod
-    def from_dok(cls, dok, *, device="cpu") -> "CscMatrix":
+    def from_dok(cls, dok, *, device=None) -> "CscMatrix":
         from ..convert import conversions
 
         return conversions.dok_to_csc(dok, device=device)

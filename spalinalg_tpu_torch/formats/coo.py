@@ -424,6 +424,14 @@ class CooMatrix:
                   self._vals[: self._len])
         return out
 
+    def to_device(self, device=None):
+        """Materialise as a device-resident
+        :class:`~spalinalg_tpu_torch.formats.device.DeviceCoo` on ``device``
+        (``None``: the default device)."""
+        from .device import DeviceCoo
+
+        return DeviceCoo.from_host(self, device=device)
+
     def __repr__(self) -> str:
         return (
             f"CooMatrix(shape={self.shape}, length={self._len}, "

@@ -1,17 +1,16 @@
-"""The native host library, built from the JAX package's C++ source.
+"""The native host library, built from the port's own C++ source.
 
-``spalinalg_tpu/native/src/host_kernels.cpp`` is plain C++ with a C
-interface and no tie to any framework, so the port compiles that same file
-where it lies (the source is shared, not copied) with
-``g++ -O3 -fPIC -std=c++17 -shared``, without ``-march=native``, so the
-library runs on any x86-64 host. The build happens at first use, into
-``build/native/`` at the repository root, named by a hash of the source
-and flags; nothing is written beside the source. A failed build raises
-:class:`NativeBuildError`: callers that need the library do not drop to
-NumPy.
+``spalinalg_tpu_torch/native/src/host_kernels.cpp`` is plain C++ with a C
+interface and no tie to any framework: the port's copy of the functions it
+needs from the JAX package's ``host_kernels.cpp``, each copied with its
+first caller. It is compiled with ``g++ -O3 -fPIC -std=c++17 -shared``,
+without ``-march=native``, so the library runs on any x86-64 host. The
+build happens at first use, into ``build/native/`` at the repository root,
+named by a hash of the source and flags; nothing is written beside the
+source. A failed build raises :class:`NativeBuildError`: callers that need
+the library do not drop to NumPy.
 
-Bound so far: ``spal_spgemm_symbolic``, the SpGEMM symbolic phase. The
-other entry points are bound with their first caller in the port.
+Bound so far: ``spal_spgemm_symbolic``, the SpGEMM symbolic phase.
 """
 
 from __future__ import annotations
@@ -29,17 +28,15 @@ import numpy as np
 __all__ = ["NativeBuildError", "SOURCE", "library_path", "load_library",
            "spgemm_symbolic"]
 
-_ROOT = Path(__file__).resolve().parents[2]
-SOURCE = _ROOT / "spalinalg_tpu" / "native" / "src" / "host_kernels.cpp"
-BUILD_DIR = _ROOT / "build" / "native"
+SOURCE = Path(__file__).resolve().parent / "src" / "host_kernels.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 
 
 class NativeBuildError(RuntimeError):
-    """The C++ compiler or the shared source is missing, or the build
-    failed."""
+    """The C++ compiler or the source is missing, or the build failed."""
 
 
 def library_path() -> Path:

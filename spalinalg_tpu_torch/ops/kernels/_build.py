@@ -47,6 +47,11 @@ _ENTRIES = {
     **{f"spal_bsr_spmm_{t}": [_P] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                          ctypes.c_int] + [ctypes.c_longlong] * 2
        + [_P] for t in ("f32", "bf16", "f64")},
+    # (offsets, ndiag, data, x, y, nrows, ncols, transposed, stream)
+    **{f"spal_dia_spmv_{t}": [_P, ctypes.c_int] + [_P] * 3
+       + [ctypes.c_longlong] * 2 + [ctypes.c_int, _P] for t in ("f32", "f64")},
+    # (xt, idx, val, out, S, N, K, L, stream)
+    "spal_wide_gather_f32": [_P] * 4 + [ctypes.c_longlong] * 4 + [_P],
 }
 
 

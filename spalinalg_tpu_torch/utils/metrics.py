@@ -6,8 +6,9 @@ names the dispatch path that ran, for example ``csr_spmv:cuda`` (the
 hand-written kernel) or ``csr_spmv:plain`` (the plain torch version on
 CPU tensors), so a reader of the records can tell the two apart. The
 paths: ``csr_spmv``, ``csc_spmv``, ``csr_spmm``, ``csc_spmm``, ``spgemm``,
-``bsr_spmv`` and ``bsr_spmm``, each ``:cuda`` or ``:plain``, and
-``spgemm_symbolic:native|numpy``.
+``bsr_spmv``, ``bsr_spmm`` and ``dia_spmv``, each ``:cuda`` or ``:plain``;
+``dia_spmm:torch`` (plain torch on any device: the JAX package has no
+kernel for a 2-D operand either); and ``spgemm_symbolic:native|numpy``.
 
 Examples
 --------
@@ -15,7 +16,7 @@ Examples
 >>> from spalinalg_tpu_torch import CsrMatrix
 >>> from spalinalg_tpu_torch.utils import metrics
 >>> rec = metrics.enable()
->>> _ = CsrMatrix.eye(4) @ torch.ones(4, dtype=torch.float64)
+>>> _ = CsrMatrix.eye(4, device="cpu") @ torch.ones(4, dtype=torch.float64)
 >>> rec.records[-1].op, rec.records[-1].path, rec.records[-1].nnz
 ('csr_spmv', 'csr_spmv:plain', 4)
 >>> metrics.disable()

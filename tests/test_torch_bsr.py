@@ -40,6 +40,15 @@ from spalinalg_tpu_torch.ops.kernels import bsr_spmv as bsr_spmv_mod
 from spalinalg_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm
 from spalinalg_tpu_torch.ops.kernels.bsr_spmv import bsr_spmv
 
+
+@pytest.fixture(autouse=True)
+def _cpu_scope():
+    """The port's entry points place data on the card unless told
+    otherwise; these tests run on the CPU."""
+    with tsp.default_device("cpu"):
+        yield
+
+
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 BLOCKSIZES = [1, 3, 8, (4, 8)]
 

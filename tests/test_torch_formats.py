@@ -20,6 +20,14 @@ from spalinalg_tpu.convert import conversions as jconv
 from spalinalg_tpu_torch.convert import conversions as tconv
 
 
+@pytest.fixture(autouse=True)
+def _cpu_scope():
+    """The port's entry points place data on the card unless told
+    otherwise; these tests run on the CPU."""
+    with tsp.default_device("cpu"):
+        yield
+
+
 def host(a):
     """A package's array (JAX array, torch tensor, NumPy) as NumPy."""
     if isinstance(a, torch.Tensor):

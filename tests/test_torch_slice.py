@@ -2,12 +2,16 @@
 itself.
 
 COO (or DOK) build -> ``CsrMatrix.from_coo`` -> ``csr @ x`` -> backward to
-``x`` and ``values``, run through both packages on the same NumPy inputs
-in float64 and float32. Then: the port imports no JAX, runs on CPU tensors
-without ever calling ``nvcc``, records the path that ran, refuses to run
-plain torch on a non-CPU device, and its docstring examples hold.
+``x`` and ``values``, and the stencil slice ``diags`` + ``kron`` Laplacian
+-> ``DiaMatrix.from_csr`` -> ``dia @ x`` -> backward, run through both
+packages on the same NumPy inputs in float64 and float32. Then: the port
+imports no JAX, runs on CPU tensors without ever calling ``nvcc``, records
+the path that ran, refuses to run plain torch on a non-CPU device, places
+data on the card unless a device or a ``default_device`` scope says
+otherwise, and its docstring examples hold.
 """
 
+import contextvars
 import doctest
 import importlib
 import subprocess
@@ -28,6 +32,17 @@ from spalinalg_tpu_torch.ops.kernels.csr_spmv import csr_spmv
 from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import spgemm_numeric
 from spalinalg_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm
 from spalinalg_tpu_torch.ops.kernels.bsr_spmv import bsr_spmv
+from spalinalg_tpu_torch.ops.kernels.dia_spmv import dia_spmv
+from spalinalg_tpu_torch.tools.probe_widegather import wide_gather_mac
+
+
+@pytest.fixture(autouse=True)
+def _cpu_scope():
+    """The port's entry points place data on the card unless told
+    otherwise; these tests run on the CPU."""
+    with tsp.default_device("cpu"):
+        yield
+
 
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 
@@ -97,7 +112,14 @@ def test_port_never_imports_jax():
             "spalinalg_tpu_torch.ops.bsr_ops, "
             "spalinalg_tpu_torch.ops.kernels.bsr_spmv, "
             "spalinalg_tpu_torch.ops.kernels.bsr_spmm, "
-            "spalinalg_tpu_torch.native.lib, chip_smoke; "
+            "spalinalg_tpu_torch.native.lib, "
+            "spalinalg_tpu_torch.device, "
+            "spalinalg_tpu_torch.formats.dia, "
+            "spalinalg_tpu_torch.formats.device, "
+            "spalinalg_tpu_torch.ops.structure, "
+            "spalinalg_tpu_torch.ops.construct, "
+            "spalinalg_tpu_torch.ops.kernels.dia_spmv, "
+            "spalinalg_tpu_torch.tools.probe_widegather, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'spalinalg_tpu' or "
             "m.startswith('spalinalg_tpu.')]; "
@@ -161,6 +183,18 @@ def test_no_build_on_cpu(monkeypatch):
             (bsr.with_data(data) @ xg).sum().backward()
             assert data.grad is not None and xg.grad is not None
     (sq.to_bsr(4).astype(torch.bfloat16) @ torch.ones(300)).sum()
+    dia = tsp.DiaMatrix.from_csr(tsp.kron(
+        tsp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(20, 20)),
+        tsp.diags([1.0], [0], shape=(15, 15))))
+    data = dia.data.clone().requires_grad_(True)
+    xg = torch.ones(300, dtype=torch.float64, requires_grad=True)
+    (tsp.DiaMatrix(300, 300, dia.offsets, data) @ xg).sum().backward()
+    assert data.grad is not None and xg.grad is not None
+    dia @ torch.ones(300, 2, dtype=torch.float64)
+    coo = sq.to_coo().to_device()
+    coo.to_csr_device() @ torch.ones(300, dtype=torch.float64)
+    wide_gather_mac(torch.ones(4, 9), torch.zeros(3, 5, dtype=torch.int32),
+                    torch.ones(3, 5))
     assert calls == []
     assert _build.load_library.cache_info().currsize == 0
 
@@ -173,8 +207,12 @@ def test_metrics_record_the_path():
         rec.records.clear()
         tsp.CsrMatrix.eye(5) @ torch.ones(5, dtype=torch.float64)
         tsp.CscMatrix.eye(5) @ torch.ones(5, dtype=torch.float64)
+        dia = tsp.DiaMatrix.from_diagonals([1.0, 2.0], [0, 1], 5)
+        dia @ torch.ones(5, dtype=torch.float64)
+        dia @ torch.ones(5, 2, dtype=torch.float64)
         assert [(r.op, r.path, r.nnz) for r in rec.records] == [
-            ("csr_spmv", "csr_spmv:plain", 5), ("csc_spmv", "csc_spmv:plain", 5)]
+            ("csr_spmv", "csr_spmv:plain", 5), ("csc_spmv", "csc_spmv:plain", 5),
+            ("dia_spmv", "dia_spmv:plain", 9), ("dia_spmm", "dia_spmm:torch", 9)]
     finally:
         metrics.disable()
         rec.records.clear()
@@ -208,6 +246,19 @@ def test_no_plain_torch_off_the_cpu():
         bsr @ x
     with pytest.raises(ValueError, match="no bsr_spmm kernel for device"):
         bsr.astype(torch.bfloat16) @ torch.ones(2, 3, device="meta")
+    with pytest.raises(ValueError, match="no dia_spmv kernel for device"):
+        dia_spmv([0, 1], torch.ones(2, 2, device="meta"), x.float(), 2, 2)
+    with pytest.raises(ValueError, match="no dia_spmv kernel for device"):
+        dia_spmv([0], torch.ones(1, 2, device="meta"), x, 2, 2,
+                 transposed=True)
+    dia = tsp.DiaMatrix(2, 2, [0, 1], torch.ones(2, 2, dtype=torch.float64),
+                        device="meta")
+    with pytest.raises(ValueError, match="no dia_spmv kernel for device"):
+        dia @ x
+    with pytest.raises(ValueError, match="no wide_gather kernel"):
+        wide_gather_mac(torch.ones(2, 3, device="meta"),
+                        torch.zeros(1, 2, dtype=torch.int32, device="meta"),
+                        torch.ones(1, 2, device="meta"))
 
 
 @pytest.mark.parametrize("module", [
@@ -223,7 +274,133 @@ def test_no_plain_torch_off_the_cpu():
     "spalinalg_tpu_torch.ops.kernels.bsr_spmm",
     "spalinalg_tpu_torch.utils.metrics",
     "spalinalg_tpu_torch.utils.plancache",
+    "spalinalg_tpu_torch.device",
+    "spalinalg_tpu_torch.formats.dia",
+    "spalinalg_tpu_torch.formats.device",
+    "spalinalg_tpu_torch.ops.structure",
+    "spalinalg_tpu_torch.ops.construct",
+    "spalinalg_tpu_torch.ops.kernels.dia_spmv",
+    "spalinalg_tpu_torch.tools.probe_widegather",
 ])
 def test_port_doctests(module):
     result = doctest.testmod(importlib.import_module(module))
     assert result.attempted > 0 and result.failed == 0
+
+
+def _laplacian(pkg, k):
+    """The 7-point Laplacian of a k x k x k grid through ``diags`` +
+    ``kron`` + ``+``: CSR."""
+    t = pkg.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(k, k))
+    eye = pkg.diags([1.0], [0], shape=(k, k))
+    return (pkg.kron(pkg.kron(t, eye), eye) + pkg.kron(pkg.kron(eye, t), eye)
+            + pkg.kron(pkg.kron(eye, eye), t))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_stencil_slice_matches_jax(dtype):
+    """``diags`` + ``kron`` Laplacian -> ``DiaMatrix.from_csr`` ->
+    ``dia @ x`` -> backward to ``data`` and ``x``, through both packages."""
+    k = 6
+    n = k ** 3
+    jdia = jsp.DiaMatrix.from_csr(_laplacian(jsp, k))
+    tdia = tsp.DiaMatrix.from_csr(_laplacian(tsp, k))
+    np.testing.assert_array_equal(tdia.offsets, jdia.offsets)
+    np.testing.assert_array_equal(tdia.offsets, [-36, -6, -1, 0, 1, 6, 36])
+    np.testing.assert_array_equal(tdia.data.numpy(), np.asarray(jdia.data))
+    rng = np.random.default_rng(7)
+    data = np.asarray(jdia.data).astype(dtype)
+    x = rng.normal(size=n).astype(dtype)
+    g = rng.normal(size=n).astype(dtype)
+
+    def f(d, xv):
+        return jnp.vdot(jnp.asarray(g), jsp.DiaMatrix(n, n, jdia.offsets, d)
+                        @ xv)
+
+    y = np.asarray(jsp.DiaMatrix(n, n, jdia.offsets, jnp.asarray(data))
+                   @ jnp.asarray(x))
+    jd, jx = jax.grad(f, argnums=(0, 1))(jnp.asarray(data), jnp.asarray(x))
+    td = torch.from_numpy(data).requires_grad_(True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ty = tsp.DiaMatrix(n, n, tdia.offsets, td) @ tx
+    ty.backward(torch.from_numpy(g))
+    tol = TOL[dtype]
+    for got, want in ((ty, y), (td.grad, jd), (tx.grad, jx)):
+        assert got.dtype == getattr(torch, np.dtype(dtype).name)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=tol, atol=tol * 12)
+    csr = _laplacian(tsp, k).astype(getattr(torch, np.dtype(dtype).name))
+    np.testing.assert_allclose(ty.detach().numpy(),
+                               (csr @ torch.from_numpy(x)).numpy(),
+                               rtol=tol, atol=tol * 12)
+
+
+ENTRY_POINTS = {
+    "CsrMatrix": lambda: tsp.CsrMatrix(2, 2, [0, 1, 2], [0, 1], [1.0, 2.0]),
+    "CscMatrix": lambda: tsp.CscMatrix(2, 2, [0, 1, 2], [0, 1], [1.0, 2.0]),
+    "CsrMatrix.eye": lambda: tsp.CsrMatrix.eye(3),
+    "CscMatrix.eye": lambda: tsp.CscMatrix.eye(3),
+    "CsrMatrix.from_coo": lambda: tsp.CsrMatrix.from_coo(
+        tsp.CooMatrix.with_entries(2, 2, [(0, 1, 1.0)])),
+    "CscMatrix.from_coo": lambda: tsp.CscMatrix.from_coo(
+        tsp.CooMatrix.with_entries(2, 2, [(0, 1, 1.0)])),
+    "CsrMatrix.from_dok": lambda: tsp.CsrMatrix.from_dok(
+        tsp.DokMatrix.with_triplets(2, 2, [0], [1], [1.0])),
+    "CscMatrix.from_dok": lambda: tsp.CscMatrix.from_dok(
+        tsp.DokMatrix.with_triplets(2, 2, [0], [1], [1.0])),
+    "BsrMatrix": lambda: tsp.BsrMatrix(2, 2, 1, [0, 1, 2], [0, 1],
+                                       np.ones((2, 1, 1))),
+    "BsrMatrix.eye": lambda: tsp.BsrMatrix.eye(4, 2),
+    "csr_from_arrays": lambda: tsp.io.csr_from_arrays(
+        2, 2, [0, 1, 2], [0, 1], [1.0, 2.0]),
+    "csc_from_arrays": lambda: tsp.io.csc_from_arrays(
+        2, 2, [0, 1, 2], [0, 1], [1.0, 2.0]),
+    "bsr_from_arrays": lambda: tsp.io.bsr_from_arrays(
+        2, 2, 1, [0, 1, 2], [0, 1], np.ones((2, 1, 1))),
+    "dia_from_arrays": lambda: tsp.io.dia_from_arrays(2, 2, [0],
+                                                      np.ones((1, 2))),
+    "device_coo_from_arrays": lambda: tsp.io.device_coo_from_arrays(
+        2, 2, [0], [1], [1.0]),
+    "DiaMatrix": lambda: tsp.DiaMatrix(2, 2, [0], np.ones((1, 2))),
+    "DiaMatrix.from_diagonals": lambda: tsp.DiaMatrix.from_diagonals(
+        [1.0], [0], 3),
+    "DeviceCoo": lambda: tsp.DeviceCoo(2, 2, [0], [1], [1.0]),
+    "CooMatrix.to_device": lambda: tsp.CooMatrix.with_entries(
+        2, 2, [(0, 1, 1.0)]).to_device(),
+    "diags": lambda: tsp.diags([1.0], [0], shape=(3, 3)),
+    "sprandom": lambda: tsp.sprandom(4, 4, 0.5, seed=0),
+    "kron": lambda: tsp.kron(tsp.CooMatrix.with_entries(1, 1, [(0, 0, 2.0)]),
+                             tsp.CooMatrix.with_entries(1, 1, [(0, 0, 3.0)])),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_entry_points_follow_the_default_device(entry):
+    """With no ``device``, each entry point places its data on the scope's
+    device; an explicit ``device`` wins over the scope."""
+    with tsp.default_device("meta"):
+        assert ENTRY_POINTS[entry]().device.type == "meta"
+    assert ENTRY_POINTS[entry]().device.type == "cpu"
+
+
+def test_unscoped_entry_points_go_to_the_card():
+    """Outside any scope, no ``device`` means the card: on this CPU-only
+    machine ``CsrMatrix.from_coo`` raises rather than building on the CPU.
+    An explicit device still wins, and scopes nest."""
+    from spalinalg_tpu_torch.device import resolve_device
+
+    coo = tsp.CooMatrix.with_entries(2, 2, [(0, 1, 1.0)])
+    empty = contextvars.Context()
+    assert empty.run(resolve_device) == torch.device("cuda")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the unscoped build would succeed")
+    with pytest.raises((AssertionError, RuntimeError)):
+        empty.run(tsp.CsrMatrix.from_coo, coo)
+    with pytest.raises((AssertionError, RuntimeError)):
+        empty.run(tsp.DiaMatrix.from_diagonals, [1.0], [0], 3)
+    assert empty.run(lambda: tsp.CsrMatrix.from_coo(
+        coo, device="cpu").device) == torch.device("cpu")
+    with tsp.default_device("meta"):
+        with tsp.default_device("cpu"):
+            assert resolve_device() == torch.device("cpu")
+        assert resolve_device() == torch.device("meta")
+        assert resolve_device("cpu") == torch.device("cpu")

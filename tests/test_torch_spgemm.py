@@ -16,9 +16,11 @@ are made with NumPy from a seed and handed to both packages.
   structure exactly, cancellation zeros included;
 - ``+``/``-``/unary ``-``: the same structure and values bit for bit, and
   ``ShapeError`` where the JAX package raises it;
-- the native host library: built from the shared source into
+- the native host library: built from the port's own copy of the source into
   ``build/native/``, and a failed build raises.
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -35,6 +37,15 @@ from spalinalg_tpu_torch.io import csr_from_arrays
 from spalinalg_tpu_torch.native import lib as native
 from spalinalg_tpu_torch.ops import spgemm as tsg
 from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import spgemm_numeric
+
+
+@pytest.fixture(autouse=True)
+def _cpu_scope():
+    """The port's entry points place data on the card unless told
+    otherwise; these tests run on the CPU."""
+    with tsp.default_device("cpu"):
+        yield
+
 
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 
@@ -423,18 +434,28 @@ def test_mixed_formats_are_not_added():
 
 
 def test_native_library_builds_into_build_dir(tmp_path, monkeypatch):
-    """The shared source is compiled where it lies, into the build
-    directory; the port writes nothing under the JAX package (whose own
-    tests may build that package's library there meanwhile)."""
-    jax_pkg = native.SOURCE.parents[2]
+    """The port's own source is compiled where it lies, into the build
+    directory; nothing is written beside the source."""
+    src_dir = native.SOURCE.parent
     assert native.library_path().parent.parts[-2:] == ("build", "native")
-    assert native.SOURCE.parts[-4:] == ("spalinalg_tpu", "native", "src",
-                                        "host_kernels.cpp")
+    assert native.SOURCE.parts[-4:] == ("spalinalg_tpu_torch", "native",
+                                        "src", "host_kernels.cpp")
+    before = sorted(p.name for p in src_dir.iterdir())
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
     out = tmp_path / "libspal_host_test.so"
     native._build(out)
     assert [p.name for p in tmp_path.iterdir()] == [out.name]
-    assert not [p for p in jax_pkg.rglob("libspal_host*")]
+    assert sorted(p.name for p in src_dir.iterdir()) == before
+
+
+def test_native_source_is_the_ports_own():
+    """The port builds its own copy of the C++ source, under
+    ``spalinalg_tpu_torch/``, never a file of the JAX package; the copy
+    holds the bound entry point and not the unported route colouring."""
+    root = pathlib.Path(tsp.__file__).resolve().parent
+    assert native.SOURCE.resolve().is_relative_to(root)
+    text = native.SOURCE.read_text()
+    assert "spal_spgemm_symbolic" in text and "spal_route_color" not in text
 
 
 def test_native_build_failure_raises(tmp_path, monkeypatch):

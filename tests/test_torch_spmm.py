@@ -29,6 +29,15 @@ from spalinalg_tpu_torch.io import csr_from_arrays
 from spalinalg_tpu_torch.ops.kernels.csr_spmm import csr_spmm
 from spalinalg_tpu_torch.ops.matvec import matmul_dense
 
+
+@pytest.fixture(autouse=True)
+def _cpu_scope():
+    """The port's entry points place data on the card unless told
+    otherwise; these tests run on the CPU."""
+    with tsp.default_device("cpu"):
+        yield
+
+
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 
 

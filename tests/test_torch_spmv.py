@@ -30,6 +30,15 @@ from spalinalg_tpu.ops.kernels.csr_route_df import route_spmv_df
 from spalinalg_tpu_torch.io import csc_from_arrays, csr_from_arrays, to_arrays
 from spalinalg_tpu_torch.ops.matvec import matmul_dense
 
+
+@pytest.fixture(autouse=True)
+def _cpu_scope():
+    """The port's entry points place data on the card unless told
+    otherwise; these tests run on the CPU."""
+    with tsp.default_device("cpu"):
+        yield
+
+
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 
 
