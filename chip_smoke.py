@@ -51,12 +51,17 @@ pass; each prints its seconds):
     banded8, config[1]'s banded matrix through ``CsrMatrix.to_bsr(8)``, in
     float32 and float64. ``bsr @ x`` and ``bsr @ X`` (k = 64): kernel
     against plain version row by row, bitwise repeats, gradients against
-    the plain autograd, banded8's ``bsr @ X`` against its ``csr @ X``; edge
-    structures (empty block rows, padding blocks, bs 1, 3 and 384,
-    rectangular blocks, k in {1, 3, 32, 64, 100}, no blocks); the card's
-    peak memory.
-11. BSR times, in turns, and ``torch.profiler`` over forward + backward
-    steps.
+    the plain autograd, banded8's ``bsr @ X`` against its ``csr @ X``; the
+    kernel variants each main path ran (``MAIN_VARIANTS``: the vector SpMV
+    on both matrices, the tiled SpMM on tri128); edge structures on both
+    sides of every variant bound (empty block rows, padding blocks, bs 1,
+    3, 8 and 384, rectangular blocks, (128, 128) with k in {16, 17, 32,
+    65, 130}, (96, 160), (64, 64), (40, 48), (40, 18), (64, 8), k in {1,
+    3, 32, 64, 100}, data and operand views off a 16-byte boundary, no
+    blocks); the card's peak memory.
+11. BSR times, in turns, each run of launches (and torch's BSR call)
+    queued behind a spin of the card, and ``torch.profiler`` over forward
+    + backward steps.
 12. DeviceCoo: ``coo.to_device().to_csr_device()`` on the card for phase 3's
     triplets (both dtypes) and config[0]'s (duplicates and zeros): the
     padded CSR holds ``CsrMatrix.from_coo``'s structure exactly and its
@@ -90,8 +95,10 @@ It prints, before the last line, one JSON line describing each kernel (its
 launches on the main path, max |err| against the plain version, its time,
 the plain version's, the bound from compulsory bytes or operations, and the
 time of one PyTorch library call that computes the same function, or null
-where there is none) and the card's ``nvidia-smi`` name and power limit;
-the last line is the ``{"ok": true, "device": ...}`` record.
+where there is none; the BSR rows also the launches of each kernel
+variant, and banded8 has BSR rows of its own) and the card's
+``nvidia-smi`` name and power limit; the last line is the ``{"ok": true,
+"device": ...}`` record.
 """
 
 from __future__ import annotations
@@ -148,6 +155,10 @@ KERNELS = {
     "wide_gather": ("spalinalg_tpu_torch/csrc/wide_gather.cu",
                     probe.LAUNCHES),
 }
+# Launches per variant of the kernels that have two (advanced with the
+# per-dtype counts above).
+VARIANTS = {"bsr_spmv": bsr_spmv_mod.VARIANT_LAUNCHES,
+            "bsr_spmm": bsr_spmm_mod.VARIANT_LAUNCHES}
 REPLACES = {
     ("csr_spmv", "float32"): "spalinalg_tpu/ops/kernels/csr_route.py:930",
     ("csr_spmv", "float64"): "spalinalg_tpu/ops/kernels/csr_route_df.py:47",
@@ -181,6 +192,17 @@ MAIN_LAUNCHES = {
     "DIA dia @ x": {"dia_spmv": {"float32": 4, "float64": 4}},
     "B10 probe": {"wide_gather": {"float32": 1 + probe.WARMUP + probe.TIMED}},
 }
+# Variants each BSR main path must run, by matrix (forward and Aᵀ·g in each
+# dtype): the vector SpMV on both; the tiled SpMM on tri128, the register
+# SpMM on banded8's 8 x 8 blocks.
+MAIN_VARIANTS = {
+    "BSR bsr @ x": {"tri128": {"vector": 6}, "banded8": {"vector": 4}},
+    "BSR bsr @ X": {"tri128": {"tiled": 6}, "banded8": {"register": 4}},
+}
+# banded8 rows of the kernel line, beside the tri128 rows that carry each
+# dtype's launch count.
+BANDED8_ROWS = (("bsr_spmv", "float32"), ("bsr_spmv", "float64"),
+                ("bsr_spmm", "float32"), ("bsr_spmm", "float64"))
 TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}
@@ -197,6 +219,11 @@ HBM_TBPS = 3.35  # published H100 SXM device-memory bandwidth
 # the data sheet's fastest float64 rate.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 67e12}
 TIMED_LAUNCHES = 20
+# A spin of the card queued before timed launches (about 25 ms on an H100),
+# so that the host enqueues them all while it runs and the events time the
+# card back to back, not the host's launch rate: a BSR product takes 0.05-3
+# ms, a launch from Python tens of microseconds.
+SPIN_CYCLES = 50_000_000
 PLAIN_SPMM_LAUNCHES = 3
 PROFILED_STEPS = 10
 TRI_NBR = 4096   # bench.py's bsr cells: 1024 block rows of 128 x 128
@@ -370,7 +397,7 @@ def spgemm_plan_timed(a):
 
 
 def reset_launches() -> None:
-    for _, counts in KERNELS.values():
+    for counts in [c for _, c in KERNELS.values()] + list(VARIANTS.values()):
         for key in counts:
             counts[key] = 0
 
@@ -437,19 +464,39 @@ def run_spgemm(gemm):
     return out
 
 
-def run_bsr(op: str, bsr_in):
+def run_bsr(op: str, bsr_in, seen):
     """A forward and backward ``bsr @ x`` (op ``bsr_spmv``) or ``bsr @ X``
     (``bsr_spmm``) per BSR matrix; bfloat16 blocks take no gradient, their
-    operand does."""
+    operand does. ``seen[op, shape, dtype]`` gets the launches of each
+    kernel variant the matrix's step ran."""
     out = {}
+    counts = VARIANTS[op]
     for (shape, name), (bsr, x, g, X, G) in bsr_in.items():
+        before = dict(counts)
         rhs, gout = (x, g) if op == "bsr_spmv" else (X, G)
         data = bsr.data.detach().requires_grad_(name != "bfloat16")
         rg = rhs.detach().requires_grad_(True)
         y = bsr.with_data(data) @ rg
         y.backward(gout)
         out[op, shape, name] = (y.detach(), data.grad, rg.grad)
+        seen[op, shape, name] = {v: n - before[v] for v, n in counts.items()
+                                 if n != before[v]}
     return out
+
+
+def check_variants(label: str, op: str, seen) -> None:
+    """Fail unless the BSR main path ``label`` ran exactly the variants of
+    MAIN_VARIANTS on each matrix."""
+    got = {}
+    for (o, shape, _), per in seen.items():
+        if o == op:
+            for v, n in per.items():
+                got.setdefault(shape, {}).setdefault(v, 0)
+                got[shape][v] += n
+    print(f"main path {label} variants: {got}")
+    if got != MAIN_VARIANTS[label]:
+        raise AssertionError(f"main path {label}: kernel variants {got}, "
+                             f"expected {MAIN_VARIANTS[label]}")
 
 
 def edge_structures(device) -> None:
@@ -600,9 +647,13 @@ def spgemm_dense_checks(csr0, device) -> None:
               f"{np.abs(got - ref).max():.3e}")
 
 
-def time_ms(fn, launches: int) -> float:
+def time_ms(fn, launches: int, spin: bool = False) -> float:
+    """Milliseconds a call of ``fn`` over ``launches`` calls, with CUDA
+    events; ``spin`` queues a spin of the card before them (SPIN_CYCLES)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(launches):
         fn()
@@ -611,15 +662,15 @@ def time_ms(fn, launches: int) -> float:
     return start.elapsed_time(end) / launches
 
 
-def turns(kernel, plain, n_kernel: int, n_plain: int):
+def turns(kernel, plain, n_kernel: int, n_plain: int, spin: bool = False):
     """Times in turns (plain, kernel, kernel, plain) after a warm-up:
     ``(kernel_ms, plain_ms, (p1, k1, k2, p2))``."""
     for fn in (plain, kernel):
         time_ms(fn, 1)
-    p1 = time_ms(plain, n_plain)
-    k1 = time_ms(kernel, n_kernel)
-    k2 = time_ms(kernel, n_kernel)
-    p2 = time_ms(plain, n_plain)
+    p1 = time_ms(plain, n_plain, spin)
+    k1 = time_ms(kernel, n_kernel, spin)
+    k2 = time_ms(kernel, n_kernel, spin)
+    p2 = time_ms(plain, n_plain, spin)
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
@@ -633,11 +684,11 @@ def bound(nbytes: float, flops: float, name: str) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def library_ms(fn) -> float:
+def library_ms(fn, spin: bool = False) -> float:
     """Time of one PyTorch library call (a yardstick only: the port never
     calls it), after a warm-up."""
     time_ms(fn, 3)
-    return time_ms(fn, TIMED_LAUNCHES)
+    return time_ms(fn, TIMED_LAUNCHES, spin)
 
 
 def profile_steps(step, steps: int):
@@ -975,17 +1026,53 @@ def bsr_inputs(device, mats):
     return out
 
 
-def bsr_edge_structures(device) -> None:
+# Block sizes of the BSR edge structures and the k of each (None: bsr @ x).
+# The first seven reach neither variant bound of the SpMM or sit below it;
+# (128, 128) to (64, 8) sit on both sides of the tiled SpMM's (br >= 32,
+# bc >= 16, k >= 16, 16-byte rows of the blocks and of X) and of the vector
+# SpMV's (16-byte block rows), with ragged row, column and depth tiles.
+BSR_EDGE_KS = (None, 1, 3, 32, 64, 100)
+BSR_EDGE_CASES = {
+    (1, 1): BSR_EDGE_KS, (3, 3): BSR_EDGE_KS, (8, 8): BSR_EDGE_KS,
+    (4, 8): BSR_EDGE_KS, (8, 4): BSR_EDGE_KS, (5, 40): BSR_EDGE_KS,
+    (384, 384): BSR_EDGE_KS,
+    (128, 128): (None, 1, 16, 17, 32, 64, 65, 100, 130),
+    (96, 160): BSR_EDGE_KS, (64, 64): BSR_EDGE_KS, (40, 48): BSR_EDGE_KS,
+    (40, 18): BSR_EDGE_KS, (64, 8): BSR_EDGE_KS,
+}
+
+
+def bsr_edge_case(kern, indptr, indices, data, x, empty, tol, what):
+    """One BSR edge case: kernel against plain version within
+    ``tol·(|A||x|)``, empty rows 0, a bitwise repeat. Returns the variant
+    that ran."""
+    counts = VARIANTS["bsr_spmv" if kern is bsr_spmv else "bsr_spmm"]
+    before = dict(counts)
+    y = kern(indptr, indices, data, x)
+    ran = [v for v, n in counts.items() if n != before[v]]
+    within((y - bsr_spmv_plain(indptr, indices, data, x)).abs(),
+           bsr_spmv_plain(indptr, indices, data.abs(), x.abs()), tol, what)
+    if not bool((y[empty] == 0).all()):
+        raise AssertionError(f"{what}: an empty row is not 0")
+    if not torch.equal(y, kern(indptr, indices, data, x)):
+        raise AssertionError(f"{what}: not bitwise repeatable")
+    if len(ran) != 1:
+        raise AssertionError(f"{what}: variants {ran} ran, not one")
+    return ran[0]
+
+
+def bsr_edge_structures(device) -> dict:
     """BSR kernels against plain versions on structures the main path does
-    not reach: block sizes 1, 3, 8, 384 and rectangular (4, 8), (8, 4),
-    (5, 40); every fourth block row empty; padding blocks past
-    ``indptr[-1]`` holding values that must count for nothing; k in
-    {1, 3, 32, 64, 100}; a matrix with no blocks and k = 0, which launch
-    nothing."""
+    not reach (BSR_EDGE_CASES): every fourth block row empty; padding
+    blocks past ``indptr[-1]`` holding values that must count for nothing;
+    a ``data`` view 4 bytes off a 16-byte boundary (8 in float64) and an
+    operand view one element off it, which must take the scalar and
+    register variants; a matrix with no blocks and k = 0, which launch
+    nothing. Returns, per dtype, the cases each variant ran."""
     rng = np.random.default_rng(8)
     gen = torch.Generator(device=device).manual_seed(12)
-    for br, bc in ((1, 1), (3, 3), (8, 8), (4, 8), (8, 4), (5, 40),
-                   (384, 384)):
+    ran = {name: {} for name in BSR_DTYPES}
+    for (br, bc), ks in BSR_EDGE_CASES.items():
         nbr, nbc = (60, 50) if max(br, bc) < 100 else (6, 5)
         lens = rng.poisson(2.0, nbr)
         lens[::4] = 0
@@ -999,19 +1086,29 @@ def bsr_edge_structures(device) -> None:
             acc = torch.float64 if name == "float64" else torch.float32
             data = torch.randn((nblocks, br, bc), generator=gen, dtype=acc,
                                device=device).to(dtype)
-            for k in (None, 1, 3, 32, 64, 100):
+            # the same blocks 4 bytes (one float64) past a 16-byte boundary
+            shift = max(1, 4 // data.element_size())
+            off_data = torch.empty(data.numel() + shift, dtype=dtype,
+                                   device=device)[shift:].view(data.shape)
+            off_data.copy_(data)
+            for k in ks:
                 kern = bsr_spmv if k is None else bsr_spmm
                 size = (nbc * bc,) if k is None else (nbc * bc, k)
                 x = torch.randn(size, generator=gen, dtype=acc, device=device)
-                y = kern(indptr, indices, data, x)
+                # the operand one element past a 16-byte boundary
+                off_x = torch.empty(x.numel() + 1, dtype=acc,
+                                    device=device)[1:].view(size)
+                off_x.copy_(x)
                 what = f"{name} BSR edge structure ({br}, {bc}), k {k}"
-                within((y - bsr_spmv_plain(indptr, indices, data, x)).abs(),
-                       bsr_spmv_plain(indptr, indices, data.abs(), x.abs()),
-                       TOL[name], what)
-                if not bool((y[empty] == 0).all()):
-                    raise AssertionError(f"{what}: an empty row is not 0")
-                if not torch.equal(y, kern(indptr, indices, data, x)):
-                    raise AssertionError(f"{what}: not bitwise repeatable")
+                for d, r, how in ((data, x, ""), (off_data, x, " data view"),
+                                  (data, off_x, " operand view")):
+                    v = bsr_edge_case(kern, indptr, indices, d, r, empty,
+                                      TOL[name], what + how)
+                    if how and v not in ("scalar", "register"):
+                        raise AssertionError(f"{what}{how}: off a 16-byte "
+                                             f"boundary, ran {v}")
+                    ran[name].setdefault(v, []).append(
+                        (br, bc, k, how.strip() or "aligned"))
             before = (dict(bsr_spmv_mod.LAUNCHES), dict(bsr_spmm_mod.LAUNCHES))
             none = (torch.zeros(nbr + 1, dtype=torch.int32, device=device),
                     indices[:0], data[:0])
@@ -1026,6 +1123,23 @@ def bsr_edge_structures(device) -> None:
                 raise AssertionError(f"{name} ({br}, {bc}): no blocks or k = 0"
                                      " launched or gave a wrong result")
     torch.cuda.synchronize()
+    for name, per in ran.items():
+        aligned = {v: [c[:3] for c in cases if c[3] == "aligned"]
+                   for v, cases in per.items()}
+        if set(per) != {"scalar", "vector", "register", "tiled"}:
+            raise AssertionError(f"{name}: the edge structures ran only the "
+                                 f"variants {sorted(per)}")
+        tiled = aligned.get("tiled", [])
+        k_min = 32 if name == "float64" else 16
+        if ((128, 128, k_min) not in tiled or (128, 128, 17) in tiled
+                or (name == "float64") != ((128, 128, 16) not in tiled)):
+            raise AssertionError(f"{name}: (128, 128) k = 16 / 17 / 32 took "
+                                 "the wrong SpMM variant")
+        print(f"phase 10: BSR edge structures {name}: "
+              + "; ".join(f"{v} {len(cases)} cases" for v, cases
+                          in sorted(per.items()))
+              + f"; aligned tiled {tiled}")
+    return ran
 
 
 def check_bsr(bsr_in, main_out, mats, report) -> None:
@@ -1065,8 +1179,7 @@ def check_bsr(bsr_in, main_out, mats, report) -> None:
                     f"{what} ddata")
             del grads
             free_memory()
-            if shape == "tri128":
-                report[op, name] = {"max_abs_err": max_err}
+            report[op, row_name(shape, name)] = {"max_abs_err": max_err}
             print(f"phase 10: {what}: kernel == plain within {tol}*(|A||x|) "
                   f"row by row (max |err| {max_err:.3e}); bitwise repeatable; "
                   + ("dx and ddata match" if grad_data else "dx matches")
@@ -1085,12 +1198,24 @@ def check_bsr(bsr_in, main_out, mats, report) -> None:
             del Y_csr, err
     bsr_edge_structures(x.device)
     print("phase 10: BSR edge structures (bs 1, 3, 8, 384; (4, 8), (8, 4), "
-          "(5, 40); empty block rows; padding blocks; k in 1, 3, 32, 64, "
-          "100; no blocks; k = 0): kernel == plain in float32, bfloat16 and "
-          "float64")
+          "(5, 40), (128, 128), (96, 160), (64, 64), (40, 48), (40, 18), "
+          "(64, 8); empty block rows; padding blocks; k in 1, 3, 16, 17, 32, "
+          "64, 65, 100, 130; data and operand views off a 16-byte boundary; "
+          "no blocks; k = 0): kernel == plain in float32, bfloat16 and "
+          "float64, both variants of each kernel")
+
+
+def row_name(shape: str, name: str) -> str:
+    """The kernel line's row of a BSR matrix's products: tri128's rows are
+    the dtype's (``bsr_spmv_float32``), banded8's carry the shape
+    (``bsr_spmv_float32_banded8``)."""
+    return name if shape == "tri128" else f"{name}_{shape}"
 
 
 def time_bsr(bsr_in, report, card: str) -> None:
+    """Times of every BSR product in turns, and of torch's BSR call, each
+    run of launches behind a queued spin of the card (banded8's products
+    take 0.05-0.1 ms, less than the host needs to launch one)."""
     for (shape, name), (bsr, x, _, X, _) in bsr_in.items():
         ip, ix, data = bsr.indptr, bsr.indices, bsr.data
         nblocks = bsr.n_blocks
@@ -1102,7 +1227,7 @@ def time_bsr(bsr_in, report, card: str) -> None:
             k_ms, p_ms, (p1, k1, k2, p2) = turns(
                 lambda: kern(ip, ix, data, rhs),
                 lambda: bsr_spmv_plain(ip, ix, data, rhs),
-                TIMED_LAUNCHES, n_plain)
+                TIMED_LAUNCHES, n_plain, spin=True)
             free_memory()
             # compulsory bytes: blocks, block indices, pointer, x/X and y/Y
             nbytes = (data.element_size() * bsr.nnz + 4 * nblocks
@@ -1123,16 +1248,15 @@ def time_bsr(bsr_in, report, card: str) -> None:
             lib_ms = None
             if name != "bfloat16":
                 lib = torch.sparse_bsr_tensor(ip, ix, data, bsr.shape)
-                lib_ms = library_ms(lambda: lib @ rhs)
+                lib_ms = library_ms(lambda: lib @ rhs, spin=True)
                 del lib
                 free_memory()
                 print(f"phase 11: {shape} {name} {op} library "
                       f"torch.sparse_bsr_tensor @ {'x' if k == 1 else 'X'}: "
                       f"{lib_ms:.4f} ms | {card}")
-            if shape == "tri128":
-                report[op, name].update(
-                    ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                    **bound(nbytes, 2 * bsr.nnz * k, name))
+            report[op, row_name(shape, name)].update(
+                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                **bound(nbytes, 2 * bsr.nnz * k, name))
 
 
 def profile_bsr(bsr_in, card: str) -> None:
@@ -1496,6 +1620,36 @@ def check_probe(res, device, report, card: str) -> None:
           f"Gelem/s gathered; plain {p_ms:.4f} ms | {card}")
 
 
+def kernel_line(launches, report, seen) -> list:
+    """One row per kernel and dtype (its launches over every main path),
+    and banded8's own BSR rows (its launches on the BSR paths); each BSR
+    row names the variants its launches ran."""
+    def variants(kname, name, shapes):
+        out = {}
+        for shape in shapes:
+            for v, n in seen.get((kname, shape, name), {}).items():
+                out[v] = out.get(v, 0) + n
+        return out
+
+    rows = []
+    for kname, (source, counts) in KERNELS.items():
+        for name in counts:
+            row = {"name": f"{kname}_{name}", "route": "cuda",
+                   "source": source, "replaces": REPLACES[kname, name],
+                   "launches": launches[kname][name], **report[kname, name]}
+            if kname in VARIANTS:
+                row["variants"] = variants(kname, name, ("tri128", "banded8"))
+            rows.append(row)
+    for kname, name in BANDED8_ROWS:
+        per = variants(kname, name, ("banded8",))
+        rows.append({"name": f"{kname}_{name}_banded8", "route": "cuda",
+                     "source": KERNELS[kname][0],
+                     "replaces": REPLACES[kname, name],
+                     "launches": sum(per.values()),
+                     **report[kname, f"{name}_banded8"], "variants": per})
+    return rows
+
+
 def main() -> int:
     # ---- phase 0: the machine ----------------------------------------
     warnings.filterwarnings("ignore", message="Sparse", category=UserWarning)
@@ -1609,10 +1763,13 @@ def main() -> int:
     # ---- BSR: its main paths, checks (phase 10) and times (phase 11) --
     with phase("inputs: BSR tri128 and banded8"):
         bsr_in = bsr_inputs(device, mats)
-    bsr_out = drive("BSR bsr @ x", lambda: run_bsr("bsr_spmv", bsr_in),
-                    launches)
-    bsr_out.update(drive("BSR bsr @ X", lambda: run_bsr("bsr_spmm", bsr_in),
-                         launches))
+    seen = {}
+    bsr_out = drive("BSR bsr @ x",
+                    lambda: run_bsr("bsr_spmv", bsr_in, seen), launches)
+    check_variants("BSR bsr @ x", "bsr_spmv", seen)
+    bsr_out.update(drive("BSR bsr @ X",
+                         lambda: run_bsr("bsr_spmm", bsr_in, seen), launches))
+    check_variants("BSR bsr @ X", "bsr_spmm", seen)
     free_memory()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -1662,11 +1819,7 @@ def main() -> int:
         check_probe(probe_out, device, report, card)
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
-    kernels = [{"name": f"{kname}_{name}", "route": "cuda", "source": source,
-                "replaces": REPLACES[kname, name],
-                "launches": launches[kname][name], **report[kname, name]}
-               for kname, (source, counts) in KERNELS.items()
-               for name in counts]
+    kernels = kernel_line(launches, report, seen)
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError("a kernel was not launched on the main path")
     print(json.dumps({"kernels": kernels}))

@@ -16,33 +16,69 @@
 // revisit pattern, the mask pass over empty block rows, the chunk DMAs and
 // the transposed double-float planes exist because of VMEM and the
 // sequential TPU grid. Hopper runs blocks in parallel and has fp64, so one
-// kernel reads indptr/indices/data directly and is instantiated for three
-// storage types: float, __nv_bfloat16 (converted with the intrinsics,
-// accumulated in float) and double. x and y are in the accumulation type.
+// source reads indptr/indices/data directly and is instantiated for three
+// storage types: float, __nv_bfloat16 (widened exactly, accumulated in
+// float) and double. x and y are in the accumulation type.
 //
 // What bounds it on this card: bytes. Every stored block streams once
-// (br * bc * sizeof(T) bytes, 64 KB for a 128 x 128 float block) and its
-// block-column index once; x (re-read by the br rows of a block row) is
-// served from the 50 MB L2 while it fits there. One FMA per stored value
-// is far below the card's arithmetic rate.
+// (br * bc * sizeof(T) bytes) with its block-column index; x, re-read by the
+// br rows of a block row, is served from L1/L2. One FMA per stored value is
+// far below the card's arithmetic rate. What keeps a simple kernel from the
+// bandwidth is the number of bytes each load instruction moves and the
+// number of loads in flight: one 4-byte value a lane, one block at a time
+// behind its index load, streamed 28.6 % of 3.35 TB/s with 8 x 8 float
+// blocks on the H100.
 //
-// What the design does about it: a group of L lanes of one warp owns a
-// scalar row, L the power of two from 1 to 32 that covers bc. The lanes
-// walk the bc contiguous values of the row's slice of each block, so a
-// group reads neighbouring addresses (coalesced) and, for small blocks,
-// the 32 / L groups of a warp read neighbouring rows of the same blocks.
-// A fixed __shfl_down_sync tree within the group sums the lanes: there are
-// no atomics and the summation order depends only on the structure, so a
-// result is bitwise the same from run to run. Every row is written, rows
-// of empty block rows with 0, so no mask pass follows. Blocks at or past
-// min(indptr[nbr], nblocks) are never read. Offsets into data are 64-bit:
-// nblocks * br * bc passes 2^31 at sizes users run. Staging blocks through
-// shared memory with TMA, and tensor cores for bf16, are later work.
+// Two variants; the caller names one (the wrapper's bsr_spmv_variant) and
+// the entry point refuses arguments that do not suit it:
 //
-// C interface: one entry point per storage type. Each launches on the
-// given stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError(). nbr == 0 launches nothing; the caller handles a
-// matrix with no blocks.
+// vector (bc * sizeof(T) a multiple of 16 bytes, data and x 16-byte
+// aligned). Every load moves 16 bytes: a float4, a double2 or 8 bf16 values
+// as a uint4, and the x elements they multiply the same way (two float4 for
+// bf16). Stored values load with __ldcs (evict first: they stream once; the
+// read-only __ldg path was 2-16 % slower on the H100), x with __ldg.
+// - A row slice of a block of at most 64 bytes (8 x 8 in float or double,
+//   up to 8 x 32 in bf16) belongs to one thread, which owns a scalar row: a
+//   group of S lanes (the power of two covering br, at most 32) takes S rows
+//   of one block row, and no reduction is left. The block loop is unrolled
+//   by U = 4 blocks (2 where a thread owns three or four vectors of a
+//   block, to bound its registers), so each thread has U data loads and U x
+//   loads in flight.
+// - A wider slice goes to a group of L lanes (L the power of two covering
+//   the slice's 16-byte vectors, at most 32), 16 bytes a lane, which owns a
+//   tile of R rows of one block row: each x vector a lane loads serves the
+//   R rows, and a round has U blocks in flight, R + 1 loads a block (R = 4,
+//   U = 4; R = 8, U = 2 for bf16, whose x vectors are twice as wide). A
+//   fixed __shfl_down_sync tree per row ends it.
+// In both, the group reads its block row's indptr pair once (lane 0) and
+// its block indices S (or L) at a time, one a lane, and hands them round
+// with __shfl_sync. Each thread sums its values in a fixed order: blocks in
+// storage order, each block's elements in order (for the wider slices, the
+// U blocks of a round for each of the lane's vectors in turn).
+//
+// scalar (everything else: bc * itemsize not a multiple of 16, as for
+// blocks of width 1 or 3 or (8, 4) in bf16, or a data or x pointer that is
+// not 16-byte aligned). The first design, kept for those shapes: a group of
+// L lanes (the power of two covering bc, at most 32) owns a scalar row and
+// walks the row's slice of each block one element a lane, then a fixed
+// shuffle tree.
+//
+// Both: no atomics, so a result is bitwise the same from run to run. Every
+// row is written, rows of empty block rows with 0, so no mask pass
+// follows. Blocks at or past min(indptr[nbr], nblocks) are never read.
+// Offsets into data, x and y are 64-bit. Registers (ptxas -v, nvcc 12.9,
+// sm_90a), no spills in any of the 99 instances: the one-thread-a-row
+// kernel 94 (float, 8 x 8), 98 (double, 8 x 8), 78 (bf16, 8 x 8); the wide
+// kernel 128 (float and double, L = 32; bf16, L = 16); the scalar variant
+// 40 (float, L = 32).
+//
+// C interface: one entry point per storage type, with the variant as an
+// int (0 scalar, 1 vector). Each launches on the given stream, allocates
+// nothing, does not synchronise, and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the variant does not take. nbr == 0
+// launches nothing; the caller handles a matrix with no blocks.
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +86,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kScalar = 0;
+constexpr int kVector = 1;
 
 __device__ __forceinline__ float load_acc(const float* p) { return __ldg(p); }
 
@@ -60,12 +98,284 @@ __device__ __forceinline__ float load_acc(const __nv_bfloat16* p) {
   return __bfloat162float(__ushort_as_bfloat16(bits));
 }
 
+// The lanes of a group of G (a power of two up to 32, groups aligned
+// within the warp).
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32) {
+    return 0xffffffffu;
+  } else {
+    return ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  }
+}
+
+// The two bf16 values packed in a 32-bit word, widened exactly (a bf16 is
+// the high half of a float).
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// 16 bytes of stored values (D) and the x elements they multiply (X), in
+// one load each, and their products added to acc in order. Stored values
+// stream once (__ldcs, evict first); x is re-read and kept (__ldg).
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  using D = float4;
+  using X = float4;
+  static __device__ __forceinline__ D load_d(const float* p) {
+    return __ldcs(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ X load_x(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void fma(float& acc, const D& d,
+                                             const X& x) {
+    acc += d.x * x.x;
+    acc += d.y * x.y;
+    acc += d.z * x.z;
+    acc += d.w * x.w;
+  }
+};
+
+template <>
+struct Vec<double> {
+  using D = double2;
+  using X = double2;
+  static __device__ __forceinline__ D load_d(const double* p) {
+    return __ldcs(reinterpret_cast<const double2*>(p));
+  }
+  static __device__ __forceinline__ X load_x(const double* p) {
+    return __ldg(reinterpret_cast<const double2*>(p));
+  }
+  static __device__ __forceinline__ void fma(double& acc, const D& d,
+                                             const X& x) {
+    acc += d.x * x.x;
+    acc += d.y * x.y;
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  using D = uint4;
+  struct X {
+    float4 a, b;
+  };
+  static __device__ __forceinline__ D load_d(const __nv_bfloat16* p) {
+    return __ldcs(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ X load_x(const float* p) {
+    return {__ldg(reinterpret_cast<const float4*>(p)),
+            __ldg(reinterpret_cast<const float4*>(p) + 1)};
+  }
+  static __device__ __forceinline__ void fma(float& acc, const D& d,
+                                             const X& x) {
+    acc += bf16_lo(d.x) * x.a.x;
+    acc += bf16_hi(d.x) * x.a.y;
+    acc += bf16_lo(d.y) * x.a.z;
+    acc += bf16_hi(d.y) * x.a.w;
+    acc += bf16_lo(d.z) * x.b.x;
+    acc += bf16_hi(d.z) * x.b.y;
+    acc += bf16_lo(d.w) * x.b.z;
+    acc += bf16_hi(d.w) * x.b.w;
+  }
+};
+
+// The wide vector kernel's tile: the rows R a group owns and the blocks U a
+// round has in flight. bf16 blocks take twice the rows and half the blocks:
+// their x vectors are 32 bytes, and at R = 4, U = 4 the kernel needs 156
+// registers, one CTA an SM (tri128 bf16 0.180 ms, against 0.132 ms at
+// R = 8, U = 2 on the H100, spalinalg_tpu_torch/tools/bench_bsr.py).
+template <typename T>
+struct Lanes {
+  static constexpr int R = 4, U = 4;
+};
+
+template <>
+struct Lanes<__nv_bfloat16> {
+  static constexpr int R = 8, U = 2;
+};
+
+// The group's block range [kb, ke), read by lane 0 and handed round.
+template <int G>
+__device__ __forceinline__ void block_range(const int* __restrict__ indptr,
+                                            long long bi, long long nblocks,
+                                            unsigned mask, int lane,
+                                            long long& kb, long long& ke) {
+  kb = ke = 0;
+  if (lane == 0) {
+    ke = indptr[bi + 1];
+    ke = ke < nblocks ? ke : nblocks;
+    kb = indptr[bi];
+    kb = kb < ke ? kb : ke;
+  }
+  kb = __shfl_sync(mask, kb, 0, G);
+  ke = __shfl_sync(mask, ke, 0, G);
+}
+
+// vector variant, a thread a row: NV 16-byte vectors per row slice (1-4).
+template <typename T, typename A, int S, int NV>
+__global__ void __launch_bounds__(kThreads)
+bsr_spmv_rows(const int* __restrict__ indptr, const int* __restrict__ indices,
+              const T* __restrict__ data, const A* __restrict__ x,
+              A* __restrict__ y, long long nbr, int br, int bc,
+              long long nblocks) {
+  using V = Vec<T>;
+  constexpr int U = NV <= 2 ? 4 : 2;
+  constexpr int kVec = 16 / sizeof(T);
+  const int groups_per_brow = (br + S - 1) / S;
+  const long long group =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / S;
+  const long long bi = group / groups_per_brow;
+  if (bi >= nbr) {
+    return;  // the whole group leaves together: groups are S-aligned
+  }
+  const int lane = threadIdx.x & (S - 1);
+  const int ii = static_cast<int>(group - bi * groups_per_brow) * S + lane;
+  const bool live = ii < br;  // lanes past br only hand indices round
+  const unsigned mask = group_mask<S>();
+  long long kb, ke;
+  block_range<S>(indptr, bi, nblocks, mask, lane, kb, ke);
+  A acc = A(0);
+  for (long long k0 = kb; k0 < ke; k0 += S) {
+    const int nb = static_cast<int>(ke - k0 < S ? ke - k0 : S);
+    const int mine = lane < nb ? __ldg(indices + k0 + lane) : 0;
+    for (int j = 0; j < nb; j += U) {
+      typename V::D dv[U][NV];
+      typename V::X xv[U][NV];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        // j + u past S (S < U) wraps modulo S; such a block is not read.
+        const int col = __shfl_sync(mask, mine, j + u, S);
+        if (live && j + u < nb) {
+          const T* d = data + ((k0 + j + u) * br + ii) *
+                                  static_cast<long long>(bc);
+          const A* xb = x + static_cast<long long>(col) * bc;
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            dv[u][v] = V::load_d(d + v * kVec);
+            xv[u][v] = V::load_x(xb + v * kVec);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (live && j + u < nb) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            V::fma(acc, dv[u][v], xv[u][v]);
+          }
+        }
+      }
+    }
+  }
+  if (live) {
+    y[bi * br + ii] = acc;
+  }
+}
+
+// vector variant, L lanes a tile of R rows of one block row, 16 bytes a
+// lane: each x vector a lane loads serves the tile's R rows.
 template <typename T, typename A, int L>
 __global__ void __launch_bounds__(kThreads)
-bsr_spmv_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                const T* __restrict__ data, const A* __restrict__ x,
-                A* __restrict__ y, long long nrows, int br, int bc,
-                long long nblocks) {
+bsr_spmv_lanes(const int* __restrict__ indptr, const int* __restrict__ indices,
+               const T* __restrict__ data, const A* __restrict__ x,
+               A* __restrict__ y, long long nbr, int br, int bc,
+               long long nblocks) {
+  using V = Vec<T>;
+  constexpr int U = Lanes<T>::U;
+  constexpr int R = Lanes<T>::R;
+  constexpr int kVec = 16 / sizeof(T);
+  const int tiles_per_brow = (br + R - 1) / R;
+  const long long group =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / L;
+  const long long bi = group / tiles_per_brow;
+  if (bi >= nbr) {
+    return;  // the whole group leaves together: groups are L-aligned
+  }
+  const int lane = threadIdx.x & (L - 1);
+  const unsigned mask = group_mask<L>();
+  const int ii0 = static_cast<int>(group - bi * tiles_per_brow) * R;
+  const int rows = br - ii0 < R ? br - ii0 : R;
+  const int nvec = bc / kVec;
+  long long kb, ke;
+  block_range<L>(indptr, bi, nblocks, mask, lane, kb, ke);
+  A acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    acc[r] = A(0);
+  }
+  for (long long k0 = kb; k0 < ke; k0 += L) {
+    const int nb = static_cast<int>(ke - k0 < L ? ke - k0 : L);
+    const int mine = lane < nb ? __ldg(indices + k0 + lane) : 0;
+    for (int j = 0; j < nb; j += U) {
+      const T* d[U];
+      const A* xb[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int col = __shfl_sync(mask, mine, j + u, L);
+        d[u] = data + ((k0 + j + u) * br + ii0) * static_cast<long long>(bc);
+        xb[u] = x + static_cast<long long>(col) * bc;
+      }
+      for (int v = lane; v < nvec; v += L) {
+        typename V::D dv[U][R];
+        typename V::X xv[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (j + u < nb) {
+            xv[u] = V::load_x(xb[u] + v * kVec);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              if (r < rows) {
+                dv[u][r] = V::load_d(d[u] + r * bc + v * kVec);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (j + u < nb) {
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              if (r < rows) {
+                V::fma(acc[r], dv[u][r], xv[u]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1) {
+      acc[r] += __shfl_down_sync(mask, acc[r], off, L);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < rows) {
+        y[bi * br + ii0 + r] = acc[r];
+      }
+    }
+  }
+}
+
+// scalar variant: L lanes a row, one element a lane.
+template <typename T, typename A, int L>
+__global__ void __launch_bounds__(kThreads)
+bsr_spmv_scalar(const int* __restrict__ indptr,
+                const int* __restrict__ indices, const T* __restrict__ data,
+                const A* __restrict__ x, A* __restrict__ y, long long nrows,
+                int br, int bc, long long nblocks) {
   const long long row =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / L;
   if (row >= nrows) {
@@ -87,10 +397,7 @@ bsr_spmv_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
       acc += load_acc(d + j) * __ldg(xb + j);
     }
   }
-  // Only this row's L lanes take part; width L keeps the groups apart.
-  const int base = (threadIdx.x & 31) & ~(L - 1);
-  const unsigned mask =
-      L == 32 ? 0xffffffffu : (((1u << (L & 31)) - 1u) << base);
+  const unsigned mask = group_mask<L>();
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1) {
     acc += __shfl_down_sync(mask, acc, off, L);
@@ -100,40 +407,106 @@ bsr_spmv_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
   }
 }
 
-template <typename T, typename A, int L>
-int launch_l(const void* indptr, const void* indices, const void* data,
-             const void* x, void* y, long long nrows, int br, int bc,
-             long long nblocks, cudaStream_t stream) {
-  const long long blocks = (nrows * L + kThreads - 1) / kThreads;
+template <typename T, typename A>
+struct Args {
+  const void* indptr;
+  const void* indices;
+  const void* data;
+  const void* x;
+  void* y;
+  long long nbr;
+  int br;
+  int bc;
+  long long nblocks;
+  cudaStream_t stream;
+};
+
+template <typename T, typename A>
+int run(void (*kernel)(const int*, const int*, const T*, const A*, A*,
+                       long long, int, int, long long),
+        long long threads, long long extent, const Args<T, A>& a) {
+  const long long blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  bsr_spmv_kernel<T, A, L><<<static_cast<unsigned>(blocks), kThreads, 0,
-                             stream>>>(
-      static_cast<const int*>(indptr), static_cast<const int*>(indices),
-      static_cast<const T*>(data), static_cast<const A*>(x),
-      static_cast<A*>(y), nrows, br, bc, nblocks);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
+      static_cast<const int*>(a.indptr), static_cast<const int*>(a.indices),
+      static_cast<const T*>(a.data), static_cast<const A*>(a.x),
+      static_cast<A*>(a.y), extent, a.br, a.bc, a.nblocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename A, int L>
+int scalar_l(const Args<T, A>& a) {
+  const long long nrows = a.nbr * a.br;
+  return run<T, A>(bsr_spmv_scalar<T, A, L>, nrows * L, nrows, a);
+}
+
+template <typename T, typename A>
+int scalar(const Args<T, A>& a) {
+  const int bc = a.bc;
+  if (bc == 1) return scalar_l<T, A, 1>(a);
+  if (bc == 2) return scalar_l<T, A, 2>(a);
+  if (bc <= 4) return scalar_l<T, A, 4>(a);
+  if (bc <= 8) return scalar_l<T, A, 8>(a);
+  if (bc <= 16) return scalar_l<T, A, 16>(a);
+  return scalar_l<T, A, 32>(a);
+}
+
+template <typename T, typename A, int S>
+int rows_s(const Args<T, A>& a, int nvec) {
+  const long long threads =
+      a.nbr * static_cast<long long>((a.br + S - 1) / S) * S;
+  if (nvec == 1) return run<T, A>(bsr_spmv_rows<T, A, S, 1>, threads, a.nbr, a);
+  if (nvec == 2) return run<T, A>(bsr_spmv_rows<T, A, S, 2>, threads, a.nbr, a);
+  if (nvec == 3) return run<T, A>(bsr_spmv_rows<T, A, S, 3>, threads, a.nbr, a);
+  return run<T, A>(bsr_spmv_rows<T, A, S, 4>, threads, a.nbr, a);
+}
+
+template <typename T, typename A, int L>
+int lanes_l(const Args<T, A>& a) {
+  constexpr int R = Lanes<T>::R;
+  const long long tiles = a.nbr * static_cast<long long>((a.br + R - 1) / R);
+  return run<T, A>(bsr_spmv_lanes<T, A, L>, tiles * L, a.nbr, a);
+}
+
+template <typename T, typename A>
+int vector(const Args<T, A>& a) {
+  const int nvec = a.bc * static_cast<int>(sizeof(T)) / 16;
+  if (nvec <= 4) {
+    const int br = a.br;
+    if (br == 1) return rows_s<T, A, 1>(a, nvec);
+    if (br == 2) return rows_s<T, A, 2>(a, nvec);
+    if (br <= 4) return rows_s<T, A, 4>(a, nvec);
+    if (br <= 8) return rows_s<T, A, 8>(a, nvec);
+    if (br <= 16) return rows_s<T, A, 16>(a, nvec);
+    return rows_s<T, A, 32>(a, nvec);
+  }
+  if (nvec <= 8) return lanes_l<T, A, 8>(a);
+  if (nvec <= 16) return lanes_l<T, A, 16>(a);
+  return lanes_l<T, A, 32>(a);
 }
 
 template <typename T, typename A>
 int launch(const void* indptr, const void* indices, const void* data,
            const void* x, void* y, long long nbr, int br, int bc,
-           long long nblocks, void* stream) {
+           long long nblocks, int variant, void* stream) {
   if (nbr < 0 || br < 1 || bc < 1 || nblocks < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vector_ok =
+      (static_cast<long long>(bc) * sizeof(T)) % 16 == 0 &&
+      reinterpret_cast<std::uintptr_t>(data) % 16 == 0 &&
+      reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  if (variant != kScalar && !(variant == kVector && vector_ok)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nbr == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  const long long nrows = nbr * br;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bc == 1) return launch_l<T, A, 1>(indptr, indices, data, x, y, nrows, br, bc, nblocks, s);
-  if (bc == 2) return launch_l<T, A, 2>(indptr, indices, data, x, y, nrows, br, bc, nblocks, s);
-  if (bc <= 4) return launch_l<T, A, 4>(indptr, indices, data, x, y, nrows, br, bc, nblocks, s);
-  if (bc <= 8) return launch_l<T, A, 8>(indptr, indices, data, x, y, nrows, br, bc, nblocks, s);
-  if (bc <= 16) return launch_l<T, A, 16>(indptr, indices, data, x, y, nrows, br, bc, nblocks, s);
-  return launch_l<T, A, 32>(indptr, indices, data, x, y, nrows, br, bc, nblocks, s);
+  const Args<T, A> a{indptr, indices, data, x, y, nbr, br, bc, nblocks,
+                     static_cast<cudaStream_t>(stream)};
+  return variant == kVector ? vector<T, A>(a) : scalar<T, A>(a);
 }
 
 }  // namespace
@@ -141,23 +514,26 @@ int launch(const void* indptr, const void* indices, const void* data,
 extern "C" int spal_bsr_spmv_f32(const void* indptr, const void* indices,
                                  const void* data, const void* x, void* y,
                                  long long nbr, int br, int bc,
-                                 long long nblocks, void* stream) {
+                                 long long nblocks, int variant,
+                                 void* stream) {
   return launch<float, float>(indptr, indices, data, x, y, nbr, br, bc,
-                              nblocks, stream);
+                              nblocks, variant, stream);
 }
 
 extern "C" int spal_bsr_spmv_bf16(const void* indptr, const void* indices,
                                   const void* data, const void* x, void* y,
                                   long long nbr, int br, int bc,
-                                  long long nblocks, void* stream) {
+                                  long long nblocks, int variant,
+                                  void* stream) {
   return launch<__nv_bfloat16, float>(indptr, indices, data, x, y, nbr, br,
-                                      bc, nblocks, stream);
+                                      bc, nblocks, variant, stream);
 }
 
 extern "C" int spal_bsr_spmv_f64(const void* indptr, const void* indices,
                                  const void* data, const void* x, void* y,
                                  long long nbr, int br, int bc,
-                                 long long nblocks, void* stream) {
+                                 long long nblocks, int variant,
+                                 void* stream) {
   return launch<double, double>(indptr, indices, data, x, y, nbr, br, bc,
-                                nblocks, stream);
+                                nblocks, variant, stream);
 }

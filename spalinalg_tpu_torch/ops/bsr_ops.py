@@ -4,11 +4,14 @@
 
 - :func:`bsr_matvec` (``bsr @ x``) runs ``BsrSpmv``: the hand-written
   kernel ``csrc/bsr_spmv.cu`` for CUDA tensors, its plain torch version
-  for CPU tensors, with the gradient to ``data`` and ``x``.
+  for CPU tensors, with the gradient to ``data`` and ``x``. The metrics
+  path names the kernel's variant (``bsr_spmv:cuda:vector`` or
+  ``:scalar``; ``bsr_spmv:plain`` on the CPU).
 - :func:`bsr_matmat` (``bsr @ X``, ``X`` of shape ``(ncols, k)``) runs
   ``BsrSpmm``: ``csrc/bsr_spmm.cu`` or its plain version, with the
   gradient to ``data`` and ``X``. Any ``k >= 1``; ``k == 0`` gives an
-  empty result.
+  empty result. The metrics path is ``bsr_spmm:cuda:tiled`` or
+  ``:register``, or ``bsr_spmm:plain``.
 
 bfloat16 blocks accumulate and return float32, whatever the dense operand
 is; otherwise the result type is the promotion of the two. The JAX
@@ -30,9 +33,8 @@ from __future__ import annotations
 import torch
 
 from ..utils.metrics import instrument
-from .kernels.bsr_spmm import BsrSpmm
-from .kernels.bsr_spmv import BsrSpmv
-from .kernels.csr_spmv import path_for
+from .kernels.bsr_spmm import BsrSpmm, bsr_spmm_variant
+from .kernels.bsr_spmv import BsrSpmv, bsr_spmv_variant, kernel_path
 from .matvec import _dense_operand
 
 __all__ = ["bsr_matvec", "bsr_matmat"]
@@ -47,7 +49,8 @@ def bsr_matvec(bsr, x) -> torch.Tensor:
     def run():
         return BsrSpmv.apply(bsr.data, x, bsr.indptr, bsr.indices)
 
-    return instrument("bsr_spmv", run, path=path_for(x.device),
+    return instrument("bsr_spmv", run,
+                      path=lambda: kernel_path(bsr_spmv_variant, bsr.data, x),
                       device=x.device, nnz=nnz, flops=2 * nnz,
                       bytes=itm * nnz)
 
@@ -61,6 +64,7 @@ def bsr_matmat(bsr, X) -> torch.Tensor:
     def run():
         return BsrSpmm.apply(bsr.data, X, bsr.indptr, bsr.indices)
 
-    return instrument("bsr_spmm", run, path=path_for(X.device),
+    return instrument("bsr_spmm", run,
+                      path=lambda: kernel_path(bsr_spmm_variant, bsr.data, X),
                       device=X.device, nnz=nnz, flops=2 * nnz * X.shape[1],
                       bytes=itm * nnz)

@@ -39,14 +39,15 @@ _ENTRIES = {
     # (tptr, a_idx, b_idx, a, b, out, n_out, stream)
     "spal_spgemm_numeric_f32": [_P] * 6 + [ctypes.c_longlong, _P],
     "spal_spgemm_numeric_f64": [_P] * 6 + [ctypes.c_longlong, _P],
-    # (indptr, indices, data, x, y, nbr, br, bc, nblocks, stream)
+    # (indptr, indices, data, x, y, nbr, br, bc, nblocks, variant, stream)
     **{f"spal_bsr_spmv_{t}": [_P] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_longlong, _P]
+                                         ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_int, _P]
        for t in ("f32", "bf16", "f64")},
-    # (indptr, indices, data, X, Y, nbr, br, bc, nblocks, k, stream)
+    # (indptr, indices, data, X, Y, nbr, br, bc, nblocks, k, variant, stream)
     **{f"spal_bsr_spmm_{t}": [_P] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                          ctypes.c_int] + [ctypes.c_longlong] * 2
-       + [_P] for t in ("f32", "bf16", "f64")},
+       + [ctypes.c_int, _P] for t in ("f32", "bf16", "f64")},
     # (offsets, ndiag, data, x, y, nrows, ncols, transposed, stream)
     **{f"spal_dia_spmv_{t}": [_P, ctypes.c_int] + [_P] * 3
        + [ctypes.c_longlong] * 2 + [ctypes.c_int, _P] for t in ("f32", "f64")},

@@ -8,10 +8,16 @@ kernels on the JAX package's BSR SpMM path:
 - ``spalinalg_tpu/ops/kernels/bsr_spmv.py::_kernel`` in its K > 1 role
   (B9).
 
-A group of lanes owns a tile of up to 8 rows of one block row and a range
-of the columns: it reads the block arrays directly and applies each row of
-``X`` it loads to all the tile's rows, for float32, bfloat16 and float64
-blocks and any number of columns. Dtypes follow the SpMV rule
+The kernel reads the block arrays directly, for float32, bfloat16 and
+float64 blocks and any number of columns, in one of two variants chosen by
+:func:`bsr_spmm_variant` and passed to it by name: ``tiled`` (a CUDA-core
+GEMM tile staged through shared memory with ``cp.async``) for block rows
+of at least 32 rows, blocks at least 16 wide and ``k >= 16`` (32 in
+float64) with 16-byte-aligned rows, ``register`` (a group of lanes owns up
+to 8 rows of a block row and applies each row of ``X`` it loads to all of
+them) otherwise. Each launch adds one to ``LAUNCHES`` (by storage type) and to
+``VARIANT_LAUNCHES`` (by variant); the metrics path names the variant, for
+example ``bsr_spmm:cuda:tiled``. Dtypes follow the SpMV rule
 (:func:`~spalinalg_tpu_torch.ops.kernels.bsr_spmv.bsr_acc_dtype`):
 bfloat16 blocks accumulate and return float32.
 
@@ -37,19 +43,64 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from .bsr_spmv import bsr_backward, bsr_spmv_plain, checked_operands
+from .bsr_spmv import (aligned16, bsr_backward, bsr_spmv_plain,
+                       checked_operands)
 
-__all__ = ["LAUNCHES", "BsrSpmm", "bsr_spmm", "bsr_spmm_plain"]
+__all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "BsrSpmm", "bsr_spmm",
+           "bsr_spmm_plain", "bsr_spmm_variant"]
 
-# Kernel launches per storage type: plain integers, advanced only where the
-# wrapper launches the kernel.
+# Kernel launches per storage type and per variant: plain integers,
+# advanced only where the wrapper launches the kernel.
 LAUNCHES = {"float32": 0, "bfloat16": 0, "float64": 0}
+VARIANT_LAUNCHES = {"register": 0, "tiled": 0}
+
+# The variant's code in the C entry points.
+_VARIANT_CODE = {"register": 0, "tiled": 1}
 
 _ENTRY = {torch.float32: ("spal_bsr_spmm_f32", "float32"),
           torch.bfloat16: ("spal_bsr_spmm_bf16", "bfloat16"),
           torch.float64: ("spal_bsr_spmm_f64", "float64")}
 
 bsr_spmm_plain = bsr_spmv_plain
+
+# Smallest block rows, block widths and column counts the tiled variant
+# takes: below them most of its 128 x 64 output tile (and of each 16- or
+# 32-deep step) would be masked. Its tile computes all 64 columns whatever
+# k is, so its time does not fall with k: on the H100, 128 x 128 blocks at
+# k = 16 took 0.71 ms tiled against 1.14 ms register in float32, but 1.39
+# against 1.33 ms in float64, whose register variant is the faster there
+# (``spalinalg_tpu_torch/tools/bench_bsr.py``); float64 starts at k = 32.
+TILED_MIN_BR = 32
+TILED_MIN_BC = 16
+TILED_MIN_K = {4: 16, 8: 32}   # by the itemsize of X
+
+
+def bsr_spmm_variant(data, X) -> str:
+    """The variant of ``csrc/bsr_spmm.cu`` for the blocks ``data`` and the
+    operand ``X`` as the kernel takes them
+    (:func:`~spalinalg_tpu_torch.ops.kernels.bsr_spmv.kernel_operands`):
+    ``"tiled"`` when ``br >= 32``, ``bc >= 16``, ``k >= 16`` (32 for a
+    float64 ``X``), a block row (``bc * itemsize``) and a row of ``X``
+    (``k * itemsize``) are whole numbers of 16-byte copies, and ``data``
+    and ``X`` start on a 16-byte boundary; else ``"register"``. Shapes, dtypes and addresses alone
+    decide, so it answers for tensors on any device.
+
+    >>> bsr_spmm_variant(torch.zeros(3, 128, 128), torch.zeros(384, 64))
+    'tiled'
+    >>> bsr_spmm_variant(torch.zeros(3, 8, 8), torch.zeros(24, 64))
+    'register'
+    >>> bsr_spmm_variant(torch.zeros(3, 128, 128), torch.zeros(384, 17))
+    'register'
+    """
+    _, br, bc = data.shape
+    k = X.shape[1]
+    if (br >= TILED_MIN_BR and bc >= TILED_MIN_BC
+            and k >= TILED_MIN_K[X.element_size()]
+            and bc * data.element_size() % 16 == 0
+            and k * X.element_size() % 16 == 0
+            and aligned16(data) and aligned16(X)):
+        return "tiled"
+    return "register"
 
 
 def bsr_spmm(indptr, indices, data, X) -> torch.Tensor:
@@ -73,13 +124,16 @@ def bsr_spmm(indptr, indices, data, X) -> torch.Tensor:
     from ._build import launch
 
     name, key = _ENTRY[data.dtype]
+    variant = bsr_spmm_variant(data, X)
     indptr, indices = indptr.contiguous(), indices.contiguous()
     Y = torch.empty((nbr * br, k), dtype=acc, device=device)
     with torch.cuda.device(device):
         launch(name, indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
                X.data_ptr(), Y.data_ptr(), nbr, br, bc, nblocks, k,
+               _VARIANT_CODE[variant],
                torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES[key] += 1
+    VARIANT_LAUNCHES[variant] += 1
     return Y
 
 

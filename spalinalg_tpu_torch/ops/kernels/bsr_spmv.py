@@ -14,8 +14,15 @@ kernels on the JAX package's BSR SpMV path:
   (B9).
 
 Their block windows, VMEM-resident accumulators and double-float planes
-work around TPU limits, so one kernel, instantiated for float32, bfloat16
-and float64 blocks, reads ``indptr``/``indices``/``data`` directly.
+work around TPU limits, so one source, instantiated for float32, bfloat16
+and float64 blocks, reads ``indptr``/``indices``/``data`` directly. It has
+two variants, chosen by :func:`bsr_spmv_variant` from shapes, dtypes and
+addresses and passed to the kernel by name: ``vector`` (16-byte loads,
+several blocks in flight) where a block row's slice is a whole number of
+16-byte vectors and ``data`` and ``x`` start on a 16-byte boundary,
+``scalar`` (one element a lane) otherwise. Each launch adds one to
+``LAUNCHES`` (by storage type) and to ``VARIANT_LAUNCHES`` (by variant);
+the metrics path names the variant, for example ``bsr_spmv:cuda:vector``.
 
 **Dtypes** follow the JAX package's public path (``bsr_ops.py:26,119``):
 bfloat16 blocks accumulate and return float32, whatever ``x`` is;
@@ -48,12 +55,17 @@ from ...dtypes import INDEX_DTYPE, canonical_value_dtype, result_dtype
 from ...errors import DTypeError, ShapeError
 from .csr_spmv import transpose_plan
 
-__all__ = ["LAUNCHES", "BsrSpmv", "bsr_acc_dtype", "bsr_spmv",
-           "bsr_spmv_plain", "transposed_blocks"]
+__all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "BsrSpmv", "bsr_acc_dtype",
+           "bsr_spmv", "bsr_spmv_plain", "bsr_spmv_variant", "kernel_operands",
+           "kernel_path", "transposed_blocks"]
 
-# Kernel launches per storage type: plain integers, advanced only where the
-# wrapper launches the kernel.
+# Kernel launches per storage type and per variant: plain integers,
+# advanced only where the wrapper launches the kernel.
 LAUNCHES = {"float32": 0, "bfloat16": 0, "float64": 0}
+VARIANT_LAUNCHES = {"scalar": 0, "vector": 0}
+
+# The variant's code in the C entry points.
+_VARIANT_CODE = {"scalar": 0, "vector": 1}
 
 _ENTRY = {torch.float32: ("spal_bsr_spmv_f32", "float32"),
           torch.bfloat16: ("spal_bsr_spmv_bf16", "bfloat16"),
@@ -77,15 +89,63 @@ def bsr_acc_dtype(data_dtype, x_dtype) -> torch.dtype:
     return result_dtype(data_dtype, x_dtype)
 
 
-def checked_operands(name, indptr, indices, data, x, ndim):
-    """``(data, x, acc)``: ``data`` in its kernel storage type (bfloat16
-    kept, anything else in the accumulation type), ``x`` in the
-    accumulation type, both contiguous. Devices, index dtypes and shapes
-    are checked; anything the kernels do not take raises."""
+def kernel_operands(data, x):
+    """``(data, x, acc)`` as the kernels take them: ``data`` in its storage
+    type (bfloat16 kept, anything else in the accumulation type), ``x`` in
+    the accumulation type, both contiguous (a contiguous view keeps its
+    storage offset)."""
     acc = bsr_acc_dtype(data.dtype, x.dtype)
     store = torch.bfloat16 if data.dtype == torch.bfloat16 else acc
-    data = data.to(store).contiguous()
-    x = x.to(acc).contiguous()
+    return data.to(store).contiguous(), x.to(acc).contiguous(), acc
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t``'s first element starts on a 16-byte boundary."""
+    return t.data_ptr() % 16 == 0
+
+
+def bsr_spmv_variant(data, x) -> str:
+    """The variant of ``csrc/bsr_spmv.cu`` for the blocks ``data`` and the
+    operand ``x`` as the kernel takes them (:func:`kernel_operands`):
+    ``"vector"`` when a row's slice of a block is a whole number of 16-byte
+    vectors (``bc * itemsize % 16 == 0``) and ``data`` and ``x`` start on a
+    16-byte boundary, else ``"scalar"``. Shapes, dtypes and addresses
+    alone decide, so it answers for tensors on any device.
+
+    >>> bsr_spmv_variant(torch.zeros(4, 8, 8), torch.zeros(64))
+    'vector'
+    >>> bsr_spmv_variant(torch.zeros(4, 8, 3), torch.zeros(24))
+    'scalar'
+    >>> bsr_spmv_variant(torch.zeros(65)[1:].reshape(1, 8, 8), torch.zeros(8))
+    'scalar'
+    """
+    bc = data.shape[2]
+    if bc * data.element_size() % 16 == 0 and aligned16(data) \
+            and aligned16(x):
+        return "vector"
+    return "scalar"
+
+
+def kernel_path(variant_of, data, x) -> str:
+    """The metrics path of a BSR product: ``"plain"`` off the card, else
+    ``"cuda:"`` and the variant ``variant_of`` (:func:`bsr_spmv_variant`
+    or ``bsr_spmm_variant``) picks for the operands as the kernel takes
+    them, for example ``"cuda:vector"``.
+
+    >>> kernel_path(bsr_spmv_variant, torch.zeros(1, 2, 2), torch.zeros(2))
+    'plain'
+    """
+    if x.device.type != "cuda":
+        return "plain"
+    data, x, _ = kernel_operands(data, x)
+    return f"cuda:{variant_of(data, x)}"
+
+
+def checked_operands(name, indptr, indices, data, x, ndim):
+    """``(data, x, acc)`` as :func:`kernel_operands` gives them. Devices,
+    index dtypes and shapes are checked; anything the kernels do not take
+    raises."""
+    data, x, acc = kernel_operands(data, x)
     devices = {t.device for t in (indptr, indices, data, x)}
     if len(devices) != 1:
         raise ValueError(f"{name} operands on several devices: {devices}")
@@ -144,13 +204,16 @@ def bsr_spmv(indptr, indices, data, x) -> torch.Tensor:
     from ._build import launch
 
     name, key = _ENTRY[data.dtype]
+    variant = bsr_spmv_variant(data, x)
     indptr, indices = indptr.contiguous(), indices.contiguous()
     y = torch.empty(nbr * br, dtype=acc, device=device)
     with torch.cuda.device(device):
         launch(name, indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
                x.data_ptr(), y.data_ptr(), nbr, br, bc, nblocks,
+               _VARIANT_CODE[variant],
                torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES[key] += 1
+    VARIANT_LAUNCHES[variant] += 1
     return y
 
 

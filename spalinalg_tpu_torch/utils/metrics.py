@@ -5,8 +5,11 @@ a host-side recorder with optional JSON-lines output. Each record also
 names the dispatch path that ran, for example ``csr_spmv:cuda`` (the
 hand-written kernel) or ``csr_spmv:plain`` (the plain torch version on
 CPU tensors), so a reader of the records can tell the two apart. The
-paths: ``csr_spmv``, ``csc_spmv``, ``csr_spmm``, ``csc_spmm``, ``spgemm``,
-``bsr_spmv``, ``bsr_spmm`` and ``dia_spmv``, each ``:cuda`` or ``:plain``;
+paths: ``csr_spmv``, ``csc_spmv``, ``csr_spmm``, ``csc_spmm``, ``spgemm``
+and ``dia_spmv``, each ``:cuda`` or ``:plain``; ``bsr_spmv`` and
+``bsr_spmm``, each ``:plain`` or ``:cuda:`` and the kernel's variant
+(``bsr_spmv:cuda:vector`` / ``:scalar``, ``bsr_spmm:cuda:tiled`` /
+``:register``);
 ``dia_spmm:torch`` (plain torch on any device: the JAX package has no
 kernel for a 2-D operand either); and ``spgemm_symbolic:native|numpy``.
 
@@ -27,7 +30,7 @@ from __future__ import annotations
 import json
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -107,14 +110,18 @@ def disable() -> None:
     _GLOBAL.jsonl_stream = None
 
 
-def instrument(op: str, fn, *, path: str, device: torch.device,
-               nnz: int = 0, flops: int = 0, bytes: int = 0):
+def instrument(op: str, fn, *, path: Union[str, Callable[[], str]],
+               device: torch.device, nnz: int = 0, flops: int = 0,
+               bytes: int = 0):
     """Run ``fn()``; when the recorder is enabled, time it to completion
     (synchronising ``device`` if it is a GPU) and record an
-    :class:`OpMetrics` whose ``path`` is ``f"{op}:{path}"``."""
+    :class:`OpMetrics` whose ``path`` is ``f"{op}:{path}"``. ``path`` may
+    be a function, called only when recording."""
     rec = _GLOBAL
     if not rec.enabled:
         return fn()
+    if callable(path):
+        path = path()
     t0 = time.perf_counter()
     out = fn()
     if device.type == "cuda":
