@@ -21,9 +21,22 @@ pass; each prints its seconds):
    columns per row) at n = 2**21 rows, 67,108,864 stored entries, in
    float32 and float64, through the same COO -> CSR path. The kernel is
    held against the plain version on the card, row by row, and must repeat
-   bitwise; edge structures.
+   bitwise; the backward's Aᵀ·g through ``perm`` must equal the kernel on
+   the gathered values bitwise, and its dvals (the SDDMM kernel at k = 1)
+   the plain version; edge structures for both SpMV variants (rows of 0,
+   1, 31, 32, 33, 4096 and 150,000 entries, padding slots holding values,
+   colind, values and perm views off a 16-byte boundary, the perm path)
+   and for both SDDMM variants (k in {1, 3, 4, 32, 64, 100}, padding
+   slots, G off a 16-byte boundary); ``csr @ x`` and ``csc @ x`` of
+   ``from_dense`` matrices with the metrics recorder on, whose path must
+   name the SpMV variant that launched.
 4. SpMV times of kernel and plain version at the phase 3 shapes, in turns
-   (plain, kernel, kernel, plain), with CUDA events.
+   (plain, kernel, kernel, plain), and of torch's CSR product, each run of
+   launches queued behind a spin of the card; Aᵀ·g through ``perm``
+   against the gathered form; SDDMM at k = 1 beside
+   ``torch.sparse.sampled_addmm``; SpMV on phase 7's power-law matrix and
+   on a matrix with rows of 300,000 and 120,000 entries (the vector
+   variant's long-row split), checked and timed.
 5. Where the SpMV time goes at the phase 3 shapes: ``csr @ x`` with
    autograd on, a forward + backward step, the transpose build alone, and
    a ``torch.profiler`` trace: device time per kernel name and idle share.
@@ -32,8 +45,10 @@ pass; each prints its seconds):
    float32 and float64, built from sorted host arrays with the validating
    constructor; ``csc @ X`` through the CSR mirror on csr_random. Kernel
    against plain version row by row, bitwise repeats, gradients against
-   the plain version's autograd; edge structures (empty rows, padding
-   slots holding values, k in {1, 3, 32, 64, 100}).
+   the plain version's autograd, Aᵀ·G through ``perm`` and the SDDMM at
+   k = 64 against their plain forms; edge structures (empty rows, padding
+   slots holding values, k in {1, 3, 4, 32, 64, 100}, X on and off a
+   16-byte boundary: both SpMM variants; the perm path).
 7. SpGEMM, BASELINE config[2]: ``A·A`` on ``bench.py``'s power-law
    generator (zipf 1.8, capped at 512, seed 1) at n = 2**19, in float32
    and float64; host times of the native symbolic phase and of the plan
@@ -41,7 +56,9 @@ pass; each prints its seconds):
    gradients against the plain autograd; edge structures (empty slots, a
    slot of more than 10k terms, n_out == 0); ``a * b``, ``csc * csc`` and
    ``a ** 3`` at config[0]'s size against dense products.
-8. SpMM and SpGEMM times, in turns (plain, kernel, kernel, plain).
+8. SpMM and SpGEMM times, in turns (plain, kernel, kernel, plain), the
+   SpMM runs and torch's CSR product behind the spin, csr_random and
+   banded each; SDDMM at k = 64 beside ``torch.sparse.sampled_addmm``.
 9. Where the SpMM and SpGEMM time goes: ``torch.profiler`` over a forward +
    backward SpMM step and a SpGEMM numeric step.
 10. BSR: tri128, ``bench.py``'s block-tridiagonal pattern of 128 x 128
@@ -84,7 +101,8 @@ pass; each prints its seconds):
 
 Each main path (config[0]; a forward and backward SpMV per dtype; config[1]
 forward and backward for each matrix and for ``csc @ X``; config[2]
-forward and backward; BSR ``bsr @ x`` and ``bsr @ X`` forward and backward
+forward and backward; on the CSR paths also the kernel variants of
+MAIN_VARIANTS; BSR ``bsr @ x`` and ``bsr @ X`` forward and backward
 on every BSR matrix; DIA ``dia @ x`` forward and backward on dia9 and
 lap3d per dtype; the probe's ``run``) runs once, between a reset and a read
 of every launch count, before its checks; the counts must be exactly the
@@ -95,8 +113,9 @@ It prints, before the last line, one JSON line describing each kernel (its
 launches on the main path, max |err| against the plain version, its time,
 the plain version's, the bound from compulsory bytes or operations, and the
 time of one PyTorch library call that computes the same function, or null
-where there is none; the BSR rows also the launches of each kernel
-variant, and banded8 has BSR rows of its own) and the card's
+where there is none; the rows of kernels with variants also the launches
+of each variant; banded8 has BSR rows of its own, the banded matrix CSR
+SpMM rows, and SDDMM at k = 1 rows beside its k = 64 ones) and the card's
 ``nvidia-smi`` name and power limit; the last line is the ``{"ok": true,
 "device": ...}`` record.
 """
@@ -113,14 +132,15 @@ import warnings
 import numpy as np
 import torch
 
-from spalinalg_tpu_torch import (BsrMatrix, CooMatrix, CsrMatrix, DiaMatrix,
-                                 diags, kron)
+from spalinalg_tpu_torch import (BsrMatrix, CooMatrix, CscMatrix, CsrMatrix,
+                                 DiaMatrix, diags, kron)
 from spalinalg_tpu_torch.convert.engine import major_ids, transpose_structure
 from spalinalg_tpu_torch.formats.dia import _diag_span
 from spalinalg_tpu_torch.ops import spgemm as spgemm_mod
 from spalinalg_tpu_torch.ops.kernels import _build
 from spalinalg_tpu_torch.ops.kernels import bsr_spmm as bsr_spmm_mod
 from spalinalg_tpu_torch.ops.kernels import bsr_spmv as bsr_spmv_mod
+from spalinalg_tpu_torch.ops.kernels import csr_sddmm as sddmm_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmm as spmm_mod
 from spalinalg_tpu_torch.ops.kernels import dia_spmv as dia_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmv as spmv_mod
@@ -129,9 +149,10 @@ from spalinalg_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm
 from spalinalg_tpu_torch.ops.kernels.bsr_spmv import (_block_outer, bsr_spmv,
                                                       bsr_spmv_plain,
                                                       transposed_blocks)
-from spalinalg_tpu_torch.ops.kernels.csr_spmm import (_row_dots, csr_spmm,
-                                                      csr_spmm_plain)
-from spalinalg_tpu_torch.ops.kernels.csr_spmv import (csr_spmv,
+from spalinalg_tpu_torch.ops.kernels.csr_sddmm import (csr_sddmm,
+                                                       csr_sddmm_plain)
+from spalinalg_tpu_torch.ops.kernels.csr_spmm import csr_spmm, csr_spmm_plain
+from spalinalg_tpu_torch.ops.kernels.csr_spmv import (BUDGET, csr_spmv,
                                                       csr_spmv_plain,
                                                       transpose_plan)
 from spalinalg_tpu_torch.ops.kernels.dia_spmv import (_shifted_products,
@@ -145,6 +166,8 @@ from spalinalg_tpu_torch.utils import metrics
 KERNELS = {
     "csr_spmv": ("spalinalg_tpu_torch/csrc/csr_spmv.cu", spmv_mod.LAUNCHES),
     "csr_spmm": ("spalinalg_tpu_torch/csrc/csr_spmm.cu", spmm_mod.LAUNCHES),
+    "csr_sddmm": ("spalinalg_tpu_torch/csrc/csr_sddmm.cu",
+                  sddmm_mod.LAUNCHES),
     "spgemm": ("spalinalg_tpu_torch/csrc/spgemm_numeric.cu",
                numeric_mod.LAUNCHES),
     "bsr_spmv": ("spalinalg_tpu_torch/csrc/bsr_spmv.cu",
@@ -157,13 +180,21 @@ KERNELS = {
 }
 # Launches per variant of the kernels that have two (advanced with the
 # per-dtype counts above).
-VARIANTS = {"bsr_spmv": bsr_spmv_mod.VARIANT_LAUNCHES,
+VARIANTS = {"csr_spmv": spmv_mod.VARIANT_LAUNCHES,
+            "csr_spmm": spmm_mod.VARIANT_LAUNCHES,
+            "csr_sddmm": sddmm_mod.VARIANT_LAUNCHES,
+            "bsr_spmv": bsr_spmv_mod.VARIANT_LAUNCHES,
             "bsr_spmm": bsr_spmm_mod.VARIANT_LAUNCHES}
+# dvals of both CSR backward passes: XLA code in the JAX package.
+SDDMM_REPLACES = ("spalinalg_tpu/ops/kernels/csr_route.py:1093 and :1364 "
+                  "(XLA dvals; no Pallas kernel)")
 REPLACES = {
     ("csr_spmv", "float32"): "spalinalg_tpu/ops/kernels/csr_route.py:930",
     ("csr_spmv", "float64"): "spalinalg_tpu/ops/kernels/csr_route_df.py:47",
     ("csr_spmm", "float32"): "spalinalg_tpu/ops/kernels/csr_route.py:1112",
     ("csr_spmm", "float64"): "spalinalg_tpu/ops/kernels/csr_route.py:1112",
+    ("csr_sddmm", "float32"): SDDMM_REPLACES,
+    ("csr_sddmm", "float64"): SDDMM_REPLACES,
     ("spgemm", "float32"): "spalinalg_tpu/ops/kernels/pair_route.py:473",
     ("spgemm", "float64"): "spalinalg_tpu/ops/kernels/pair_route.py:473",
     ("bsr_spmv", "float32"): "spalinalg_tpu/ops/kernels/bsr_stream.py:71",
@@ -176,33 +207,51 @@ REPLACES = {
     ("dia_spmv", "float64"): "spalinalg_tpu/ops/kernels/dia_df.py:59",
     ("wide_gather", "float32"): "tools/probe_widegather.py:39",
 }
-# Launches of each main path: config[0] forward (f64); a forward and an
-# Aᵀ·g per SpMV matrix; a forward and an Aᵀ·G for each of csr_random,
-# banded and csc @ X; one numeric phase per SpGEMM dtype; a forward and an
+# Launches of each main path: config[0] forward (f64); a forward, an Aᵀ·g
+# and a dvals (SDDMM) per SpMV matrix; a forward, an Aᵀ·G and a dvals for
+# each of csr_random, banded and csc @ X; one numeric phase per SpGEMM
+# dtype; a forward and an
 # Aᵀ·g (Aᵀ·G) for each BSR matrix: tri128 in three dtypes, banded8 in two;
 # a forward and an Aᵀ·g for each DIA matrix, dia9 and lap3d, per dtype; the
 # probe's check, warm-up and timed launches.
 MAIN_LAUNCHES = {
     "config[0]": {"csr_spmv": {"float64": 1}},
-    "SpMV": {"csr_spmv": {"float32": 2, "float64": 2}},
-    "SpMM": {"csr_spmm": {"float32": 6, "float64": 6}},
+    "SpMV": {"csr_spmv": {"float32": 2, "float64": 2},
+             "csr_sddmm": {"float32": 1, "float64": 1}},
+    "SpMM": {"csr_spmm": {"float32": 6, "float64": 6},
+             "csr_sddmm": {"float32": 3, "float64": 3}},
     "SpGEMM": {"spgemm": {"float32": 1, "float64": 1}},
     "BSR bsr @ x": {"bsr_spmv": {"float32": 4, "bfloat16": 2, "float64": 4}},
     "BSR bsr @ X": {"bsr_spmm": {"float32": 4, "bfloat16": 2, "float64": 4}},
     "DIA dia @ x": {"dia_spmv": {"float32": 4, "float64": 4}},
     "B10 probe": {"wide_gather": {"float32": 1 + probe.WARMUP + probe.TIMED}},
 }
-# Variants each BSR main path must run, by matrix (forward and Aᵀ·g in each
-# dtype): the vector SpMV on both; the tiled SpMM on tri128, the register
-# SpMM on banded8's 8 x 8 blocks.
+# Variants each main path must run. CSR paths, by kernel: config[0] and the
+# SpMV path (csr_random, forward and Aᵀ·g per dtype) the vector SpMV, whose
+# dvals at k = 1 is the scalar SDDMM; the SpMM path (k = 64, all three
+# matrices) the vector SpMM in float32, the register one in float64, and
+# the vector SDDMM. BSR paths, by matrix
+# (forward and Aᵀ·g in each dtype): the vector SpMV on both; the tiled SpMM
+# on tri128, the register SpMM on banded8's 8 x 8 blocks.
 MAIN_VARIANTS = {
+    "config[0]": {"csr_spmv": {"vector": 1}},
+    "SpMV": {"csr_spmv": {"vector": 4}, "csr_sddmm": {"scalar": 2}},
+    "SpMM": {"csr_spmm": {"vector": 6, "register": 6},
+             "csr_sddmm": {"vector": 6}},
     "BSR bsr @ x": {"tri128": {"vector": 6}, "banded8": {"vector": 4}},
     "BSR bsr @ X": {"tri128": {"tiled": 6}, "banded8": {"register": 4}},
 }
-# banded8 rows of the kernel line, beside the tri128 rows that carry each
-# dtype's launch count.
-BANDED8_ROWS = (("bsr_spmv", "float32"), ("bsr_spmv", "float64"),
-                ("bsr_spmm", "float32"), ("bsr_spmm", "float64"))
+# Rows of the kernel line beside the rows that carry each dtype's launch
+# count: banded8 for BSR; the banded matrix for CSR SpMM; SDDMM at k = 1 on
+# the SpMV matrix (the main rows: k = 64 on csr_random). Each gets the
+# launches of its own matrix's main path.
+# Keyed by (kernel, row suffix), in float32 and float64; the value names
+# the row's matrix in the record of variants a main path ran.
+EXTRA_ROWS = {("bsr_spmv", "banded8"): "banded8",
+              ("bsr_spmm", "banded8"): "banded8",
+              ("csr_spmm", "banded"): "banded",
+              ("csr_sddmm", "k1"): "spmv"}
+CSR_KERNELS = ("csr_spmv", "csr_spmm", "csr_sddmm")
 TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}
@@ -212,6 +261,7 @@ N_MM = 2**19
 K_MM = 64
 BAND = 16
 N_GEMM = 2**19
+N_LONG = 2**20   # rows of the long-row SpMV edge matrix
 HBM_TBPS = 3.35  # published H100 SXM device-memory bandwidth
 # Published peak operation rates of the H100 SXM (dense, FLOP/s), for the
 # type of the stored values: float32 outside the tensor cores; bfloat16 on
@@ -402,10 +452,26 @@ def reset_launches() -> None:
             counts[key] = 0
 
 
+def variant_counts() -> dict:
+    return {kname: dict(counts) for kname, counts in VARIANTS.items()}
+
+
+def record_variants(seen, shape: str, name: str, before) -> None:
+    """Add to ``seen[kernel, shape, dtype]`` the launches of each variant
+    since ``before`` (a ``variant_counts()``)."""
+    for kname, counts in VARIANTS.items():
+        per = {v: n - before[kname][v] for v, n in counts.items()
+               if n != before[kname][v]}
+        if per:
+            seen[kname, shape, name] = per
+
+
 def drive(label: str, path, totals) -> dict:
     """Run one main path between a reset and a read of every launch count;
-    fail unless the counts are exactly the path's (MAIN_LAUNCHES). Adds
-    them to ``totals``; returns the path's outputs."""
+    fail unless the counts are exactly the path's (MAIN_LAUNCHES), and, on
+    a CSR path, unless the CSR kernel variants that ran are exactly its
+    MAIN_VARIANTS. Adds the counts to ``totals``; returns the path's
+    outputs."""
     with phase(f"main path {label}"):
         reset_launches()
         out = path()
@@ -413,42 +479,59 @@ def drive(label: str, path, totals) -> dict:
         got = {kname: {key: n for key, n in counts.items() if n}
                for kname, (_, counts) in KERNELS.items()}
         got = {kname: per for kname, per in got.items() if per}
+        ran = {kname: {v: n for v, n in VARIANTS[kname].items() if n}
+               for kname in CSR_KERNELS}
+        ran = {kname: per for kname, per in ran.items() if per}
     print(f"main path {label} launches: {got}")
     if got != MAIN_LAUNCHES[label]:
         raise AssertionError(f"main path {label}: kernel launch counts {got},"
                              f" expected {MAIN_LAUNCHES[label]}")
+    if ran:
+        print(f"main path {label} CSR variants: {ran}")
+        if ran != MAIN_VARIANTS.get(label):
+            raise AssertionError(f"main path {label}: CSR kernel variants "
+                                 f"{ran}, expected {MAIN_VARIANTS.get(label)}")
     for kname, per in got.items():
         for key, n in per.items():
             totals[kname][key] += n
     return out
 
 
-def run_config0(device, csr0, x0):
-    return {"config0": csr0 @ torch.from_numpy(x0).to(device)}
+def run_config0(device, csr0, x0, seen):
+    before = variant_counts()
+    out = {"config0": csr0 @ torch.from_numpy(x0).to(device)}
+    record_variants(seen, "config0", "float64", before)
+    return out
 
 
-def run_spmv(big):
-    """A forward and backward ``csr @ x`` per dtype."""
+def run_spmv(big, seen):
+    """A forward and backward ``csr @ x`` per dtype; ``seen[kernel,
+    "spmv", dtype]`` gets the variants each dtype's step ran."""
     out = {}
     for name, (csr, x, g) in big.items():
+        before = variant_counts()
         values = csr.values.detach().clone().requires_grad_(True)
         xg = x.detach().clone().requires_grad_(True)
         y = csr.with_values(values) @ xg
         y.backward(g)
         out["spmv", name] = (y.detach(), values.grad, xg.grad)
+        record_variants(seen, "spmv", name, before)
     return out
 
 
-def run_spmm(mats, rhs):
-    """A forward and backward ``mat @ X`` per config[1] matrix."""
+def run_spmm(mats, rhs, seen):
+    """A forward and backward ``mat @ X`` per config[1] matrix;
+    ``seen[kernel, matrix, dtype]`` gets the variants each step ran."""
     out = {}
     for (mname, name), mat in mats.items():
+        before = variant_counts()
         X, G = rhs[name]
         values = mat.values.detach().clone().requires_grad_(True)
         Xg = X.detach().clone().requires_grad_(True)
         Y = mat.with_values(values) @ Xg
         Y.backward(G)
         out["spmm", mname, name] = (Y.detach(), values.grad, Xg.grad)
+        record_variants(seen, mname, name, before)
     return out
 
 
@@ -499,71 +582,172 @@ def check_variants(label: str, op: str, seen) -> None:
                              f"expected {MAIN_VARIANTS[label]}")
 
 
+def on_card(a, dtype=None, shift: bool = False, device=None):
+    """A NumPy array as a tensor on the card; ``shift`` makes it a view one
+    element past a 16-byte boundary (the kernels' views off 16 bytes)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype is not None:
+        t = t.to(dtype)
+    if not shift:
+        return t.to(device)
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=device)
+    flat[1:] = t.reshape(-1).to(device)
+    return flat[1:].view(t.shape)
+
+
+def ran_variant(counts, before, what: str) -> str:
+    """The one variant launched since ``before`` (a copy of ``counts``).
+    The SpMV's ``finish`` count (its second kernel, after a vector launch
+    with split rows) names no variant."""
+    ran = [v for v, n in counts.items() if n != before[v] and v != "finish"]
+    if len(ran) != 1:
+        raise AssertionError(f"{what}: variants {ran} ran, not one")
+    return ran[0]
+
+
+def edge_rowptr(lens, pad: int, rng, m: int):
+    """Row pointer and column indices for row lengths ``lens``, with
+    ``pad`` padding slots past ``rowptr[-1]``."""
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return ptr, rng.integers(0, m, size=int(ptr[-1]) + pad).astype(np.int32)
+
+
+# Row lengths of the SpMV edge structures: every lane count of the scalar
+# variant (mean row lengths 0.5 to 64); rows of 0, 1, 31, 32, 33 and 4096
+# entries, on both sides of the vector variant's window budget (BUDGET =
+# 256 entries) and of its 16-byte vectors; and one row of 150,000 entries
+# among short ones, split over 586 warps.
+def spmv_edge_lengths(rng, n: int):
+    for mean in (0.5, 1.5, 3, 6, 12, 24, 64):
+        lens = rng.poisson(mean, size=n)
+        lens[::7] = 0
+        yield f"mean row length {mean}", lens
+    lens = rng.choice([0, 1, 31, 32, 33, 4096], size=n,
+                      p=[0.2, 0.2, 0.2, 0.2, 0.19, 0.01])
+    yield "rows of 0, 1, 31, 32, 33 and 4096 entries", lens
+    lens = rng.poisson(5, size=n)
+    lens[1234] = 150_000
+    yield "a row of 150,000 entries", lens
+
+
 def edge_structures(device) -> None:
     """SpMV kernel against plain version on structures the main path's
-    matrices do not reach: every lane count (mean row lengths from 0.5 to
-    64), empty rows, padding slots past ``rowptr[-1]`` holding values that
-    must count for nothing, and a matrix with no stored slots."""
+    matrices do not reach (spmv_edge_lengths), each with padding slots
+    past ``rowptr[-1]`` holding values that must count for nothing, in both
+    variants (operands on 16-byte boundaries: vector; colind, values or
+    perm a view off one: scalar); the ``perm`` path bitwise against the
+    materialised gather; and a matrix with no stored slots."""
     rng = np.random.default_rng(2)
     n = 3000
-    for name, (np_dtype, _) in DTYPES.items():
-        for mean in (0.5, 1.5, 3, 6, 12, 24, 64):
-            lens = rng.poisson(mean, size=n)
-            lens[::7] = 0
-            ptr = np.concatenate([[0], np.cumsum(lens)])
-            nse = int(ptr[-1]) + 37
-            rowptr = torch.from_numpy(ptr.astype(np.int32)).to(device)
-            colind = torch.from_numpy(
-                rng.integers(0, n, size=nse).astype(np.int32)).to(device)
-            values = torch.from_numpy(
-                rng.normal(size=nse).astype(np_dtype)).to(device)
-            x = torch.from_numpy(rng.normal(size=n).astype(np_dtype)).to(device)
-            y = csr_spmv(rowptr, colind, values, x, n)
-            y_p = csr_spmv_plain(rowptr, colind, values, x, n)
-            scale = csr_spmv_plain(rowptr, colind, values.abs(), x.abs(), n)
-            within((y - y_p).abs(), scale, TOL[name],
-                   f"{name} edge structure, mean row length {mean}")
-            if not bool((y[::7] == 0).all()):
-                raise AssertionError(f"{name}: an empty row is not 0")
+    for name, (np_dtype, torch_dtype) in DTYPES.items():
+        x = on_card(rng.normal(size=n).astype(np_dtype), device=device)
+        for what, lens in spmv_edge_lengths(rng, n):
+            ptr, cols = edge_rowptr(lens, 37, rng, n)
+            vals = rng.normal(size=cols.size).astype(np_dtype)
+            perm = rng.permutation(cols.size).astype(np.int32)
+            rowptr = on_card(ptr, device=device)
+            for shifted in (None, "colind", "values", "perm"):
+                colind = on_card(cols, shift=shifted == "colind",
+                                 device=device)
+                values = on_card(vals, shift=shifted == "values",
+                                 device=device)
+                p = on_card(perm, shift=shifted == "perm", device=device)
+                label = (f"{name} SpMV edge structure, {what}"
+                         + (f", {shifted} off 16 bytes" if shifted else ""))
+                for use_perm in ((False, True) if shifted in (None, "perm")
+                                 else (False,)):
+                    if shifted == "perm" and not use_perm:
+                        continue
+                    kw = {"perm": p} if use_perm else {}
+                    before = dict(spmv_mod.VARIANT_LAUNCHES)
+                    y = csr_spmv(rowptr, colind, values, x, n, **kw)
+                    variant = ran_variant(spmv_mod.VARIANT_LAUNCHES, before,
+                                          label)
+                    want = "scalar" if shifted else "vector"
+                    if variant != want:
+                        raise AssertionError(f"{label}: ran {variant}, "
+                                             f"expected {want}")
+                    v = values[p] if use_perm else values
+                    y_p = csr_spmv_plain(rowptr, colind, v, x, n)
+                    scale = csr_spmv_plain(rowptr, colind, v.abs(), x.abs(),
+                                           n)
+                    within((y - y_p).abs(), scale, TOL[name],
+                           f"{label}{', perm' if use_perm else ''}")
+                    if not bool((y[torch.from_numpy(lens == 0).to(device)]
+                                 == 0).all()):
+                        raise AssertionError(f"{label}: an empty row is not 0")
+                    if not torch.equal(y, csr_spmv(rowptr, colind, values, x,
+                                                   n, **kw)):
+                        raise AssertionError(f"{label}: not bitwise "
+                                             "repeatable")
+                    if use_perm and shifted is None and not torch.equal(
+                            y, csr_spmv(rowptr, colind, values[p].clone(), x,
+                                        n)):
+                        raise AssertionError(f"{label}: the perm path differs "
+                                             "from the gathered values")
+        before = dict(spmv_mod.LAUNCHES)
         empty = csr_spmv(torch.zeros(n + 1, dtype=torch.int32, device=device),
                          torch.zeros(0, dtype=torch.int32, device=device),
-                         torch.zeros(0, dtype=DTYPES[name][1], device=device),
+                         torch.zeros(0, dtype=torch_dtype, device=device),
                          x, n)
-        if not bool((empty == 0).all()):
-            raise AssertionError(f"{name}: a matrix with no entries is not 0")
+        if not bool((empty == 0).all()) or spmv_mod.LAUNCHES != before:
+            raise AssertionError(f"{name}: a matrix with no entries launched "
+                                 "or is not 0")
     torch.cuda.synchronize()
+
+
+SPMM_EDGE_KS = (1, 3, 4, 32, 64, 100)
 
 
 def spmm_edge_structures(device) -> None:
     """SpMM kernel against plain version: row lengths from empty to 40 on
     average, every seventh row empty, padding slots past ``rowptr[-1]``
-    holding values, k in {1, 3, 32, 64, 100}; a matrix with no stored
-    slots, and k = 0, which launch nothing."""
+    holding values, k in SPMM_EDGE_KS with X on and off a 16-byte boundary
+    (both sides of the float32 vector variant's bound); the ``perm`` path bitwise
+    against the materialised gather; a matrix with no stored slots, and
+    k = 0, which launch nothing."""
     rng = np.random.default_rng(4)
     n, m = 3000, 2500
     for name, (np_dtype, torch_dtype) in DTYPES.items():
         for mean in (0.5, 3, 40):
             lens = rng.poisson(mean, size=n)
             lens[::7] = 0
-            ptr = np.concatenate([[0], np.cumsum(lens)])
-            nse = int(ptr[-1]) + 37
-            rowptr = torch.from_numpy(ptr.astype(np.int32)).to(device)
-            colind = torch.from_numpy(
-                rng.integers(0, m, size=nse).astype(np.int32)).to(device)
-            values = torch.from_numpy(
-                rng.normal(size=nse).astype(np_dtype)).to(device)
-            for k in (1, 3, 32, 64, 100):
-                X = torch.from_numpy(
-                    rng.normal(size=(m, k)).astype(np_dtype)).to(device)
-                Y = csr_spmm(rowptr, colind, values, X, n)
-                Y_p = csr_spmm_plain(rowptr, colind, values, X, n)
-                scale = csr_spmm_plain(rowptr, colind, values.abs(), X.abs(), n)
-                what = f"{name} SpMM edge structure, mean {mean}, k {k}"
-                within((Y - Y_p).abs(), scale, TOL[name], what)
-                if not bool((Y[::7] == 0).all()):
-                    raise AssertionError(f"{what}: an empty row is not 0")
-                if not torch.equal(Y, csr_spmm(rowptr, colind, values, X, n)):
-                    raise AssertionError(f"{what}: not bitwise repeatable")
+            ptr, cols = edge_rowptr(lens, 37, rng, m)
+            rowptr, colind = on_card(ptr, device=device), on_card(
+                cols, device=device)
+            values = on_card(rng.normal(size=cols.size).astype(np_dtype),
+                             device=device)
+            perm = on_card(rng.permutation(cols.size).astype(np.int32),
+                           device=device)
+            for k in SPMM_EDGE_KS:
+                Xh = rng.normal(size=(m, k)).astype(np_dtype)
+                for shift in (False, True):
+                    X = on_card(Xh, shift=shift, device=device)
+                    what = (f"{name} SpMM edge structure, mean {mean}, k {k}"
+                            + (", X off 16 bytes" if shift else ""))
+                    before = dict(spmm_mod.VARIANT_LAUNCHES)
+                    Y = csr_spmm(rowptr, colind, values, X, n)
+                    variant = ran_variant(spmm_mod.VARIANT_LAUNCHES, before,
+                                          what)
+                    want = ("vector" if name == "float32" and k % 4 == 0
+                            and not shift else "register")
+                    if variant != want:
+                        raise AssertionError(f"{what}: ran {variant}, "
+                                             f"expected {want}")
+                    Y_p = csr_spmm_plain(rowptr, colind, values, X, n)
+                    scale = csr_spmm_plain(rowptr, colind, values.abs(),
+                                           X.abs(), n)
+                    within((Y - Y_p).abs(), scale, TOL[name], what)
+                    if not bool((Y[::7] == 0).all()):
+                        raise AssertionError(f"{what}: an empty row is not 0")
+                    if not torch.equal(Y, csr_spmm(rowptr, colind, values, X,
+                                                   n)):
+                        raise AssertionError(f"{what}: not bitwise repeatable")
+                    if not torch.equal(
+                            csr_spmm(rowptr, colind, values, X, n, perm=perm),
+                            csr_spmm(rowptr, colind, values[perm], X, n)):
+                        raise AssertionError(f"{what}: the perm path differs "
+                                             "from the gathered values")
         before = dict(spmm_mod.LAUNCHES)
         X = torch.ones(m, 4, dtype=torch_dtype, device=device)
         none = csr_spmm(torch.zeros(n + 1, dtype=torch.int32, device=device),
@@ -574,6 +758,58 @@ def spmm_edge_structures(device) -> None:
                 or spmm_mod.LAUNCHES != before):
             raise AssertionError(f"{name}: no entries or k = 0 launched or "
                                  "gave a wrong result")
+    torch.cuda.synchronize()
+
+
+def sddmm_edge_structures(device) -> None:
+    """SDDMM kernel against plain version: row lengths from empty to 40 on
+    average, every seventh row empty, padding slots (major == nrows) that
+    must give exactly 0, k in SPMM_EDGE_KS with G and X on and off a
+    16-byte boundary (both variants); bitwise repeats; no slots."""
+    rng = np.random.default_rng(8)
+    n, m = 3000, 2500
+    for name, (np_dtype, torch_dtype) in DTYPES.items():
+        itemsize = np.dtype(np_dtype).itemsize
+        for mean in (0.5, 3, 40):
+            lens = rng.poisson(mean, size=n)
+            lens[::7] = 0
+            ptr, cols = edge_rowptr(lens, 37, rng, m)
+            colind = on_card(cols, device=device)
+            major = major_ids(on_card(ptr, device=device), cols.size)
+            pad = major == n
+            for k in SPMM_EDGE_KS:
+                Gh = rng.normal(size=(n, k)).astype(np_dtype)
+                Xh = rng.normal(size=(m, k)).astype(np_dtype)
+                for shift in (False, True):
+                    G = on_card(Gh, shift=shift, device=device)
+                    X = on_card(Xh, device=device)
+                    what = (f"{name} SDDMM edge structure, mean {mean}, k {k}"
+                            + (", G off 16 bytes" if shift else ""))
+                    before = dict(sddmm_mod.VARIANT_LAUNCHES)
+                    out = csr_sddmm(major, colind, G, X, n)
+                    variant = ran_variant(sddmm_mod.VARIANT_LAUNCHES, before,
+                                          what)
+                    want = ("vector" if k * itemsize % 16 == 0 and not shift
+                            else "scalar")
+                    if variant != want:
+                        raise AssertionError(f"{what}: ran {variant}, "
+                                             f"expected {want}")
+                    ref = csr_sddmm_plain(major, colind, G, X, n)
+                    scale = csr_sddmm_plain(major, colind, G.abs(), X.abs(),
+                                            n)
+                    within((out - ref).abs(), scale, TOL[name], what)
+                    if not bool((out[pad] == 0).all()):
+                        raise AssertionError(f"{what}: a padding slot is "
+                                             "not 0")
+                    if not torch.equal(out, csr_sddmm(major, colind, G, X,
+                                                      n)):
+                        raise AssertionError(f"{what}: not bitwise repeatable")
+        before = dict(sddmm_mod.LAUNCHES)
+        none = csr_sddmm(major[:0], colind[:0],
+                         torch.ones(n, 4, dtype=torch_dtype, device=device),
+                         torch.ones(m, 4, dtype=torch_dtype, device=device), n)
+        if none.shape != (0,) or sddmm_mod.LAUNCHES != before:
+            raise AssertionError(f"{name}: SDDMM with no slots launched")
     torch.cuda.synchronize()
 
 
@@ -766,23 +1002,138 @@ def check_spmv(big, main_out, report) -> None:
         within((dx - dx_p).abs(), scale_dx, tol, f"{name} dx")
         within((dvals - dvals_p).abs(), (g[rows] * x[cols]).abs(), tol,
                f"{name} dvals")
+        # The backward's Aᵀ·g reads the values through the transpose's
+        # perm: bitwise the kernel on the gathered copy.
+        t = transpose_plan(rowptr, colind, N_BIG, N_BIG)
+        if not torch.equal(dx, csr_spmv(t.ptr, t.minor, values[t.perm], g,
+                                        N_BIG)):
+            raise AssertionError(f"{name}: Aᵀ·g through perm differs from "
+                                 "the kernel on the gathered values")
+        sd = csr_sddmm(t.major, colind, g, x, N_BIG)
+        sd_err = (sd - csr_sddmm_plain(t.major, colind, g, x, N_BIG)).abs()
+        within(sd_err, (g[rows] * x[cols]).abs(), tol, f"{name} SDDMM k=1")
+        if not torch.equal(sd, dvals.to(sd.dtype)):
+            raise AssertionError(f"{name}: SDDMM differs from the main "
+                                 "path's dvals")
         report["csr_spmv", name] = {"max_abs_err": float(err.max())}
+        report["csr_sddmm", f"{name}_k1"] = {
+            "max_abs_err": float(sd_err.max())}
         print(f"phase 3: {name}: kernel == plain within {tol}*(|A||x|) row by "
               f"row (max |err| {float(err.max()):.3e}); bitwise repeatable; "
-              f"dx and dvals match the plain autograd")
+              f"dx and dvals match the plain autograd; Aᵀ·g through perm "
+              f"bitwise equal to the gathered form; SDDMM k=1 == plain "
+              f"(max |err| {float(sd_err.max()):.3e})")
         del y_p, scale, y1, y2, v_p, x_p, dvals_p, dx_p, rows, cols, scale_dx
+        del sd, sd_err
     edge_structures(big["float32"][0].device)
-    print("phase 3: edge structures (lane counts 1..32, empty rows, padding, "
-          "no entries): kernel == plain in float32 and float64")
+    print("phase 3: SpMV edge structures (lane counts 1..32; rows of 0, 1, "
+          "31, 32, 33, 4096 and 150,000 entries; padding with values; "
+          "colind, values and perm off 16 bytes; the perm path; no "
+          "entries): kernel == plain in float32 and float64, both variants")
+    sddmm_edge_structures(big["float32"][0].device)
+    print("phase 3: SDDMM edge structures (padding slots, k in "
+          f"{', '.join(map(str, SPMM_EDGE_KS))}, G off 16 bytes, no slots): "
+          "kernel == plain in float32 and float64, both variants")
+    check_metrics_paths(big["float32"][0].device)
+    print("phase 3: from_dense CSR and CSC on the card: csr @ x and csc @ x "
+          "match NumPy, nnz_device is the entry count, and the metrics path "
+          "names the SpMV variant that launched")
+
+
+def check_metrics_paths(device) -> None:
+    """With the metrics recorder on, ``csr @ x`` and ``csc @ x`` (matrices
+    made by ``from_dense`` on the card) record the SpMV variant that
+    launched, the CSC one through its mirror, and ``nnz_device`` is the
+    entry count."""
+    rng = np.random.default_rng(5)
+    dense = rng.normal(size=(96, 80)) * (rng.random((96, 80)) < 0.2)
+    x = torch.from_numpy(rng.normal(size=80)).to(device)
+    rec = metrics.enable()
+    rec.records.clear()
+    try:
+        for op, mat in (("csr_spmv", CsrMatrix.from_dense(dense,
+                                                          device=device)),
+                        ("csc_spmv", CscMatrix.from_dense(dense,
+                                                          device=device))):
+            if int(mat.nnz_device()) != int(np.count_nonzero(dense)):
+                raise AssertionError(f"{op}: nnz_device {mat.nnz_device()}")
+            before = dict(spmv_mod.VARIANT_LAUNCHES)
+            y = mat @ x
+            variant = ran_variant(spmv_mod.VARIANT_LAUNCHES, before, op)
+            want = f"{op}:cuda:{variant}"
+            if rec.records[-1].path != want:
+                raise AssertionError(f"{op}: metrics path "
+                                     f"{rec.records[-1].path}, ran {want}")
+            err = (y - torch.from_numpy(dense @ x.cpu().numpy()).to(device))
+            within(err.abs(), torch.from_numpy(
+                np.abs(dense) @ np.abs(x.cpu().numpy())).to(device),
+                TOL["float64"], f"{op} from_dense")
+    finally:
+        metrics.disable()
+        rec.records.clear()
+
+
+def sampled_addmm_ms(rowptr, colind, values, G, X, shape):
+    """Time of ``torch.sparse.sampled_addmm(A, G, Xᵀ, beta=0)``, the SDDMM
+    of the pattern of ``A`` (a yardstick only), behind the spin; None, with
+    the reason printed, where torch refuses it."""
+    pattern = torch.sparse_csr_tensor(rowptr, colind, values, shape)
+    try:
+        ms = library_ms(lambda: torch.sparse.sampled_addmm(
+            pattern, G, X.T, beta=0.0), spin=True)
+    except RuntimeError as e:
+        print(f"torch.sparse.sampled_addmm refused: {str(e)[:200]}")
+        ms = None
+    del pattern
+    free_memory()
+    return ms
+
+
+def time_sddmm(rowptr, colind, G, X, nrows: int, what: str, card: str):
+    """SDDMM kernel and plain version in turns behind the spin, the
+    library call beside them; returns the kernel line's numbers."""
+    t = transpose_plan(rowptr, colind, nrows, X.shape[0])
+    k = 1 if G.ndim == 1 else G.shape[1]
+    k_ms, p_ms, (p1, k1, k2, p2) = turns(
+        lambda: csr_sddmm(t.major, colind, G, X, nrows),
+        lambda: csr_sddmm_plain(t.major, colind, G, X, nrows),
+        TIMED_LAUNCHES, PLAIN_SPMM_LAUNCHES, spin=True)
+    free_memory()
+    nse, itemsize = colind.numel(), G.element_size()
+    # compulsory bytes: rowptr, the column ids, the output, G and X once
+    # (the kernel's per-slot row ids are its design's cost, not the
+    # function's: 4·nse bytes more)
+    nbytes = ((4 + itemsize) * nse + 4 * (nrows + 1)
+              + itemsize * k * (nrows + X.shape[0]))
+    values = torch.ones(nse, dtype=G.dtype, device=G.device)
+    lib_ms = sampled_addmm_ms(rowptr, colind, values,
+                              G if G.ndim == 2 else G[:, None],
+                              X if X.ndim == 2 else X[:, None],
+                              (nrows, X.shape[0]))
+    del values
+    for label, ms in (("kernel", k_ms), ("plain", p_ms), ("library", lib_ms)):
+        if ms is not None:
+            gbs = nbytes / ms / 1e6
+            print(f"phase 4/8: {what} SDDMM k={k} {label}: {ms:.4f} ms, "
+                  f"{gbs:.1f} GB/s, {100 * gbs / (HBM_TBPS * 1e3):.1f} % of "
+                  f"{HBM_TBPS} TB/s | {card}")
+    print(f"phase 4/8: {what} SDDMM k={k} turns (ms): plain {p1:.4f}, kernel "
+          f"{k1:.4f}, kernel {k2:.4f}, plain {p2:.4f}")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                **bound(nbytes, 2 * nse * k,
+                        "float64" if G.dtype == torch.float64 else "float32"))
 
 
 def time_spmv(big, report, card: str) -> None:
-    for name, (csr, x, _) in big.items():
+    """SpMV kernel and plain version in turns, torch's CSR product, and
+    SDDMM at k = 1 (the SpMV backward's dvals), each run of launches
+    behind a queued spin of the card."""
+    for name, (csr, x, g) in big.items():
         rowptr, colind, values = csr.rowptr, csr.colind, csr.values
         k_ms, p_ms, (p1, k1, k2, p2) = turns(
             lambda: csr_spmv(rowptr, colind, values, x, N_BIG),
             lambda: csr_spmv_plain(rowptr, colind, values, x, N_BIG),
-            TIMED_LAUNCHES, TIMED_LAUNCHES)
+            TIMED_LAUNCHES, TIMED_LAUNCHES, spin=True)
         nnz, itemsize = csr.nse, values.element_size()
         nbytes = (itemsize + 4) * nnz + itemsize * 2 * N_BIG + 4 * (N_BIG + 1)
         for label, ms in (("kernel", k_ms), ("plain", p_ms)):
@@ -793,15 +1144,93 @@ def time_spmv(big, report, card: str) -> None:
                   f"| {card}")
         print(f"phase 4: {name} turns (ms): plain {p1:.4f}, kernel {k1:.4f}, "
               f"kernel {k2:.4f}, plain {p2:.4f}")
+        t = transpose_plan(rowptr, colind, N_BIG, N_BIG)
+        gathered = values[t.perm]
+        perm_ms = time_ms(lambda: csr_spmv(t.ptr, t.minor, values, g, N_BIG,
+                                           perm=t.perm), TIMED_LAUNCHES,
+                          spin=True)
+        gath_ms = time_ms(lambda: csr_spmv(t.ptr, t.minor, gathered, g,
+                                           N_BIG), TIMED_LAUNCHES, spin=True)
+        copy_ms = time_ms(lambda: values[t.perm], TIMED_LAUNCHES, spin=True)
+        del gathered
+        print(f"phase 4: {name} Aᵀ·g: through perm {perm_ms:.4f} ms; on the "
+              f"gathered copy {gath_ms:.4f} ms + the gather values[perm] "
+              f"{copy_ms:.4f} ms | {card}")
         lib = torch.sparse_csr_tensor(rowptr, colind, values, (N_BIG, N_BIG))
-        lib_ms = library_ms(lambda: lib @ x)
+        lib_ms = library_ms(lambda: lib @ x, spin=True)
         diff = (lib @ x - csr_spmv(rowptr, colind, values, x, N_BIG)).abs()
         print(f"phase 4: {name} library torch.sparse_csr_tensor @ x: "
               f"{lib_ms:.4f} ms (max |diff| to the kernel "
               f"{float(diff.max()):.3e}) | {card}")
+        del lib, diff
         report["csr_spmv", name].update(
             ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
             **bound(nbytes, 2 * nnz, name))
+        report["csr_sddmm", f"{name}_k1"].update(time_sddmm(
+            rowptr, colind, g, x, N_BIG, f"{name} csr_random n={N_BIG}",
+            card))
+
+
+def long_row_matrix(np_dtype, device):
+    """An edge matrix for the long-row split at scale: N_LONG rows of 8
+    random entries on average (Poisson), with row 777 holding 300,000 and
+    row N_LONG // 2 holding 120,000 entries."""
+    rng = np.random.default_rng(9)
+    n = N_LONG
+    lens = rng.poisson(8, size=n)
+    lens[777], lens[n // 2] = 300_000, 120_000
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    cols = rng.integers(0, n, size=int(ptr[-1]))
+    order = np.repeat(np.arange(n), lens)
+    cols = cols[np.lexsort((cols, order))]
+    return CsrMatrix._from_parts(
+        n, n, on_card(ptr.astype(np.int32), device=device),
+        on_card(cols.astype(np.int32), device=device),
+        on_card(rng.normal(size=cols.size).astype(np_dtype), device=device))
+
+
+def skewed_spmv(gemm, card: str) -> None:
+    """SpMV on the power-law matrix of phase 7 (zipf 1.8, rows up to 512)
+    and on a matrix with rows of 300,000 and 120,000 entries: kernel
+    against plain version row by row, bitwise repeats, times behind the
+    spin; both exercise the vector variant's long-row split."""
+    for name, (np_dtype, _) in DTYPES.items():
+        a = gemm[name][0]
+        for what, mat in (("power-law", a),
+                          ("long rows", long_row_matrix(np_dtype, a.device))):
+            rowptr, colind, values = mat.rowptr, mat.colind, mat.values
+            n = mat.nrows
+            x = torch.randn(n, dtype=values.dtype, device=values.device,
+                            generator=torch.Generator(
+                                device=values.device).manual_seed(12))
+            plan = spmv_mod.csr_spmv_plan(rowptr)
+            before = dict(spmv_mod.VARIANT_LAUNCHES)
+            y = csr_spmv(rowptr, colind, values, x, n)
+            variant = ran_variant(spmv_mod.VARIANT_LAUNCHES, before,
+                                  f"{name} {what} SpMV")
+            finished = spmv_mod.VARIANT_LAUNCHES["finish"] - before["finish"]
+            if finished != int(plan.nlong > 0):
+                raise AssertionError(f"{name} {what}: {finished} finishing "
+                                     f"launches counted, {plan.nlong} rows "
+                                     "split")
+            err = (y - csr_spmv_plain(rowptr, colind, values, x, n)).abs()
+            within(err, csr_spmv_plain(rowptr, colind, values.abs(), x.abs(),
+                                       n), TOL[name], f"{name} {what} SpMV")
+            if not torch.equal(y, csr_spmv(rowptr, colind, values, x, n)):
+                raise AssertionError(f"{name} {what}: not bitwise repeatable")
+            lens = rowptr[1:] - rowptr[:-1]
+            ms = time_ms(lambda: csr_spmv(rowptr, colind, values, x, n),
+                         TIMED_LAUNCHES, spin=True)
+            lib = torch.sparse_csr_tensor(rowptr, colind, values, mat.shape)
+            lib_ms = library_ms(lambda: lib @ x, spin=True)
+            print(f"phase 4: {name} {what} SpMV n={n} nnz={mat.nse} (rows "
+                  f"up to {int(lens.max())} entries; {plan.nlong} rows over "
+                  f"{BUDGET} split into {plan.npieces} pieces): {variant} "
+                  f"kernel == plain within {TOL[name]}*(|A||x|) (max |err| "
+                  f"{float(err.max()):.3e}), bitwise repeatable; {ms:.4f} ms, "
+                  f"torch.sparse_csr_tensor @ x {lib_ms:.4f} ms | {card}")
+            del y, err, lib, lens, x
+        free_memory()
 
 
 def check_spmm(mats, rhs, main_out, report) -> None:
@@ -832,9 +1261,19 @@ def check_spmm(mats, rhs, main_out, report) -> None:
         within((dX - dX_p).abs(), csr_spmm_plain(
             t.ptr, t.minor, values.abs()[t.perm], G.abs(), N_MM), tol,
             f"{what} dX")
-        within((dvals - dvals_p).abs(), _row_dots(
-            torch.cat([G.abs(), G.new_zeros(1, K_MM)]), X.abs(), t.major,
-            colind), tol, f"{what} dvals")
+        dvals_scale = csr_sddmm_plain(t.major, colind, G.abs(), X.abs(), N_MM)
+        within((dvals - dvals_p).abs(), dvals_scale, tol, f"{what} dvals")
+        if not torch.equal(dX, csr_spmm(t.ptr, t.minor, values[t.perm], G,
+                                        N_MM)):
+            raise AssertionError(f"{what}: Aᵀ·G through perm differs from "
+                                 "the kernel on the gathered values")
+        sd = csr_sddmm(t.major, colind, G, X, N_MM)
+        sd_err = (sd - csr_sddmm_plain(t.major, colind, G, X, N_MM)).abs()
+        within(sd_err, dvals_scale, tol, f"{what} SDDMM k={K_MM}")
+        if not torch.equal(sd, dvals):
+            raise AssertionError(f"{what}: SDDMM differs from the main "
+                                 "path's dvals")
+        del dvals_scale, sd
         del dvals_p, dX_p
         free_memory()
         if mname == "random":
@@ -845,16 +1284,22 @@ def check_spmm(mats, rhs, main_out, report) -> None:
                     or not bitwise_equal(dvals_c[mirror.perm], dvals):
                 raise AssertionError(f"{name}: csc @ X differs from csr @ X")
             report["csr_spmm", name] = {"max_abs_err": max_err}
+            report["csr_sddmm", name] = {"max_abs_err": float(sd_err.max())}
+        else:
+            report["csr_spmm", f"{name}_{mname}"] = {"max_abs_err": max_err}
+        del sd_err
         print(f"phase 6: {what} n={N_MM} nnz={mat.nnz} k={K_MM}: kernel == "
               f"plain within {tol}*(|A||X|) entry by entry (max |err| "
               f"{max_err:.3e}); bitwise repeatable; dX and dvals match the "
-              f"plain autograd"
+              f"plain autograd; Aᵀ·G through perm bitwise equal to the "
+              f"gathered form; SDDMM k={K_MM} == plain and == dvals"
               + ("; csc @ X through the mirror bitwise equal to csr @ X"
                  if mname == "random" else ""))
     spmm_edge_structures(X.device)
     print("phase 6: SpMM edge structures (empty rows, padding with values, k "
-          "in 1, 3, 32, 64, 100; no entries; k = 0): kernel == plain in "
-          "float32 and float64")
+          f"in {', '.join(map(str, SPMM_EDGE_KS))}, X off 16 bytes, the perm "
+          "path; no entries; k = 0): kernel == plain in float32 and "
+          "float64, both variants")
 
 
 def check_spgemm(gemm, plan, main_out, report) -> None:
@@ -907,7 +1352,7 @@ def time_spmm_spgemm(mats, rhs, gemm, plan, report, card: str) -> None:
         k_ms, p_ms, (p1, k1, k2, p2) = turns(
             lambda: csr_spmm(rowptr, colind, values, X, N_MM),
             lambda: csr_spmm_plain(rowptr, colind, values, X, N_MM),
-            TIMED_LAUNCHES, PLAIN_SPMM_LAUNCHES)
+            TIMED_LAUNCHES, PLAIN_SPMM_LAUNCHES, spin=True)
         free_memory()
         nnz, itemsize = mat.nse, values.element_size()
         nbytes = ((itemsize + 4) * nnz + itemsize * K_MM * 2 * N_MM
@@ -921,15 +1366,28 @@ def time_spmm_spgemm(mats, rhs, gemm, plan, report, card: str) -> None:
         print(f"phase 8: {name} {mname} SpMM turns (ms): plain {p1:.4f}, "
               f"kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f}")
         lib = torch.sparse_csr_tensor(rowptr, colind, values, (N_MM, N_MM))
-        lib_ms = library_ms(lambda: lib @ X)
+        lib_ms = library_ms(lambda: lib @ X, spin=True)
         print(f"phase 8: {name} {mname} library torch.sparse_csr_tensor @ X: "
               f"{lib_ms:.4f} ms | {card}")
         del lib
         free_memory()
+        row = name if mname == "random" else f"{name}_{mname}"
+        report["csr_spmm", row].update(
+            ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+            **bound(nbytes, 2 * nnz * K_MM, name))
         if mname == "random":
-            report["csr_spmm", name].update(
-                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                **bound(nbytes, 2 * nnz * K_MM, name))
+            # every entry gathers a whole row of X, which is larger than
+            # the L2 here: the floor if no gather hits L2
+            gather_ms = ((itemsize + 4) * nnz + itemsize * K_MM * (nnz + N_MM)
+                         ) / (HBM_TBPS * 1e12) * 1e3
+            print(f"phase 8: {name} random SpMM: gathers of X rows with no L2 "
+                  f"hit would take {gather_ms:.4f} ms at {HBM_TBPS} TB/s "
+                  f"(compulsory-byte bound "
+                  f"{report['csr_spmm', row]['bound_ms']:.4f} ms)")
+            G = rhs[name][1]
+            report["csr_sddmm", name].update(time_sddmm(
+                rowptr, colind, G, X, N_MM, f"{name} csr_random n={N_MM}",
+                card))
     n_terms = plan.a_idx.numel()
     args = (plan.gid, plan.a_idx, plan.b_idx)
     for name, (a, _) in gemm.items():
@@ -1049,16 +1507,14 @@ def bsr_edge_case(kern, indptr, indices, data, x, empty, tol, what):
     counts = VARIANTS["bsr_spmv" if kern is bsr_spmv else "bsr_spmm"]
     before = dict(counts)
     y = kern(indptr, indices, data, x)
-    ran = [v for v, n in counts.items() if n != before[v]]
+    ran = ran_variant(counts, before, what)
     within((y - bsr_spmv_plain(indptr, indices, data, x)).abs(),
            bsr_spmv_plain(indptr, indices, data.abs(), x.abs()), tol, what)
     if not bool((y[empty] == 0).all()):
         raise AssertionError(f"{what}: an empty row is not 0")
     if not torch.equal(y, kern(indptr, indices, data, x)):
         raise AssertionError(f"{what}: not bitwise repeatable")
-    if len(ran) != 1:
-        raise AssertionError(f"{what}: variants {ran} ran, not one")
-    return ran[0]
+    return ran
 
 
 def bsr_edge_structures(device) -> dict:
@@ -1622,13 +2078,16 @@ def check_probe(res, device, report, card: str) -> None:
 
 def kernel_line(launches, report, seen) -> list:
     """One row per kernel and dtype (its launches over every main path),
-    and banded8's own BSR rows (its launches on the BSR paths); each BSR
-    row names the variants its launches ran."""
-    def variants(kname, name, shapes):
+    and the rows of EXTRA_ROWS (the launches of their own matrix's main
+    path); each row of a kernel with variants names the variants its
+    launches ran."""
+    def variants(kname, name, shapes=None):
         out = {}
-        for shape in shapes:
-            for v, n in seen.get((kname, shape, name), {}).items():
-                out[v] = out.get(v, 0) + n
+        for (k, shape, n), per in seen.items():
+            if k == kname and n == name and (shapes is None
+                                             or shape in shapes):
+                for v, count in per.items():
+                    out[v] = out.get(v, 0) + count
         return out
 
     rows = []
@@ -1638,15 +2097,17 @@ def kernel_line(launches, report, seen) -> list:
                    "source": source, "replaces": REPLACES[kname, name],
                    "launches": launches[kname][name], **report[kname, name]}
             if kname in VARIANTS:
-                row["variants"] = variants(kname, name, ("tri128", "banded8"))
+                row["variants"] = variants(kname, name)
             rows.append(row)
-    for kname, name in BANDED8_ROWS:
-        per = variants(kname, name, ("banded8",))
-        rows.append({"name": f"{kname}_{name}_banded8", "route": "cuda",
-                     "source": KERNELS[kname][0],
-                     "replaces": REPLACES[kname, name],
-                     "launches": sum(per.values()),
-                     **report[kname, f"{name}_banded8"], "variants": per})
+    for (kname, suffix), shape in EXTRA_ROWS.items():
+        for name in ("float32", "float64"):
+            per = variants(kname, name, (shape,))
+            rows.append({"name": f"{kname}_{name}_{suffix}", "route": "cuda",
+                         "source": KERNELS[kname][0],
+                         "replaces": REPLACES[kname, name],
+                         "launches": sum(per.values()),
+                         **report[kname, f"{name}_{suffix}"],
+                         "variants": per})
     return rows
 
 
@@ -1710,10 +2171,12 @@ def main() -> int:
     # counts
     launches = {kname: dict.fromkeys(counts, 0)
                 for kname, (_, counts) in KERNELS.items()}
-    main_out = drive("config[0]", lambda: run_config0(device, csr0, x0),
-                     launches)
-    main_out.update(drive("SpMV", lambda: run_spmv(big), launches))
-    main_out.update(drive("SpMM", lambda: run_spmm(mats, rhs), launches))
+    seen = {}
+    main_out = drive("config[0]",
+                     lambda: run_config0(device, csr0, x0, seen), launches)
+    main_out.update(drive("SpMV", lambda: run_spmv(big, seen), launches))
+    main_out.update(drive("SpMM", lambda: run_spmm(mats, rhs, seen),
+                          launches))
     main_out.update(drive("SpGEMM", lambda: run_spgemm(gemm), launches))
 
     # ---- phase 2: config[0] against the dense product -----------------
@@ -1742,6 +2205,7 @@ def main() -> int:
         check_spmv(big, main_out, report)
     with phase("phase 4"):
         time_spmv(big, report, card)
+        skewed_spmv(gemm, card)
     with phase("phase 5"):
         where_the_time_goes(big, card)
     big = {name: (csr,) for name, (csr, _, _) in big.items()}
@@ -1763,7 +2227,6 @@ def main() -> int:
     # ---- BSR: its main paths, checks (phase 10) and times (phase 11) --
     with phase("inputs: BSR tri128 and banded8"):
         bsr_in = bsr_inputs(device, mats)
-    seen = {}
     bsr_out = drive("BSR bsr @ x",
                     lambda: run_bsr("bsr_spmv", bsr_in, seen), launches)
     check_variants("BSR bsr @ x", "bsr_spmv", seen)

@@ -1,39 +1,73 @@
 // CSR sparse matrix times dense matrix for Hopper (sm_90a): Y = A X.
 //
-//   Y[i, c] = sum over p in [rowptr[i], rowptr[i+1]) of values[p] * X[colind[p], c]
+//   Y[i, c] = sum over p in [rowptr[i], rowptr[i+1]) of values[q(p)] * X[colind[p], c]
 //
-// X is (ncols, k) and Y is (nrows, k), both row-major and contiguous.
+// with q(p) = p, or q(p) = perm[p] when a perm array is given (the
+// backward's Aᵀ·G reads the forward's values through the cached transpose
+// permutation instead of a gathered copy). X is (ncols, k) and Y is
+// (nrows, k), both row-major and contiguous.
 //
 // Replaces the two Pallas kernels of the JAX package's CSR SpMM:
 //   spalinalg_tpu/ops/kernels/csr_route.py  _route_spmm_kernel     (B2a)
 //   spalinalg_tpu/ops/kernels/csr_route.py  _route_spmm_kernel_pk  (B2b, packed pages)
 // Their routing plan, lane-gather tables, spill recursion and the 1 <= k <= 64
 // limit (a VMEM budget for the per-page X tile) work around TPU limits.
-// Hopper gathers rows of X natively, so this kernel reads
+// Hopper gathers rows of X natively, so this source reads
 // rowptr/colind/values directly, takes any k, and is instantiated for float
 // and double. It accumulates in its own type.
 //
-// What bounds it on this card: bytes. Every stored entry streams its value
-// and column index once (sizeof(T) + 4 bytes) and gathers one row of X,
-// k * sizeof(T) bytes (256 B at k = 64 in float), from L2 or device memory.
-// Two flops per gathered element are far below the card's arithmetic rate.
+// What bounds it on this card: bytes, and above all the gathers. Every
+// stored entry streams its value and column index once (sizeof(T) + 4
+// bytes) and gathers one row of X, k * sizeof(T) bytes (256 B at k = 64 in
+// float), from L2 or device memory. On a random matrix whose X is larger
+// than the 50 MB L2 (csr_random at n = 2^19: 134 / 268 MB) those gathers
+// are 4.29 / 8.59 GB a product, 1.28 / 2.56 ms at 3.35 TB/s if none hits
+// L2, far above the 0.12 / 0.22 ms of the compulsory bytes, which count X
+// once; on a banded matrix X is read about once. Two flops per gathered
+// element are far below the card's arithmetic rate.
 //
-// What the design does about it: one warp owns one row. The lanes cover the
-// k columns in groups of G lanes, G the power of two from 1 to 32 that covers
-// k, so a gathered row of X is read by neighbouring lanes at neighbouring
-// addresses (coalesced). For k > 32 a lane holds NT = 2 column tiles and
-// passes over column blocks of 64; for k < 32 the warp splits into 32 / G
-// sub-groups that take different entries of the row at once. The warp loads
-// 32 entries (index and value) cooperatively and broadcasts each with
-// __shfl_sync. Sub-group sums meet in a fixed __shfl_down_sync tree. There are
-// no atomics and the summation order depends only on the structure and k, so
-// a result is bitwise the same from run to run. Slots past rowptr[nrows] are
-// never read; an empty row gives 0. Offsets into X and Y are 64-bit, since
-// ncols * k passes 2^31 well inside the card's memory.
+// Two variants; the caller names one (the wrapper's csr_spmm_variant) and
+// the entry point refuses arguments that do not suit it. In both, one warp
+// owns one row, loads 32 entries (index and value) cooperatively and hands
+// each round with __shfl_sync; where a perm is given, an instance of its
+// own reads the values through it.
 //
-// C interface: one entry point per type. Each launches on the given stream,
-// allocates nothing, does not synchronise, and returns cudaGetLastError().
+// vector (float, k a multiple of 4, X and Y 16-byte aligned). A group of S
+// lanes reads a row of X in 16-byte vectors (float4; S the power of two
+// covering the row's vectors, at most 32, NV <= 2 vectors a lane, wider
+// rows in column blocks): at k = 64 a half warp a row. The 32 / S groups
+// of a warp take different entries of the batch, U = min(S, 4) at a time
+// (8 entries' rows in flight a warp at k = 64); the next batch's indices
+// and values are loaded (__ldcs, streamed) before the current one's
+// gathers (__ldg). A group sums its entries in order; a fixed
+// __shfl_xor_sync tree over the groups ends the row, which is stored with
+// __stcs. In double the variant ran slower than the register one at k = 64
+// (see Vec below), so double keeps the register variant.
+//
+// register (double; float with k not a multiple of 4 or X off a 16-byte
+// boundary). The first design, kept for those shapes: lanes cover the k
+// columns in groups of G lanes, G the power of two from 1 to 32 that
+// covers k, one element a lane; for k > 32 a lane holds NT = 2
+// column tiles and passes over column blocks of 64; for k < 32 the warp
+// splits into 32 / G sub-groups that take different entries of the row at
+// once. Sub-group sums meet in a fixed __shfl_down_sync tree.
+//
+// Both: no atomics, and the summation order depends only on the structure
+// and k, so a result is bitwise the same from run to run. Slots past
+// rowptr[nrows] are never read; an empty row gives 0. Offsets into X and Y
+// are 64-bit, since ncols * k passes 2^31 well inside the card's memory.
+// Registers (ptxas -v, nvcc 12.9, sm_90a): the vector kernel at k = 64
+// (float, S = 16) 64 with 8 bytes of spill stores; its other instances
+// 40-80, spilling 0-20 bytes; the register kernel at k = 64 38 (double)
+// and 32 (float), no spills; its other instances 32-62, 0-4 bytes.
+//
+// C interface: one entry point per type, with the variant as an int (0
+// register, 1 vector). Each launches on the given stream, allocates
+// nothing, does not synchronise, and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the variant does not take.
 // nrows == 0 or k == 0 launches nothing.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -42,12 +76,25 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = kThreads / kWarp;
+constexpr int kRegister = 0;
+constexpr int kVector = 1;
+constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T, int G, int NT>
+// The value of slot p: values[p], or values[perm[p]] (PERM), chosen at
+// compile time: a run-time test in the register kernel's load slowed the
+// float64 kernel in trials on the H100.
+template <bool PERM, typename T>
+__device__ __forceinline__ T slot_value(const T* values, const int* perm,
+                                        long long p) {
+  return PERM ? __ldg(values + __ldcs(perm + p)) : __ldcs(values + p);
+}
+
+template <typename T, int G, int NT, bool PERM>
 __global__ void __launch_bounds__(kThreads)
 csr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colind,
-                const T* __restrict__ values, const T* __restrict__ X,
-                T* __restrict__ Y, long long nrows, long long k) {
+                const T* __restrict__ values, const int* __restrict__ perm,
+                const T* __restrict__ X, T* __restrict__ Y, long long nrows,
+                long long k) {
   constexpr int S = kWarp / G;  // sub-groups: entries in flight per warp
   const long long row =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
@@ -70,7 +117,7 @@ csr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colind,
       T v = T(0);
       if (p0 + lane < end) {
         col = colind[p0 + lane];
-        v = values[p0 + lane];
+        v = PERM ? __ldg(values + perm[p0 + lane]) : values[p0 + lane];
       }
 #pragma unroll
       for (int i = 0; i < G; ++i) {
@@ -110,26 +157,200 @@ csr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colind,
   }
 }
 
-template <typename T, int G, int NT>
-int launch_g(const void* rowptr, const void* colind, const void* values,
-             const void* X, void* Y, long long nrows, long long k,
-             cudaStream_t stream) {
+// 16 bytes of X or Y (float4) and their multiply-add. The vector variant is
+// float only: in double at k = 64 it ran 6 % (csr_random) and 21 % (banded)
+// slower than the register variant on the H100
+// (spalinalg_tpu_torch/tools/bench_csr.py), which keeps double.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  using V = float4;
+  static constexpr int kWidth = 4;
+  static __device__ __forceinline__ void fma(V& acc, float v, const V& x) {
+    acc.x += v * x.x;
+    acc.y += v * x.y;
+    acc.z += v * x.z;
+    acc.w += v * x.w;
+  }
+  static __device__ __forceinline__ void add_xor(V& acc, int off) {
+    acc.x += __shfl_xor_sync(kFull, acc.x, off);
+    acc.y += __shfl_xor_sync(kFull, acc.y, off);
+    acc.z += __shfl_xor_sync(kFull, acc.z, off);
+    acc.w += __shfl_xor_sync(kFull, acc.w, off);
+  }
+};
+
+template <typename T, int S, int NV, bool PERM>
+__global__ void __launch_bounds__(kThreads)
+csr_spmm_vector(const int* __restrict__ rowptr, const int* __restrict__ colind,
+                const T* __restrict__ values, const int* __restrict__ perm,
+                const T* __restrict__ X, T* __restrict__ Y, long long nrows,
+                long long nvec) {
+  using Op = Vec<T>;
+  using V = typename Op::V;
+  constexpr int SG = kWarp / S;  // groups: each takes S entries of a batch
+  constexpr int U = S < 4 ? S : 4;  // entries a group a step
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
+  if (row >= nrows) {
+    return;  // the whole warp leaves together: row is uniform in a warp
+  }
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int sub = lane / S;
+  const int c0 = lane % S;
+  const long long start = rowptr[row];
+  const long long end = rowptr[row + 1];
+  const V* x = reinterpret_cast<const V*>(X);
+  V* y = reinterpret_cast<V*>(Y) + row * nvec;
+  for (long long cb = 0; cb < nvec; cb += S * NV) {
+    V acc[NV];
+#pragma unroll
+    for (int t = 0; t < NV; ++t) {
+      acc[t] = V{};
+    }
+    int col = 0;
+    T v = T(0);
+    if (start + lane < end) {
+      col = __ldcs(colind + start + lane);
+      v = slot_value<PERM>(values, perm, start + lane);
+    }
+    for (long long p0 = start; p0 < end; p0 += kWarp) {
+      // The next batch's index and value, in flight behind this batch.
+      int col_next = 0;
+      T v_next = T(0);
+      if (p0 + kWarp + lane < end) {
+        col_next = __ldcs(colind + p0 + kWarp + lane);
+        v_next = slot_value<PERM>(values, perm, p0 + kWarp + lane);
+      }
+      const long long n = end - p0;
+#pragma unroll
+      for (int i0 = 0; i0 < S; i0 += U) {
+        int cj[U];
+        T vj[U];
+        V xv[U][NV];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = (i0 + u) * SG + sub;  // this group's entry
+          cj[u] = __shfl_sync(kFull, col, j);
+          vj[u] = __shfl_sync(kFull, v, j);
+#pragma unroll
+          for (int t = 0; t < NV; ++t) {
+            const long long c = cb + c0 + t * S;
+            if (j < n && c < nvec) {
+              xv[u][t] = __ldg(x + static_cast<long long>(cj[u]) * nvec + c);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = (i0 + u) * SG + sub;
+#pragma unroll
+          for (int t = 0; t < NV; ++t) {
+            if (j < n && cb + c0 + t * S < nvec) {
+              Op::fma(acc[t], vj[u], xv[u][t]);
+            }
+          }
+        }
+      }
+      col = col_next;
+      v = v_next;
+    }
+    // Every lane reaches the shuffles; offsets of S and above pair lane l
+    // with the lane of the same columns in another group.
+#pragma unroll
+    for (int off = kWarp / 2; off >= S; off >>= 1) {
+#pragma unroll
+      for (int t = 0; t < NV; ++t) {
+        Op::add_xor(acc[t], off);
+      }
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int t = 0; t < NV; ++t) {
+        const long long c = cb + c0 + t * S;
+        if (c < nvec) {
+          __stcs(y + c, acc[t]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int S, int NV, bool PERM>
+int launch_vec(const void* rowptr, const void* colind, const void* values,
+               const void* perm, const void* X, void* Y, long long nrows,
+               long long nvec, cudaStream_t stream) {
   const long long blocks = (nrows + kRowsPerBlock - 1) / kRowsPerBlock;
   if (blocks > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  csr_spmm_kernel<T, G, NT><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              stream>>>(
+  csr_spmm_vector<T, S, NV, PERM><<<static_cast<unsigned>(blocks), kThreads,
+                                    0, stream>>>(
       static_cast<const int*>(rowptr), static_cast<const int*>(colind),
-      static_cast<const T*>(values), static_cast<const T*>(X),
-      static_cast<T*>(Y), nrows, k);
+      static_cast<const T*>(values), static_cast<const int*>(perm),
+      static_cast<const T*>(X), static_cast<T*>(Y), nrows, nvec);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T, int G, int NT, bool PERM>
+int launch_g(const void* rowptr, const void* colind, const void* values,
+             const void* perm, const void* X, void* Y, long long nrows,
+             long long k, cudaStream_t stream) {
+  const long long blocks = (nrows + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (blocks > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  csr_spmm_kernel<T, G, NT, PERM><<<static_cast<unsigned>(blocks), kThreads,
+                                    0, stream>>>(
+      static_cast<const int*>(rowptr), static_cast<const int*>(colind),
+      static_cast<const T*>(values), static_cast<const int*>(perm),
+      static_cast<const T*>(X), static_cast<T*>(Y), nrows, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool PERM>
+int launch_variant(const void* rowptr, const void* colind, const void* values,
+                   const void* perm, const void* X, void* Y, long long nrows,
+                   long long k, int variant, cudaStream_t s) {
+  if (variant == kVector) {
+    if constexpr (sizeof(T) != sizeof(float)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      if (k % Vec<T>::kWidth || !aligned16(X) || !aligned16(Y)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      const long long nv = k / Vec<T>::kWidth;
+      if (nv == 1) return launch_vec<T, 1, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
+      if (nv == 2) return launch_vec<T, 2, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
+      if (nv <= 4) return launch_vec<T, 4, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
+      if (nv <= 8) return launch_vec<T, 8, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
+      if (nv <= 16) return launch_vec<T, 16, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
+      if (nv <= 32) return launch_vec<T, 32, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
+      return launch_vec<T, 32, 2, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
+    }
+  }
+  if (variant != kRegister) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (k == 1) return launch_g<T, 1, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
+  if (k == 2) return launch_g<T, 2, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
+  if (k <= 4) return launch_g<T, 4, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
+  if (k <= 8) return launch_g<T, 8, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
+  if (k <= 16) return launch_g<T, 16, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
+  if (k <= 32) return launch_g<T, 32, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
+  return launch_g<T, 32, 2, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
 }
 
 template <typename T>
 int launch(const void* rowptr, const void* colind, const void* values,
-           const void* X, void* Y, long long nrows, long long k,
-           void* stream) {
+           const void* perm, const void* X, void* Y, long long nrows,
+           long long k, int variant, void* stream) {
   if (nrows < 0 || k < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -137,25 +358,28 @@ int launch(const void* rowptr, const void* colind, const void* values,
     return static_cast<int>(cudaSuccess);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k == 1) return launch_g<T, 1, 1>(rowptr, colind, values, X, Y, nrows, k, s);
-  if (k == 2) return launch_g<T, 2, 1>(rowptr, colind, values, X, Y, nrows, k, s);
-  if (k <= 4) return launch_g<T, 4, 1>(rowptr, colind, values, X, Y, nrows, k, s);
-  if (k <= 8) return launch_g<T, 8, 1>(rowptr, colind, values, X, Y, nrows, k, s);
-  if (k <= 16) return launch_g<T, 16, 1>(rowptr, colind, values, X, Y, nrows, k, s);
-  if (k <= 32) return launch_g<T, 32, 1>(rowptr, colind, values, X, Y, nrows, k, s);
-  return launch_g<T, 32, 2>(rowptr, colind, values, X, Y, nrows, k, s);
+  if (perm != nullptr) {
+    return launch_variant<T, true>(rowptr, colind, values, perm, X, Y, nrows,
+                                   k, variant, s);
+  }
+  return launch_variant<T, false>(rowptr, colind, values, perm, X, Y, nrows,
+                                  k, variant, s);
 }
 
 }  // namespace
 
 extern "C" int spal_csr_spmm_f32(const void* rowptr, const void* colind,
-                                 const void* values, const void* X, void* Y,
-                                 long long nrows, long long k, void* stream) {
-  return launch<float>(rowptr, colind, values, X, Y, nrows, k, stream);
+                                 const void* values, const void* perm,
+                                 const void* X, void* Y, long long nrows,
+                                 long long k, int variant, void* stream) {
+  return launch<float>(rowptr, colind, values, perm, X, Y, nrows, k, variant,
+                       stream);
 }
 
 extern "C" int spal_csr_spmm_f64(const void* rowptr, const void* colind,
-                                 const void* values, const void* X, void* Y,
-                                 long long nrows, long long k, void* stream) {
-  return launch<double>(rowptr, colind, values, X, Y, nrows, k, stream);
+                                 const void* values, const void* perm,
+                                 const void* X, void* Y, long long nrows,
+                                 long long k, int variant, void* stream) {
+  return launch<double>(rowptr, colind, values, perm, X, Y, nrows, k, variant,
+                        stream);
 }

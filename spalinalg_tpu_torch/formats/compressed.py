@@ -189,6 +189,40 @@ class _CompressedMatrix:
         values = torch.ones(size, dtype=dtype, device=device)
         return cls._from_parts(size, size, ptr, minor, values)
 
+    @classmethod
+    def from_dense(cls, dense, *, drop_zeros: bool = True, device=None):
+        """Compress a dense 2-D NumPy array or tensor (exact zeros dropped
+        by default) through the host engine, onto ``device`` (``None``:
+        the default device).
+
+        >>> from spalinalg_tpu_torch import CsrMatrix
+        >>> a = CsrMatrix.from_dense([[0.0, 2.0], [3.0, 0.0]], device="cpu")
+        >>> a.rowptr.tolist(), a.colind.tolist(), a.values.tolist()
+        ([0, 1, 2], [1, 0], [2.0, 3.0])
+        """
+        from ..convert.engine import compress_host
+
+        value_dtype = None
+        if isinstance(dense, torch.Tensor):
+            value_dtype = dense.dtype
+            if value_dtype == torch.bfloat16:  # NumPy has no bfloat16
+                dense = dense.float()
+        d = _host(dense)
+        if d.ndim != 2:
+            raise ShapeError(f"dense input must be 2-D, got shape {d.shape}")
+        rows, cols = (np.nonzero(d) if drop_zeros
+                      else np.indices(d.shape).reshape(2, -1))
+        vals = d[rows, cols]
+        major, minor = (rows, cols) if cls._MAJOR_AXIS == 0 else (cols, rows)
+        ptr, minor, values = compress_host(
+            major, minor, vals, cls._major_dim(*d.shape), dedup=False,
+            drop_zeros=False)
+        out = cls._from_host(d.shape[0], d.shape[1], ptr, minor, values,
+                             device)
+        if value_dtype == torch.bfloat16:
+            out = out.astype(torch.bfloat16)
+        return out
+
     # ------------------------------------------------------------------
     # Accessors (csr.rs:200-301)
     # ------------------------------------------------------------------
@@ -229,6 +263,11 @@ class _CompressedMatrix:
         """Logical number of stored entries, ``ptr[-1]`` (csr.rs:287-301).
         Reads one value back from the device."""
         return int(self._ptr[-1])
+
+    def nnz_device(self) -> torch.Tensor:
+        """``ptr[-1]`` as a 0-d tensor on the matrix's device (no read
+        back)."""
+        return self._ptr[-1]
 
     def with_values(self, values: torch.Tensor) -> "_CompressedMatrix":
         """Same structure, new values (the reference's ``values_mut``,

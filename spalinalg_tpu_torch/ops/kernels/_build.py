@@ -30,12 +30,17 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _ENTRIES = {
-    # (rowptr, colind, values, x, y, nrows, lanes, stream)
-    "spal_csr_spmv_f32": [_P] * 5 + [ctypes.c_longlong, ctypes.c_int, _P],
-    "spal_csr_spmv_f64": [_P] * 5 + [ctypes.c_longlong, ctypes.c_int, _P],
-    # (rowptr, colind, values, X, Y, nrows, k, stream)
-    "spal_csr_spmm_f32": [_P] * 5 + [ctypes.c_longlong] * 2 + [_P],
-    "spal_csr_spmm_f64": [_P] * 5 + [ctypes.c_longlong] * 2 + [_P],
+    # (rowptr, colind, values, perm, x, y, nrows, lanes, variant, plan,
+    #  nwin, npieces, nlong, partial, stream)
+    **{f"spal_csr_spmv_{t}": [_P] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_int, _P]
+       + [ctypes.c_longlong] * 3 + [_P, _P] for t in ("f32", "f64")},
+    # (rowptr, colind, values, perm, X, Y, nrows, k, variant, stream)
+    **{f"spal_csr_spmm_{t}": [_P] * 6 + [ctypes.c_longlong] * 2
+       + [ctypes.c_int, _P] for t in ("f32", "f64")},
+    # (major, colind, G, X, out, nse, nrows, k, variant, stream)
+    **{f"spal_csr_sddmm_{t}": [_P] * 5 + [ctypes.c_longlong] * 3
+       + [ctypes.c_int, _P] for t in ("f32", "f64")},
     # (tptr, a_idx, b_idx, a, b, out, n_out, stream)
     "spal_spgemm_numeric_f32": [_P] * 6 + [ctypes.c_longlong, _P],
     "spal_spgemm_numeric_f64": [_P] * 6 + [ctypes.c_longlong, _P],

@@ -53,7 +53,7 @@ from torch.autograd.function import once_differentiable
 from ...convert.engine import major_ids
 from ...dtypes import INDEX_DTYPE, canonical_value_dtype, result_dtype
 from ...errors import DTypeError, ShapeError
-from .csr_spmv import transpose_plan
+from .csr_spmv import aligned16, transpose_plan
 
 __all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "BsrSpmv", "bsr_acc_dtype",
            "bsr_spmv", "bsr_spmv_plain", "bsr_spmv_variant", "kernel_operands",
@@ -97,11 +97,6 @@ def kernel_operands(data, x):
     acc = bsr_acc_dtype(data.dtype, x.dtype)
     store = torch.bfloat16 if data.dtype == torch.bfloat16 else acc
     return data.to(store).contiguous(), x.to(acc).contiguous(), acc
-
-
-def aligned16(t: torch.Tensor) -> bool:
-    """Whether ``t``'s first element starts on a 16-byte boundary."""
-    return t.data_ptr() % 16 == 0
 
 
 def bsr_spmv_variant(data, x) -> str:

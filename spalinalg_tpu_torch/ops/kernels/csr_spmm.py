@@ -10,15 +10,24 @@ Pallas kernels on the JAX package's SpMM path:
 
 One warp per row reads ``rowptr``/``colind``/``values`` directly and
 gathers rows of ``X``, for float32 and float64 and any number of columns.
+It has two variants, chosen by :func:`csr_spmm_variant` and passed to the
+kernel by name: ``vector`` (16-byte row gathers, 8 entries' rows in flight
+a warp at k = 64) for float32 where ``k`` is a multiple of 4 and ``X``
+starts on a 16-byte boundary, ``register`` (the first design, one element
+a lane) otherwise, float64 included. Each launch adds one to ``LAUNCHES`` (by dtype) and to
+``VARIANT_LAUNCHES``; the metrics path names the variant, for example
+``csr_spmm:cuda:vector``.
 
 :func:`csr_spmm` is the wrapper. For CUDA tensors it launches the kernel or
 raises; for CPU tensors it runs the plain version, which is
 :func:`~spalinalg_tpu_torch.ops.kernels.csr_spmv.csr_spmv_plain` on a 2-D
-right-hand side. :class:`CsrSpmm` carries the gradient of
+right-hand side. Like ``csr_spmv`` it takes an optional ``perm``.
+:class:`CsrSpmm` carries the gradient of
 ``csr_route.py::_route_spmm_ad_bwd``: ``dX = Aᵀ·G`` runs the same kernel on
-the cached transposed structure (no atomics), and ``dvals[p] =
-Σ_c G[row_p, c]·X[col_p, c]`` is plain torch, as it is XLA code outside any
-Pallas kernel in the JAX package.
+the cached transposed structure (no atomics), reading the forward's values
+through the transpose's ``perm``, and ``dvals[p] = Σ_c G[row_p, c]·X[col_p,
+c]`` is the CSR SDDMM kernel (``ops/kernels/csr_sddmm.py``; XLA code
+outside any Pallas kernel in the JAX package).
 """
 
 from __future__ import annotations
@@ -28,27 +37,66 @@ from torch.autograd.function import once_differentiable
 
 from ...dtypes import INDEX_DTYPE, acc_dtype
 from ...errors import DTypeError, ShapeError
-from .csr_spmv import csr_spmv_plain, transpose_plan
+from .csr_sddmm import csr_sddmm
+from .csr_spmv import aligned16, csr_spmv_plain, transpose_plan
 
-__all__ = ["LAUNCHES", "CsrSpmm", "csr_spmm", "csr_spmm_plain"]
+__all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "CsrSpmm", "csr_spmm",
+           "csr_spmm_plain", "csr_spmm_variant", "kernel_path"]
 
-# Kernel launches per instantiation: plain integers, advanced only where
-# the wrapper launches the kernel.
+# Kernel launches per instantiation and per variant: plain integers,
+# advanced only where the wrapper launches the kernel.
 LAUNCHES = {"float32": 0, "float64": 0}
+VARIANT_LAUNCHES = {"register": 0, "vector": 0}
+
+_VARIANT_CODE = {"register": 0, "vector": 1}
 
 _ENTRY = {torch.float32: ("spal_csr_spmm_f32", "float32"),
           torch.float64: ("spal_csr_spmm_f64", "float64")}
 
-# Elements per temporary of the plain ``dvals`` product: at k = 64 and 17M
-# entries an unchunked gather would take 8.9 GB per array in float64.
-_DVALS_CHUNK = 1 << 26
-
 csr_spmm_plain = csr_spmv_plain
 
 
-def csr_spmm(rowptr, colind, values, X, nrows: int) -> torch.Tensor:
+def csr_spmm_variant(X) -> str:
+    """The variant of ``csrc/csr_spmm.cu`` for the operand ``X`` of shape
+    ``(ncols, k)`` as the kernel takes it (accumulation type, contiguous;
+    the output is a fresh, aligned tensor): ``"vector"`` for float32 when
+    a row of ``X`` is a whole number of 16-byte vectors (``k % 4 == 0``)
+    and ``X`` starts on a 16-byte boundary, else ``"register"`` (float64
+    always: its vector form ran slower on the H100, PERF.md). Shapes,
+    dtypes and addresses alone decide.
+
+    >>> csr_spmm_variant(torch.zeros(5, 64))
+    'vector'
+    >>> csr_spmm_variant(torch.zeros(5, 3))
+    'register'
+    >>> csr_spmm_variant(torch.zeros(5 * 64 + 1)[1:].reshape(5, 64))
+    'register'
+    >>> csr_spmm_variant(torch.zeros(5, 64, dtype=torch.float64))
+    'register'
+    """
+    if X.dtype == torch.float32 and X.shape[1] % 4 == 0 and aligned16(X):
+        return "vector"
+    return "register"
+
+
+def kernel_path(values, X) -> str:
+    """The metrics path of ``csr_spmm``: ``"plain"`` off the card, else
+    ``"cuda:"`` and the variant of :func:`csr_spmm_variant`.
+
+    >>> kernel_path(torch.zeros(2), torch.zeros(2, 4))
+    'plain'
+    """
+    if X.device.type != "cuda":
+        return "plain"
+    acc = acc_dtype(values.dtype, X.dtype)
+    return f"cuda:{csr_spmm_variant(X.to(acc).contiguous())}"
+
+
+def csr_spmm(rowptr, colind, values, X, nrows: int, perm=None
+             ) -> torch.Tensor:
     """``Y = A @ X`` for CSR ``A`` and dense ``X`` of shape ``(ncols, k)``:
-    the kernel on CUDA tensors, the plain version on CPU tensors.
+    the kernel on CUDA tensors, the plain version on CPU tensors. With
+    ``perm`` the value of slot ``p`` is ``values[perm[p]]``.
 
     ``values`` and ``X`` are promoted to the accumulation dtype and made
     contiguous. Devices, index dtypes and shapes are checked; anything the
@@ -58,21 +106,26 @@ def csr_spmm(rowptr, colind, values, X, nrows: int) -> torch.Tensor:
     acc = acc_dtype(values.dtype, X.dtype)
     values = values.to(acc).contiguous()
     X = X.to(acc).contiguous()
-    devices = {t.device for t in (rowptr, colind, values, X)}
+    operands = (rowptr, colind, values, X) + (() if perm is None else (perm,))
+    devices = {t.device for t in operands}
     if len(devices) != 1:
         raise ValueError(f"csr_spmm operands on several devices: {devices}")
-    if rowptr.dtype != INDEX_DTYPE or colind.dtype != INDEX_DTYPE:
+    if rowptr.dtype != INDEX_DTYPE or colind.dtype != INDEX_DTYPE or (
+            perm is not None and perm.dtype != INDEX_DTYPE):
         raise DTypeError(
             f"indices must be {INDEX_DTYPE}, got {rowptr.dtype} and "
-            f"{colind.dtype}")
+            f"{colind.dtype}" + ("" if perm is None else f" and {perm.dtype}"))
     if (rowptr.ndim != 1 or rowptr.numel() != nrows + 1 or colind.ndim != 1
-            or values.shape != colind.shape or X.ndim != 2):
+            or values.shape != colind.shape or X.ndim != 2
+            or (perm is not None and perm.shape != colind.shape)):
         raise ShapeError(
             f"csr_spmm shapes: rowptr {tuple(rowptr.shape)}, colind "
             f"{tuple(colind.shape)}, values {tuple(values.shape)}, X "
             f"{tuple(X.shape)}, nrows {nrows}")
     device = X.device
     if device.type == "cpu":
+        if perm is not None:
+            values = values[perm]
         return csr_spmm_plain(rowptr, colind, values, X, nrows)
     if device.type != "cuda":
         raise ValueError(f"no csr_spmm kernel for device {device}")
@@ -83,21 +136,18 @@ def csr_spmm(rowptr, colind, values, X, nrows: int) -> torch.Tensor:
 
     name, key = _ENTRY[acc]
     rowptr, colind = rowptr.contiguous(), colind.contiguous()
+    if perm is not None:
+        perm = perm.contiguous()
+    variant = csr_spmm_variant(X)
     Y = torch.empty((nrows, k), dtype=acc, device=device)
     with torch.cuda.device(device):
         launch(name, rowptr.data_ptr(), colind.data_ptr(), values.data_ptr(),
-               X.data_ptr(), Y.data_ptr(), nrows, k,
+               None if perm is None else perm.data_ptr(), X.data_ptr(),
+               Y.data_ptr(), nrows, k, _VARIANT_CODE[variant],
                torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES[key] += 1
+    VARIANT_LAUNCHES[variant] += 1
     return Y
-
-
-def _row_dots(G, X, rows, cols) -> torch.Tensor:
-    """``out[p] = Σ_c G[rows[p], c]·X[cols[p], c]``, in chunks of entries so
-    that no temporary passes ``_DVALS_CHUNK`` elements."""
-    step = max(1, _DVALS_CHUNK // max(1, X.shape[1]))
-    return torch.cat([(G[r] * X[c]).sum(1)
-                      for r, c in zip(rows.split(step), cols.split(step))])
 
 
 class CsrSpmm(torch.autograd.Function):
@@ -126,11 +176,10 @@ class CsrSpmm(torch.autograd.Function):
         t = transpose_plan(rowptr, colind, nrows, ncols)
         dvals = dX = None
         if ctx.needs_input_grad[0]:
-            # Padding slots have the sentinel row nrows, whose G row is 0.
-            G_ext = torch.cat([G, G.new_zeros(1, G.shape[1])])
-            dvals = _row_dots(G_ext, X.to(acc), t.major, colind
+            # Padding slots have the sentinel row nrows: 0.
+            dvals = csr_sddmm(t.major, colind, G, X.to(acc), nrows
                               ).to(values.dtype)
         if ctx.needs_input_grad[1]:
-            dX = csr_spmm(t.ptr, t.minor, values[t.perm], G, ncols
+            dX = csr_spmm(t.ptr, t.minor, values, G, ncols, perm=t.perm
                           ).to(X.dtype)
         return dvals, dX, None, None, None, None

@@ -13,18 +13,33 @@ Pallas kernels on the JAX package's SpMV path:
 
 Their routing plan, lane-gather network, spill recursion and double-float
 arithmetic work around TPU limits that Hopper does not have, so one
-vector-CSR kernel, instantiated for float32 and float64, reads
-``rowptr``/``colind``/``values`` directly.
+source, instantiated for float32 and float64, reads
+``rowptr``/``colind``/``values`` directly. It has two variants, chosen by
+:func:`csr_spmv_variant` from dtypes and addresses and passed to the kernel
+by name: ``vector`` (a warp a window of 256 entries' rows, 16-byte loads,
+long rows split over warps by the cached :func:`csr_spmv_plan`) and
+``scalar`` (the first design: a lane group a row, one entry a lane a step)
+for views off a 16-byte boundary. Each launch adds one to ``LAUNCHES`` (by
+dtype) and to ``VARIANT_LAUNCHES`` (by variant); where the plan has long
+rows, the vector variant's second kernel (``csr_spmv_finish``, which sums
+their pieces) adds one more to ``LAUNCHES`` and one to
+``VARIANT_LAUNCHES["finish"]``. The metrics path names the variant, for
+example ``csr_spmv:cuda:vector``.
 
 :func:`csr_spmv` is the wrapper. For CUDA tensors it launches the kernel or
-raises; for CPU tensors it runs :func:`csr_spmv_plain`. :class:`CsrSpmv`
-carries the gradient of ``csr_route.py::_route_spmv_ad_bwd``:
-``dx = Aᵀ·g`` runs the same kernel on the transposed structure (no
-atomics), and ``dvals = g[row]·x[colind]`` is plain torch, as it is XLA code
-outside any Pallas kernel in the JAX package.
+raises; for CPU tensors it runs :func:`csr_spmv_plain`. It takes an
+optional ``perm``: the values of slot ``p`` are then ``values[perm[p]]``,
+read by the kernel itself. :class:`CsrSpmv` carries the gradient of
+``csr_route.py::_route_spmv_ad_bwd``: ``dx = Aᵀ·g`` runs the same kernel on
+the cached transposed structure (no atomics), reading the forward's values
+through the transpose's ``perm``, and ``dvals = g[row]·x[colind]`` is the
+CSR SDDMM kernel at k = 1 (``ops/kernels/csr_sddmm.py``; XLA code outside
+any Pallas kernel in the JAX package).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -33,19 +48,59 @@ from ...convert.engine import TransposeStructure, major_ids, transpose_structure
 from ...dtypes import INDEX_DTYPE, acc_dtype
 from ...errors import DTypeError, ShapeError
 from ...utils.plancache import StructureCache
+from .csr_sddmm import csr_sddmm
 
-__all__ = ["LAUNCHES", "CsrSpmv", "csr_spmv", "csr_spmv_plain", "path_for",
-           "transpose_plan", "lanes_for"]
+__all__ = ["BUDGET", "LAUNCHES", "VARIANT_LAUNCHES", "CsrSpmv", "SpmvPlan",
+           "aligned16", "csr_spmv", "csr_spmv_plain", "csr_spmv_plan",
+           "csr_spmv_variant", "kernel_path", "lanes_for", "path_for",
+           "transpose_plan"]
 
-# Kernel launches per instantiation: plain integers, advanced only where
-# the wrapper launches the kernel.
+# Kernel launches per instantiation and per variant: plain integers,
+# advanced only where the wrapper launches the kernels. "finish" counts
+# the vector variant's second kernel, launched where rows were split.
 LAUNCHES = {"float32": 0, "float64": 0}
+VARIANT_LAUNCHES = {"scalar": 0, "vector": 0, "finish": 0}
+
+# The variant's code in the C entry points.
+_VARIANT_CODE = {"scalar": 0, "vector": 1}
+
+# Entries a window or a piece of the vector variant: kBudget in
+# csrc/csr_spmv.cu.
+BUDGET = 256
 
 _ENTRY = {torch.float32: ("spal_csr_spmv_f32", "float32"),
           torch.float64: ("spal_csr_spmv_f64", "float64")}
 
-# Lives as long as each structure does (see utils/plancache.py).
+# Live as long as each structure does (see utils/plancache.py).
 _TRANSPOSE_PLANS = StructureCache()
+_SPMV_PLANS = StructureCache()
+
+
+class SpmvPlan(NamedTuple):
+    """The vector variant's work split of one structure (``csr_spmv_plan``).
+
+    ``plan`` is one int32 tensor: four numbers a window (``nwin`` of them;
+    window ``w`` owns the rows whose first entry lies in ``[w·BUDGET, (w +
+    1)·BUDGET)``, less a last row longer than ``BUDGET``): its first row,
+    the row past its last short row, and their entries' range; then each
+    piece's row and first entry (``npieces`` each; a piece is ``BUDGET``
+    entries of a row longer than ``BUDGET``); the long rows (``nlong``) and
+    the first piece of each (``nlong + 1``).
+    """
+
+    plan: torch.Tensor
+    nwin: int
+    npieces: int
+    nlong: int
+
+    def parts(self):
+        """``(windows, piece_row, piece_start, long_rows, first_piece)``,
+        views of ``plan``; ``windows`` is ``(nwin, 4)``: ``(r0, r1, e0,
+        e1)`` a row."""
+        windows, *rest = self.plan.split(
+            [4 * self.nwin, self.npieces, self.npieces, self.nlong,
+             self.nlong + 1])
+        return (windows.view(self.nwin, 4), *rest)
 
 
 def path_for(device: torch.device) -> str:
@@ -60,6 +115,97 @@ def lanes_for(nse: int, nrows: int) -> int:
     while lanes < 32 and lanes * nrows < nse:
         lanes *= 2
     return lanes
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t``'s first element starts on a 16-byte boundary."""
+    return t.data_ptr() % 16 == 0
+
+
+def csr_spmv_variant(colind, values, perm=None) -> str:
+    """The variant of ``csrc/csr_spmv.cu`` for operands as the kernel takes
+    them (``values`` in the accumulation type, float32 or float64):
+    ``"vector"`` when ``colind`` and the array the values stream from
+    (``perm`` if given, else ``values``) start on a 16-byte boundary, else
+    ``"scalar"``. Row lengths do not enter: the vector variant's plan
+    splits long rows and packs short ones. Dtypes and addresses alone
+    decide, so it answers for tensors on any device.
+
+    >>> csr_spmv_variant(torch.zeros(8, dtype=torch.int32), torch.zeros(8))
+    'vector'
+    >>> csr_spmv_variant(torch.zeros(9, dtype=torch.int32)[1:], torch.zeros(8))
+    'scalar'
+    """
+    if values.dtype not in _ENTRY:
+        raise DTypeError(f"no csr_spmv kernel for {values.dtype}")
+    streamed = values if perm is None else perm
+    return "vector" if aligned16(colind) and aligned16(streamed) \
+        else "scalar"
+
+
+def kernel_path(colind, values, x, *, fresh: bool = False) -> str:
+    """The metrics path of ``csr_spmv``: ``"plain"`` off the card, else
+    ``"cuda:"`` and the variant :func:`csr_spmv_variant` picks for the
+    operands as the kernel takes them. ``fresh`` says that the caller
+    passes the kernel a new gather of ``values`` (the CSC mirror's), not
+    ``values`` itself. A new tensor, that gather or the wrapper's copy in
+    the accumulation type, starts aligned, so nothing is copied here.
+
+    >>> kernel_path(torch.zeros(2, dtype=torch.int32), torch.zeros(2),
+    ...             torch.zeros(2))
+    'plain'
+    """
+    if x.device.type != "cuda":
+        return "plain"
+    acc = acc_dtype(values.dtype, x.dtype)
+    if fresh or values.dtype != acc or not values.is_contiguous():
+        values = values.new_empty(0, dtype=acc)  # stands for a new tensor
+    return f"cuda:{csr_spmv_variant(colind, values)}"
+
+
+def build_spmv_plan(rowptr: torch.Tensor) -> SpmvPlan:
+    """The vector variant's work split of ``rowptr`` (see :class:`SpmvPlan`),
+    built on ``rowptr``'s device with two reads back (the entry and piece
+    counts). Every slot below ``rowptr[-1]`` lies in exactly one window's
+    rows or one piece, in order; slots past it in none.
+
+    >>> p = build_spmv_plan(torch.tensor([0, 2, 2, 600, 601],
+    ...                                  dtype=torch.int32))
+    >>> p.nwin, p.npieces, p.nlong
+    (3, 3, 1)
+    >>> [t.tolist() for t in p.parts()]
+    [[[0, 2, 0, 2], [3, 3, 600, 600], [3, 4, 600, 601]], [2, 2, 2], [2, 258, 514], [2], [0, 3]]
+    """
+    ptr = rowptr.to(torch.int64)
+    nnz = int(ptr[-1])
+    nwin = nnz // BUDGET + 1
+    rows = torch.searchsorted(
+        ptr[:-1].contiguous(),
+        torch.arange(nwin + 1, dtype=torch.int64, device=ptr.device) * BUDGET)
+    lens = ptr[1:] - ptr[:-1]
+    r0, r1 = rows[:-1], rows[1:]
+    # A window's last row can be long (it then runs past the window); its
+    # pieces write it instead.
+    last_long = (r1 > r0) & (lens[(r1 - 1).clamp(min=0)] > BUDGET)
+    r1 = r1 - last_long.to(torch.int64)
+    windows = torch.stack([r0, r1, ptr[r0], ptr[r1]], dim=1)
+    long_rows = torch.nonzero(lens > BUDGET).flatten()
+    pieces = (lens[long_rows] + BUDGET - 1) // BUDGET
+    first_piece = torch.cat([pieces.new_zeros(1), torch.cumsum(pieces, 0)])
+    npieces = int(first_piece[-1])
+    piece_row = torch.repeat_interleave(long_rows, pieces)
+    piece_start = ptr[piece_row] + BUDGET * (
+        torch.arange(npieces, dtype=torch.int64, device=ptr.device)
+        - torch.repeat_interleave(first_piece[:-1], pieces))
+    plan = torch.cat([windows.reshape(-1), piece_row, piece_start, long_rows,
+                      first_piece]).to(INDEX_DTYPE)
+    return SpmvPlan(plan, nwin, npieces, int(long_rows.numel()))
+
+
+def csr_spmv_plan(rowptr: torch.Tensor) -> SpmvPlan:
+    """:func:`build_spmv_plan` of ``rowptr``, built once per structure
+    (keyed on the identity and shape of ``rowptr``) and dropped with it."""
+    return _SPMV_PLANS.get((rowptr,), lambda: build_spmv_plan(rowptr))
 
 
 def transpose_plan(ptr: torch.Tensor, minor: torch.Tensor, n_major: int,
@@ -89,9 +235,11 @@ def csr_spmv_plain(rowptr, colind, values, x, nrows: int) -> torch.Tensor:
     return y[:nrows]
 
 
-def csr_spmv(rowptr, colind, values, x, nrows: int) -> torch.Tensor:
+def csr_spmv(rowptr, colind, values, x, nrows: int, perm=None
+             ) -> torch.Tensor:
     """``y = A @ x`` for CSR ``A``: the kernel on CUDA tensors, the plain
-    version on CPU tensors.
+    version on CPU tensors. With ``perm`` (int32, one entry a slot) the
+    value of slot ``p`` is ``values[perm[p]]``.
 
     ``values`` and ``x`` are promoted to the accumulation dtype and made
     contiguous. Devices, index dtypes and shapes are checked; anything the
@@ -100,21 +248,27 @@ def csr_spmv(rowptr, colind, values, x, nrows: int) -> torch.Tensor:
     acc = acc_dtype(values.dtype, x.dtype)
     values = values.to(acc).contiguous()
     x = x.to(acc).contiguous()
-    devices = {t.device for t in (rowptr, colind, values, x)}
+    operands = (rowptr, colind, values, x) + (() if perm is None else (perm,))
+    devices = {t.device for t in operands}
     if len(devices) != 1:
         raise ValueError(f"csr_spmv operands on several devices: {devices}")
-    if rowptr.dtype != INDEX_DTYPE or colind.dtype != INDEX_DTYPE:
+    if rowptr.dtype != INDEX_DTYPE or colind.dtype != INDEX_DTYPE or (
+            perm is not None and perm.dtype != INDEX_DTYPE):
         raise DTypeError(
             f"indices must be {INDEX_DTYPE}, got {rowptr.dtype} and "
-            f"{colind.dtype}")
+            f"{colind.dtype}" + ("" if perm is None else f" and {perm.dtype}"))
     if (rowptr.ndim != 1 or rowptr.numel() != nrows + 1 or colind.ndim != 1
-            or values.shape != colind.shape or x.ndim != 1):
+            or values.shape != colind.shape or x.ndim != 1
+            or (perm is not None and perm.shape != colind.shape)):
         raise ShapeError(
             f"csr_spmv shapes: rowptr {tuple(rowptr.shape)}, colind "
             f"{tuple(colind.shape)}, values {tuple(values.shape)}, x "
-            f"{tuple(x.shape)}, nrows {nrows}")
+            f"{tuple(x.shape)}, nrows {nrows}"
+            + ("" if perm is None else f", perm {tuple(perm.shape)}"))
     device = x.device
     if device.type == "cpu":
+        if perm is not None:
+            values = values[perm]
         return csr_spmv_plain(rowptr, colind, values, x, nrows)
     if device.type != "cuda":
         raise ValueError(f"no csr_spmv kernel for device {device}")
@@ -124,13 +278,30 @@ def csr_spmv(rowptr, colind, values, x, nrows: int) -> torch.Tensor:
 
     name, key = _ENTRY[acc]
     rowptr, colind = rowptr.contiguous(), colind.contiguous()
+    if perm is not None:
+        perm = perm.contiguous()
+    variant = csr_spmv_variant(colind, values, perm)
     y = torch.empty(nrows, dtype=acc, device=device)
+    plan, partial = None, None
+    if variant == "vector":
+        plan = csr_spmv_plan(rowptr)
+        partial = torch.empty(plan.npieces, dtype=acc, device=device)
     with torch.cuda.device(device):
         launch(name, rowptr.data_ptr(), colind.data_ptr(), values.data_ptr(),
-               x.data_ptr(), y.data_ptr(), nrows,
-               lanes_for(colind.numel(), nrows),
+               None if perm is None else perm.data_ptr(), x.data_ptr(),
+               y.data_ptr(), nrows, lanes_for(colind.numel(), nrows),
+               _VARIANT_CODE[variant],
+               None if plan is None else plan.plan.data_ptr(),
+               0 if plan is None else plan.nwin,
+               0 if plan is None else plan.npieces,
+               0 if plan is None else plan.nlong,
+               None if partial is None or partial.numel() == 0
+               else partial.data_ptr(),
                torch.cuda.current_stream(device).cuda_stream)
-    LAUNCHES[key] += 1
+    finish = int(plan is not None and plan.nlong > 0)
+    LAUNCHES[key] += 1 + finish
+    VARIANT_LAUNCHES[variant] += 1
+    VARIANT_LAUNCHES["finish"] += finish
     return y
 
 
@@ -163,10 +334,10 @@ class CsrSpmv(torch.autograd.Function):
         t = transpose_plan(rowptr, colind, nrows, ncols)
         dvals = dx = None
         if ctx.needs_input_grad[0]:
-            # Padding slots have the sentinel row nrows, whose g is 0.
-            g_ext = torch.cat([g, g.new_zeros(1)])
-            dvals = (g_ext[t.major] * x.to(acc)[colind]).to(values.dtype)
+            # Padding slots have the sentinel row nrows: 0.
+            dvals = csr_sddmm(t.major, colind, g, x.to(acc), nrows
+                              ).to(values.dtype)
         if ctx.needs_input_grad[1]:
-            dx = csr_spmv(t.ptr, t.minor, values[t.perm], g, ncols
+            dx = csr_spmv(t.ptr, t.minor, values, g, ncols, perm=t.perm
                           ).to(x.dtype)
         return dvals, dx, None, None, None, None

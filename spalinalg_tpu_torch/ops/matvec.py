@@ -13,6 +13,9 @@ state the intent, `csr.rs:16-17`).
   kernel for CUDA tensors, its plain torch version for CPU tensors, with
   the gradient to ``values`` and ``X``; CSC goes through the same CSR
   mirror. Any ``k >= 1`` is taken; ``k == 0`` gives an empty result.
+- The metrics path names the kernel variant that runs
+  (``csr_spmv:cuda:vector``, ``csr_spmm:cuda:register``, ...) or
+  ``:plain`` off the card.
 - :func:`matmul_dense` dispatches ``A @ dense`` to SpMV (1-D) or SpMM
   (2-D).
 
@@ -26,8 +29,10 @@ import torch
 
 from ..errors import ShapeError
 from ..utils.metrics import instrument
+from .kernels import csr_spmm as spmm_kernel
+from .kernels import csr_spmv as spmv_kernel
 from .kernels.csr_spmm import CsrSpmm
-from .kernels.csr_spmv import CsrSpmv, path_for, transpose_plan
+from .kernels.csr_spmv import CsrSpmv, transpose_plan
 
 __all__ = ["matmul_dense", "csr_matvec", "csr_matmat", "csc_matvec",
            "csc_matmat"]
@@ -75,7 +80,15 @@ def _spmv(op, mat, x):
         return CsrSpmv.apply(values, x, rowptr, colind, mat.nrows,
                              mat.ncols)
 
-    return instrument(op, run, path=path_for(x.device), device=x.device,
+    def path():
+        from ..formats.compressed import CscMatrix
+
+        if isinstance(mat, CscMatrix):
+            t = transpose_plan(mat.colptr, mat.rowind, mat.ncols, mat.nrows)
+            return spmv_kernel.kernel_path(t.minor, mat.values, x, fresh=True)
+        return spmv_kernel.kernel_path(mat.colind, mat.values, x)
+
+    return instrument(op, run, path=path, device=x.device,
                       nnz=nnz, flops=2 * nnz, bytes=(itm * 2 + 4) * nnz)
 
 
@@ -99,7 +112,9 @@ def _spmm(op, mat, X):
         return CsrSpmm.apply(values, X, rowptr, colind, mat.nrows,
                              mat.ncols)
 
-    return instrument(op, run, path=path_for(X.device), device=X.device,
+    return instrument(op, run,
+                      path=lambda: spmm_kernel.kernel_path(mat.values, X),
+                      device=X.device,
                       nnz=nnz, flops=2 * nnz * k,
                       bytes=(itm * (1 + 2 * k) + 4) * nnz)
 

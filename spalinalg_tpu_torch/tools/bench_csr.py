@@ -1,0 +1,201 @@
+"""Time the CSR kernels at ``chip_smoke.py``'s main-path shapes.
+
+Matrices: csr_random at n = 2**21 (32 columns a row, one in each of 32
+column strata: the SpMV main path) and at n = 2**19 with k = 64 (the SpMM
+main path), and the banded matrix of offsets -16..16 at n = 2**21 (SpMV:
+the same entry count as csr_random, with x read about once instead of
+gathered at random) and at n = 2**19 with k = 64, in float32 and float64,
+drawn on the card from a seeded generator. For each it
+prints one JSON line per product:
+
+- ``csr_spmv`` (``A @ x``) and ``csr_spmm`` (``A @ X``): the kernel's time,
+  the time of ``torch.sparse_csr_tensor(...) @ x`` on the same inputs, the
+  kernel's max |err| against its plain version, and the variant that ran
+  (where the package has variants);
+- ``dvals``: the gradient with respect to the values as the package's
+  backward computes it (the SDDMM kernel where the package has one, else
+  its plain torch expression), beside ``torch.sparse.sampled_addmm``;
+- ``step``: a forward + backward step through autograd (``A @ x`` or
+  ``A @ X`` with gradients to the values and the operand).
+
+Launches are timed with CUDA events behind a queued spin of the card, so
+that the host enqueues all of them while the spin runs and the events time
+the card, not the host's launch rate.
+
+Run it as a script, on a machine with a card; ``PYTHONPATH`` picks the
+copy of ``spalinalg_tpu_torch`` it measures, so two versions of the
+package (for example a ``git archive`` of the parent commit and the
+working tree) compare on one card, in turns:
+
+    PYTHONPATH=. python3 spalinalg_tpu_torch/tools/bench_csr.py --label change
+    PYTHONPATH=path/to/parent python3 spalinalg_tpu_torch/tools/bench_csr.py --label parent
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+N_SPMV = 2**21
+N_SPMM = 2**19
+ROW_NNZ = 32
+BAND = 16
+K = 64
+LAUNCHES = 20
+STEPS = 5
+SPIN_CYCLES = 50_000_000   # about 25 ms on an H100
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def time_ms(fn, launches: int = LAUNCHES) -> float:
+    """Milliseconds a call, ``launches`` calls timed with CUDA events behind
+    a queued spin of the card, after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def random_structure(n: int, gen, device):
+    """csr_random: ``(rowptr, colind)`` with one column in each of 32
+    equal strata a row (sorted, no duplicates)."""
+    strata = n // ROW_NNZ
+    rowptr = torch.arange(n + 1, dtype=torch.int32, device=device) * ROW_NNZ
+    cols = (torch.arange(ROW_NNZ, dtype=torch.int32, device=device)
+            * strata)[None, :] + torch.randint(
+                0, strata, (n, ROW_NNZ), generator=gen, dtype=torch.int32,
+                device=device)
+    return rowptr, cols.reshape(-1)
+
+
+def banded_structure(n: int, device):
+    """The banded matrix of offsets -BAND..BAND clipped at the edges."""
+    lo = np.maximum(np.arange(n) - BAND, 0)
+    hi = np.minimum(np.arange(n) + BAND, n - 1)
+    lens = hi - lo + 1
+    rowptr = np.concatenate([[0], np.cumsum(lens)])
+    colind = np.repeat(lo - rowptr[:-1], lens) + np.arange(rowptr[-1])
+    return (torch.from_numpy(rowptr.astype(np.int32)).to(device),
+            torch.from_numpy(colind.astype(np.int32)).to(device))
+
+
+def variant_counts(mods) -> dict:
+    return {(m.__name__, v): n for m in mods
+            for v, n in getattr(m, "VARIANT_LAUNCHES", {}).items()}
+
+
+def ran(mods, fn):
+    """``(result, variants)``: ``fn()`` and the variants it launched."""
+    before = variant_counts(mods)
+    out = fn()
+    after = variant_counts(mods)
+    return out, sorted(key[1] for key, n in after.items()
+                       if n != before.get(key, 0))
+
+
+def dvals_fn(kernels, t, colind, G, X, nrows: int):
+    """The package's ``dvals`` as its backward computes it: the SDDMM
+    kernel where the package has one, else the plain expression the
+    backward used (``g[row]·x[col]`` for SpMV, chunked row dots for
+    SpMM)."""
+    sddmm = getattr(kernels, "csr_sddmm", None)
+    if sddmm is not None:
+        return lambda: sddmm.csr_sddmm(t.major, colind, G, X, nrows)
+    if G.ndim == 1:
+        g_ext = torch.cat([G, G.new_zeros(1)])
+        return lambda: g_ext[t.major] * X[colind]
+    G_ext = torch.cat([G, G.new_zeros(1, G.shape[1])])
+    return lambda: kernels.csr_spmm._row_dots(G_ext, X, t.major, colind)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--label", default="",
+                        help="a name for this run, copied into each line")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("bench_csr: no CUDA device; it times kernels on a card",
+              file=sys.stderr)
+        return 1
+    import spalinalg_tpu_torch as sp
+    from spalinalg_tpu_torch.ops import kernels
+    from spalinalg_tpu_torch.ops.kernels import csr_spmm as mm_mod
+    from spalinalg_tpu_torch.ops.kernels import csr_spmv as mv_mod
+
+    mods = [mv_mod, mm_mod]
+    try:  # a package without the SDDMM kernel computes dvals in torch
+        from spalinalg_tpu_torch.ops.kernels import csr_sddmm
+        mods.append(csr_sddmm)
+    except ImportError:
+        pass
+    device = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device=device).manual_seed(13)
+    cases = (("csr_random", N_SPMV, 1, random_structure(N_SPMV, gen, device)),
+             ("banded", N_SPMV, 1, banded_structure(N_SPMV, device)),
+             ("csr_random", N_SPMM, K, random_structure(N_SPMM, gen, device)),
+             ("banded", N_SPMM, K, banded_structure(N_SPMM, device)))
+
+    def emit(**row):
+        print(json.dumps({"label": args.label, **row,
+                          "package": sp.__file__, "card": card}), flush=True)
+
+    for shape, n, k, (rowptr, colind) in cases:
+        t = mv_mod.transpose_plan(rowptr, colind, n, n)
+        for name, dtype in DTYPES.items():
+            size = (n,) if k == 1 else (n, k)
+            values = torch.randn(colind.numel(), generator=gen, dtype=dtype,
+                                 device=device)
+            X = torch.randn(size, generator=gen, dtype=dtype, device=device)
+            G = torch.randn(size, generator=gen, dtype=dtype, device=device)
+            op = "csr_spmv" if k == 1 else "csr_spmm"
+            kern = mv_mod.csr_spmv if k == 1 else mm_mod.csr_spmm
+            common = {"shape": shape, "n": n, "nnz": colind.numel(), "k": k,
+                      "dtype": name}
+            # the product
+            y, variants = ran(mods, lambda: kern(rowptr, colind, values, X, n))
+            err = float((y - mv_mod.csr_spmv_plain(rowptr, colind, values, X,
+                                                   n)).abs().max())
+            del y
+            lib = torch.sparse_csr_tensor(rowptr, colind, values, (n, n))
+            emit(op=op, **common,
+                 ms=time_ms(lambda: kern(rowptr, colind, values, X, n)),
+                 library_ms=time_ms(lambda: lib @ X), max_abs_err=err,
+                 variant=variants[0] if variants else None)
+            # dvals
+            fn = dvals_fn(kernels, t, colind, G, X, n)
+            _, variants = ran(mods, fn)
+            lib_ms = time_ms(lambda: torch.sparse.sampled_addmm(
+                lib, G if k > 1 else G[:, None],
+                (X if k > 1 else X[:, None]).T, beta=0.0))
+            emit(op="dvals", **common, ms=time_ms(fn), library_ms=lib_ms,
+                 variant=variants[0] if variants else None)
+            del lib
+            # a forward + backward step through autograd
+            mat = sp.CsrMatrix._from_parts(n, n, rowptr, colind, values)
+            vg = values.clone().requires_grad_(True)
+            Xg = X.clone().requires_grad_(True)
+            m = mat.with_values(vg)
+            emit(op="step", **common,
+                 ms=time_ms(lambda: (m @ Xg).backward(G), STEPS))
+            del vg, Xg, m, mat, values, X, G
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -571,3 +571,59 @@ def test_nse_past_int32_raises():
     check_nse(2**31 - 1)
     with pytest.raises(tsp.StructureError):
         check_nse(2**31)
+
+
+def _dense_input(kind, dtype):
+    """A 9 x 7 dense array with explicit zeros (about half the entries),
+    an all-zero one, or a single row."""
+    rng = np.random.default_rng(21)
+    if kind == "zeros":
+        return np.zeros((4, 6), dtype=dtype)
+    d = rng.normal(size=(9, 7)).astype(dtype)
+    d[rng.random(d.shape) < 0.5] = 0.0
+    return d[:1] if kind == "one_row" else d
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("drop_zeros", [True, False])
+@pytest.mark.parametrize("kind", ["random", "zeros", "one_row"])
+@pytest.mark.parametrize("fmt", ["CsrMatrix", "CscMatrix"])
+def test_from_dense_matches_jax(fmt, kind, drop_zeros, dtype):
+    """``from_dense`` gives the JAX package's arrays, array for array, and
+    ``nnz_device`` its ``ptr[-1]``, for NumPy input and a tensor alike."""
+    d = _dense_input(kind, dtype)
+    want = getattr(jsp, fmt).from_dense(d, drop_zeros=drop_zeros)
+    for src in (d, torch.from_numpy(d)):
+        got = getattr(tsp, fmt).from_dense(src, drop_zeros=drop_zeros)
+        assert got.shape == want.shape and got.device == torch.device("cpu")
+        for a, b in zip((got._ptr, got._minor), (want._ptr, want._minor)):
+            assert host(a).dtype == np.int32
+            np.testing.assert_array_equal(host(a), host(b))
+        assert dtname(got.dtype) == str(host(want.values).dtype)
+        np.testing.assert_allclose(host(got.values), host(want.values),
+                                   rtol=0, atol=1e-15)
+        nnz = got.nnz_device()
+        assert isinstance(nnz, torch.Tensor) and nnz.ndim == 0
+        assert nnz.device == got.device
+        assert int(nnz) == int(want.nnz_device()) == got.nnz
+        np.testing.assert_array_equal(host(got.to_dense()), d)
+
+
+@pytest.mark.parametrize("fmt", ["CsrMatrix", "CscMatrix"])
+@pytest.mark.parametrize("shape", [(5,), (2, 3, 4), ()])
+def test_from_dense_not_2d_raises(fmt, shape):
+    d = np.ones(shape)
+    for pkg in (jsp, tsp):
+        with pytest.raises(pkg.ShapeError):
+            getattr(pkg, fmt).from_dense(d)
+    with pytest.raises(tsp.ShapeError):
+        getattr(tsp, fmt).from_dense(torch.ones(shape))
+
+
+def test_from_dense_lands_on_the_scope_and_keeps_bfloat16():
+    d = torch.tensor([[0.0, 1.5], [2.0, 0.0]], dtype=torch.bfloat16)
+    csr = tsp.CsrMatrix.from_dense(d)
+    assert csr.device == torch.device("cpu") and csr.dtype == torch.bfloat16
+    assert torch.equal(csr.to_dense(), d)
+    csc = tsp.CscMatrix.from_dense(d, device="cpu")
+    assert csc.colptr.tolist() == [0, 1, 2] and csc.rowind.tolist() == [1, 0]

@@ -105,6 +105,8 @@ def test_port_never_imports_jax():
     code = ("import sys, spalinalg_tpu_torch, "
             "spalinalg_tpu_torch.ops.kernels.csr_spmv, "
             "spalinalg_tpu_torch.ops.kernels.csr_spmm, "
+            "spalinalg_tpu_torch.ops.kernels.csr_sddmm, "
+            "spalinalg_tpu_torch.tools.bench_csr, "
             "spalinalg_tpu_torch.ops.kernels.spgemm_numeric, "
             "spalinalg_tpu_torch.ops.spgemm, "
             "spalinalg_tpu_torch.ops.elementwise, "
@@ -272,6 +274,9 @@ def test_no_plain_torch_off_the_cpu():
     "spalinalg_tpu_torch.ops.bsr_ops",
     "spalinalg_tpu_torch.ops.kernels.bsr_spmv",
     "spalinalg_tpu_torch.ops.kernels.bsr_spmm",
+    "spalinalg_tpu_torch.ops.kernels.csr_spmv",
+    "spalinalg_tpu_torch.ops.kernels.csr_spmm",
+    "spalinalg_tpu_torch.ops.kernels.csr_sddmm",
     "spalinalg_tpu_torch.utils.metrics",
     "spalinalg_tpu_torch.utils.plancache",
     "spalinalg_tpu_torch.device",
