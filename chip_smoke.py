@@ -56,9 +56,9 @@ pass; each prints its seconds):
    gradients against the plain autograd; edge structures (empty slots, a
    slot of more than 10k terms, n_out == 0); ``a * b``, ``csc * csc`` and
    ``a ** 3`` at config[0]'s size against dense products.
-8. SpMM and SpGEMM times, in turns (plain, kernel, kernel, plain), the
-   SpMM runs and torch's CSR product behind the spin, csr_random and
-   banded each; SDDMM at k = 64 beside ``torch.sparse.sampled_addmm``.
+8. SpMM and SpGEMM times, in turns (plain, kernel, kernel, plain), every
+   run and torch's CSR product behind the spin, csr_random and banded
+   each; SDDMM at k = 64 beside ``torch.sparse.sampled_addmm``.
 9. Where the SpMM and SpGEMM time goes: ``torch.profiler`` over a forward +
    backward SpMM step and a SpGEMM numeric step.
 10. BSR: tri128, ``bench.py``'s block-tridiagonal pattern of 128 x 128
@@ -70,7 +70,14 @@ pass; each prints its seconds):
     against plain version row by row, bitwise repeats, gradients against
     the plain autograd, banded8's ``bsr @ X`` against its ``csr @ X``; the
     kernel variants each main path ran (``MAIN_VARIANTS``: the vector SpMV
-    on both matrices, the tiled SpMM on tri128); edge structures on both
+    on both matrices, the tiled SpMM on tri128, the staged SpMM on
+    banded8); the staged SpMM, named on purpose, against the plain version
+    and bitwise against the register variant on the same operands
+    (banded8's forward and Aᵀ·G operands; 4 x 4, 16 x 16, 2 x 2, 4 x 8
+    and 8 x 4 blocks; a k of 68; bf16 blocks; empty block rows and padding
+    blocks; block columns spread too wide for shared memory, which take
+    the kernel's device-memory path), and the staged variant refusing k =
+    65, an operand off 16 bytes and 17-row blocks; edge structures on both
     sides of every variant bound (empty block rows, padding blocks, bs 1,
     3, 8 and 384, rectangular blocks, (128, 128) with k in {16, 17, 32,
     65, 130}, (96, 160), (64, 64), (40, 48), (40, 18), (64, 8), k in {1,
@@ -94,10 +101,14 @@ pass; each prints its seconds):
     into CSR on the card, then ``DiaMatrix.from_csr``, whose ``dia @ x``
     is held against ``csr @ x`` (kernel B1) and ``dia.T @ g`` against the
     backward's dx.
-14. DIA times, in turns, forward and transposed; the card's peak memory.
+14. DIA times, in turns, forward and transposed, behind the spin; the
+    card's peak memory.
 15. B10: the wide-gather probe (``spalinalg_tpu_torch/tools/
     probe_widegather.py``) at its tool's shapes, kernel against plain
-    version, out-of-range indices, microseconds per take and Gelem/s.
+    version, out-of-range indices, rows longer than shared memory (the
+    kernel's device-memory path), bitwise repeats, microseconds per call
+    and per take, Gelem/s, and the launch floor (the same kernel at S = 1,
+    K = 1, behind the same spin).
 
 Each main path (config[0]; a forward and backward SpMV per dtype; config[1]
 forward and backward for each matrix and for ``csc @ X``; config[2]
@@ -232,14 +243,14 @@ MAIN_LAUNCHES = {
 # matrices) the vector SpMM in float32, the register one in float64, and
 # the vector SDDMM. BSR paths, by matrix
 # (forward and Aᵀ·g in each dtype): the vector SpMV on both; the tiled SpMM
-# on tri128, the register SpMM on banded8's 8 x 8 blocks.
+# on tri128, the staged SpMM on banded8's 8 x 8 blocks.
 MAIN_VARIANTS = {
     "config[0]": {"csr_spmv": {"vector": 1}},
     "SpMV": {"csr_spmv": {"vector": 4}, "csr_sddmm": {"scalar": 2}},
     "SpMM": {"csr_spmm": {"vector": 6, "register": 6},
              "csr_sddmm": {"vector": 6}},
     "BSR bsr @ x": {"tri128": {"vector": 6}, "banded8": {"vector": 4}},
-    "BSR bsr @ X": {"tri128": {"tiled": 6}, "banded8": {"register": 4}},
+    "BSR bsr @ X": {"tri128": {"tiled": 6}, "banded8": {"staged": 4}},
 }
 # Rows of the kernel line beside the rows that carry each dtype's launch
 # count: banded8 for BSR; the banded matrix for CSR SpMM; SDDMM at k = 1 on
@@ -1395,7 +1406,7 @@ def time_spmm_spgemm(mats, rhs, gemm, plan, report, card: str) -> None:
         k_ms, p_ms, (p1, k1, k2, p2) = turns(
             lambda: spgemm_numeric(plan.tptr, *args, v, v, plan.n_out),
             lambda: spgemm_numeric_plain(*args, v, v, plan.n_out),
-            TIMED_LAUNCHES, TIMED_LAUNCHES)
+            TIMED_LAUNCHES, TIMED_LAUNCHES, spin=True)
         for label, ms in (("kernel", k_ms), ("plain", p_ms)):
             print(f"phase 8: {name} SpGEMM numeric {label}: {ms:.4f} ms, "
                   f"{n_terms / ms / 1e6:.3f} Gterms/s | {card}")
@@ -1582,9 +1593,12 @@ def bsr_edge_structures(device) -> dict:
     for name, per in ran.items():
         aligned = {v: [c[:3] for c in cases if c[3] == "aligned"]
                    for v, cases in per.items()}
-        if set(per) != {"scalar", "vector", "register", "tiled"}:
+        if set(per) != {"scalar", "vector", "register", "tiled", "staged"}:
             raise AssertionError(f"{name}: the edge structures ran only the "
                                  f"variants {sorted(per)}")
+        if "staged" not in per:
+            raise AssertionError(f"{name}: the edge structures ran no staged "
+                                 "SpMM")
         tiled = aligned.get("tiled", [])
         k_min = 32 if name == "float64" else 16
         if ((128, 128, k_min) not in tiled or (128, 128, 17) in tiled
@@ -1652,6 +1666,7 @@ def check_bsr(bsr_in, main_out, mats, report) -> None:
                   f"matrix's csr @ X (kernel B2) within {tol}*(|A||X|) (max "
                   f"|err| {float(err.max()):.3e})")
             del Y_csr, err
+    check_staged_spmm(bsr_in, x.device)
     bsr_edge_structures(x.device)
     print("phase 10: BSR edge structures (bs 1, 3, 8, 384; (4, 8), (8, 4), "
           "(5, 40), (128, 128), (96, 160), (64, 64), (40, 48), (40, 18), "
@@ -1659,6 +1674,109 @@ def check_bsr(bsr_in, main_out, mats, report) -> None:
           "64, 65, 100, 130; data and operand views off a 16-byte boundary; "
           "no blocks; k = 0): kernel == plain in float32, bfloat16 and "
           "float64, both variants of each kernel")
+
+
+# Phase 10's staged-against-register cases beside banded8: block shape, k,
+# the block columns' spread (nbc) and the dtypes. k = 68 is 17 (float32) or
+# 34 (float64) 16-byte column groups; bfloat16 blocks take the staged
+# variant where a block row is 16 bytes. At nbc = 2000 the rows of X a CTA
+# reads span more than its shared memory holds, so the kernel reads them
+# from device memory (its other path); at 50 they fit.
+STAGED_CASES = (((4, 4), 64, 50, ("float32", "float64")),
+                ((8, 8), 68, 50, ("float32", "bfloat16", "float64")),
+                ((16, 16), 8, 50, ("float32", "bfloat16", "float64")),
+                ((2, 2), 16, 50, ("float64",)),
+                ((4, 8), 32, 50, ("float32", "float64")),
+                ((8, 4), 100, 50, ("float32", "float64")),
+                ((8, 8), 64, 2000, ("float32", "bfloat16", "float64")),
+                ((16, 16), 32, 2000, ("float32", "float64")))
+
+
+def staged_case(indptr, indices, data, X, empty, tol, what) -> float:
+    """The staged SpMM against the plain version within ``tol·(|A||X|)``,
+    bitwise against the register variant on the same operands (both named
+    on purpose: no fallback), empty rows 0, bitwise repeats. Returns the
+    max |err|."""
+    y = bsr_spmm(indptr, indices, data, X, variant="staged")
+    err = (y - bsr_spmv_plain(indptr, indices, data, X)).abs()
+    within(err, bsr_spmv_plain(indptr, indices, data.abs(), X.abs()), tol,
+           what)
+    if empty is not None and not bool((y[empty] == 0).all()):
+        raise AssertionError(f"{what}: an empty row is not 0")
+    if not torch.equal(y, bsr_spmm(indptr, indices, data, X,
+                                   variant="register")):
+        raise AssertionError(f"{what}: the staged and register variants "
+                             "differ")
+    if not torch.equal(y, bsr_spmm(indptr, indices, data, X,
+                                   variant="staged")):
+        raise AssertionError(f"{what}: staged variant not bitwise "
+                             "repeatable")
+    return float(err.max())
+
+
+def check_staged_spmm(bsr_in, device) -> None:
+    """Phase 10: the staged SpMM on banded8's forward and Aᵀ·G operands and
+    on STAGED_CASES (every fourth block row empty, three padding blocks
+    past ``indptr[-1]``), against the plain version and bitwise against
+    the register variant; k = 65, an operand one element off 16 bytes and
+    blocks of 17 rows go to the register variant, and the staged variant
+    refuses them."""
+    for name in ("float32", "float64"):
+        bsr, _, _, X, G = bsr_in["banded8", name]
+        ip, ix, data = bsr.indptr, bsr.indices, bsr.data
+        err = staged_case(ip, ix, data, X, None, TOL[name],
+                          f"banded8 {name} bsr @ X")
+        t, data_t = transposed_blocks(ip, ix, data, bsr.ncols)
+        err_t = staged_case(t.ptr, t.minor, data_t, G, None, TOL[name],
+                            f"banded8 {name} Aᵀ·G")
+        del data_t
+        free_memory()
+        print(f"phase 10: banded8 {name} staged SpMM, forward and Aᵀ·G: == "
+              f"plain within {TOL[name]}*(|A||X|) (max |err| {err:.3e} / "
+              f"{err_t:.3e}), bitwise == the register variant")
+    rng = np.random.default_rng(17)
+    gen = torch.Generator(device=device).manual_seed(18)
+    for (br, bc), k, nbc, names in STAGED_CASES:
+        nbr = 60
+        lens = rng.poisson(3.0, nbr)
+        lens[::4] = 0
+        ptr = np.concatenate([[0], np.cumsum(lens)])
+        nblocks = int(ptr[-1]) + 3
+        indptr = torch.from_numpy(ptr.astype(np.int32)).to(device)
+        indices = torch.from_numpy(
+            rng.integers(0, nbc, nblocks).astype(np.int32)).to(device)
+        empty = torch.from_numpy(np.repeat(lens == 0, br)).to(device)
+        for name in names:
+            acc = torch.float64 if name == "float64" else torch.float32
+            data = torch.randn((nblocks, br, bc), generator=gen, dtype=acc,
+                               device=device).to(BSR_DTYPES[name])
+            X = torch.randn((nbc * bc, k), generator=gen, dtype=acc,
+                            device=device)
+            staged_case(indptr, indices, data, X, empty, TOL[name],
+                        f"{name} ({br}, {bc}) k={k} nbc={nbc}")
+    indices = indices % 50
+    X65 = torch.randn((50 * 8, 65), generator=gen, device=device)
+    off = torch.empty(50 * 8 * 64 + 1, device=device)[1:].view(50 * 8, 64)
+    off.copy_(X65[:, :64])
+    data8 = torch.randn((nblocks, 8, 8), generator=gen, device=device)
+    data17 = torch.randn((nblocks, 17, 8), generator=gen, device=device)
+    for data, X, how in ((data8, X65, "k = 65"),
+                         (data8, off, "an operand off 16 bytes"),
+                         (data17, X65[:, :64].contiguous(), "17-row blocks")):
+        if bsr_spmm_mod.bsr_spmm_variant(data, X) != "register":
+            raise AssertionError(f"{how}: not the register variant")
+        try:
+            bsr_spmm(indptr, indices, data, X, variant="staged")
+        except RuntimeError:
+            continue
+        raise AssertionError(f"{how}: the staged variant took it")
+    torch.cuda.synchronize()
+    print("phase 10: staged SpMM == plain and bitwise == register on (4, 4) "
+          "k=64, (8, 8) k=68, (16, 16) k=8, (2, 2) k=16 (float64), (4, 8) "
+          "k=32, (8, 4) k=100, and (8, 8) k=64 and (16, 16) k=32 with block "
+          "columns spread past shared memory; bf16 blocks, empty block "
+          "rows, padding blocks; k = 65, an operand off 16 bytes and 17-row "
+          "blocks go to register, and the staged variant refuses them")
 
 
 def row_name(shape: str, name: str) -> str:
@@ -2009,9 +2127,10 @@ def time_dia(dia_in, report, card: str) -> None:
         k_ms, p_ms, (p1, k1, k2, p2) = turns(
             lambda: dia_spmv(off, data, x, n, n),
             lambda: dia_spmv_plain(offs, data, x, n, n),
-            TIMED_LAUNCHES, PLAIN_BSR_SPMM_LAUNCHES)
+            TIMED_LAUNCHES, PLAIN_BSR_SPMM_LAUNCHES, spin=True)
         t_ms = time_ms(lambda: dia_spmv(off, data, g, n, n,
-                                        transposed=True), TIMED_LAUNCHES)
+                                        transposed=True), TIMED_LAUNCHES,
+                       spin=True)
         free_memory()
         # compulsory bytes: the diagonals, x, y and the offsets
         itemsize = data.element_size()
@@ -2059,21 +2178,38 @@ def check_probe(res, device, report, card: str) -> None:
             - probe.wide_gather_mac_plain(xt, bad, val)).abs(),
            probe.wide_gather_mac_plain(xt.abs(), bad, val.abs()),
            TOL["float32"], "B10 wide gather, out-of-range indices")
+    # rows longer than a CTA's shared memory take the kernel's other path
+    long_xt = torch.randn((2, 70_000), generator=gen, device=device)
+    long_idx = torch.randint(-5, 70_005, (16, probe.LANES), generator=gen,
+                             dtype=torch.int32, device=device)
+    long_val = torch.randn((16, probe.LANES), generator=gen, device=device)
+    within((probe.wide_gather_mac(long_xt, long_idx, long_val)
+            - probe.wide_gather_mac_plain(long_xt, long_idx, long_val)).abs(),
+           probe.wide_gather_mac_plain(long_xt.abs(), long_idx,
+                                       long_val.abs()),
+           TOL["float32"], "B10 wide gather, rows past shared memory")
     p_ms = time_ms(lambda: probe.wide_gather_mac_plain(xt, idx, val), 5)
+    floor_us = probe.launch_floor_us(device)
     s, n = xt.shape
     k, lanes = idx.shape
     nbytes = 4 * (s * n + 2 * k * lanes + s * lanes)
     report["wide_gather", "float32"] = {
         "max_abs_err": float(err.max()), "ms": res["us_per_call"] / 1e3,
         "plain_ms": p_ms, "library_ms": None,
-        **bound(nbytes, 2 * s * lanes * k, "float32")}
+        **bound(nbytes, 2 * s * lanes * k, "float32"),
+        "launch_floor_ms": floor_us / 1e3}
     print(f"phase 15: B10 wide gather ({s}, {n}) x {k} takes of {lanes}: "
           f"kernel == plain within 1e-5*sum|xt||val| (max |err| "
           f"{float(err.max()):.3e}, the probe's rel err "
-          f"{res['rel_err']:.2e}); out-of-range indices read 0; bitwise "
+          f"{res['rel_err']:.2e}); out-of-range indices read 0; rows of "
+          f"70,000 (past shared memory) match; bitwise "
           f"repeatable; {res['us_per_call']:.3f} us per call, "
           f"{res['us_per_take']:.4f} us per take, {res['gelem_per_s']:.1f} "
           f"Gelem/s gathered; plain {p_ms:.4f} ms | {card}")
+    print(f"phase 15: B10 launch floor (the same kernel at S = 1, K = 1, "
+          f"behind the same spin): {floor_us:.3f} us a call; bound "
+          f"{report['wide_gather', 'float32']['bound_ms'] * 1e3:.3f} us | "
+          f"{card}")
 
 
 def kernel_line(launches, report, seen) -> list:

@@ -10,8 +10,8 @@
 - :func:`bsr_matmat` (``bsr @ X``, ``X`` of shape ``(ncols, k)``) runs
   ``BsrSpmm``: ``csrc/bsr_spmm.cu`` or its plain version, with the
   gradient to ``data`` and ``X``. Any ``k >= 1``; ``k == 0`` gives an
-  empty result. The metrics path is ``bsr_spmm:cuda:tiled`` or
-  ``:register``, or ``bsr_spmm:plain``.
+  empty result. The metrics path is ``bsr_spmm:cuda:tiled``,
+  ``:staged`` or ``:register``, or ``bsr_spmm:plain``.
 
 bfloat16 blocks accumulate and return float32, whatever the dense operand
 is; otherwise the result type is the promotion of the two. The JAX

@@ -9,10 +9,20 @@ it prints one JSON line: the kernel's time, the time of
 ``torch.sparse_bsr_tensor(...) @ x`` on the same inputs (null for bfloat16
 blocks, which torch takes only as a bfloat16 product), the kernel's max
 |err| against its plain version, the variant that ran (where the package
-has variants) and the package it measured. Launches are timed with CUDA
-events behind a queued spin of the card, so that the host enqueues all of
-them while the spin runs and the events time the card, not the host's
-launch rate. Data is drawn on the card from a seeded generator.
+has variants) and the package it measured; then, for banded8, the time of
+a forward + backward ``bsr @ X`` step (autograd to the blocks and X).
+Launches are timed with CUDA events behind a queued spin of the card, so
+that the host enqueues all of them while the spin runs and the events time
+the card, not the host's launch rate. Data is drawn on the card from a
+seeded generator.
+
+``--sweep`` times instead the SpMM's ``register`` and ``staged`` variants
+of ``csrc/bsr_spmm.cu`` side by side, each named to the wrapper, on
+a banded block pattern (block offsets -2..2) of square blocks br = bc in
+{2, 4, 8, 16} at n = 2**19 rows, for k in {8, 16, 32, 64}, in float32,
+float64 and (where a block row is 16 bytes) bfloat16 blocks: the crossover
+that ``bsr_spmm_variant``'s thresholds follow. Each line also says whether
+the two variants agree bitwise and which one ``bsr_spmm_variant`` picks.
 
 Run it as a script, on a machine with a card; ``PYTHONPATH`` picks the
 copy of ``spalinalg_tpu_torch`` it measures, so two versions of the
@@ -20,6 +30,7 @@ package compare in one session:
 
     PYTHONPATH=. python3 spalinalg_tpu_torch/tools/bench_bsr.py
     PYTHONPATH=path/to/other/checkout python3 spalinalg_tpu_torch/tools/bench_bsr.py
+    PYTHONPATH=. python3 spalinalg_tpu_torch/tools/bench_bsr.py --sweep
 """
 
 from __future__ import annotations
@@ -38,6 +49,11 @@ BAND_BS = 8
 K_MAIN = 64
 K_SWEEP = (16, 32)
 LAUNCHES = 20
+STEPS = 10
+SWEEP_N = 2**19
+SWEEP_BS = (2, 4, 8, 16)
+SWEEP_K = (8, 16, 32, 64)
+SWEEP_VARIANTS = ("register", "staged")
 SPIN_CYCLES = 50_000_000   # about 25 ms on an H100
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float64": torch.float64}
@@ -93,10 +109,59 @@ def variant_counts(mods) -> dict:
                                                    {}).items()}
 
 
+def sweep(sp, mm_mod, device, card: str, label: str) -> None:
+    """One line per (block size, dtype, k): both SpMM variants' times."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    for bs in SWEEP_BS:
+        nbr = SWEEP_N // bs
+        indptr, indices = block_pattern(nbr, (-2, -1, 0, 1, 2))
+        ip = torch.tensor(indptr, dtype=torch.int32, device=device)
+        ix = torch.tensor(indices, dtype=torch.int32, device=device)
+        for name in ("float32", "bfloat16", "float64"):
+            if bs * DTYPES[name].itemsize % 16:
+                continue    # block rows not whole 16-byte loads: register
+            acc = torch.float64 if name == "float64" else torch.float32
+            data = torch.randn((len(indices), bs, bs), generator=gen,
+                               dtype=acc, device=device).to(DTYPES[name])
+            for k in SWEEP_K:
+                X = torch.randn((SWEEP_N, k), generator=gen, dtype=acc,
+                                device=device)
+                ys = [mm_mod.bsr_spmm(ip, ix, data, X, variant=v)
+                      for v in SWEEP_VARIANTS]
+                ms = {v: time_ms(lambda v=v: mm_mod.bsr_spmm(
+                    ip, ix, data, X, variant=v)) for v in SWEEP_VARIANTS}
+                print(json.dumps({
+                    "label": label, "sweep": True, "bs": bs, "dtype": name,
+                    "k": k, **{f"{v}_ms": ms[v] for v in SWEEP_VARIANTS},
+                    "bitwise": bool(torch.equal(*ys)),
+                    "picks": mm_mod.bsr_spmm_variant(data, X),
+                    "package": sp.__file__, "card": card}), flush=True)
+                del X, ys
+            del data
+        torch.cuda.empty_cache()
+
+
+def step_ms(bsr, X, G) -> float:
+    """Milliseconds of a forward + backward ``bsr @ X`` step, gradients
+    to the blocks and to X, timed like the kernels."""
+    data = bsr.data.detach().requires_grad_(True)
+    m = bsr.with_data(data)
+    Xg = X.detach().requires_grad_(True)
+
+    def step():
+        data.grad = Xg.grad = None
+        (m @ Xg).backward(G)
+
+    return time_ms(step, STEPS)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--label", default="",
                         help="a name for this run, copied into each line")
+    parser.add_argument("--sweep", action="store_true",
+                        help="time both SpMM variants over block sizes, "
+                             "dtypes and k instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench_bsr: no CUDA device; it times kernels on a card",
@@ -111,6 +176,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.sweep:
+        sweep(sp, mm_mod, device, card, args.label)
+        return 0
     mats, gen = matrices(sp, device)
     for (shape, name), bsr in mats.items():
         ip, ix, data = bsr.indptr, bsr.indices, bsr.data
@@ -140,6 +208,21 @@ def main() -> int:
                 "package": sp.__file__, "card": card}), flush=True)
             del rhs
             torch.cuda.empty_cache()
+    for name in ("float32", "float64"):
+        bsr = mats["banded8", name]
+        X, G = (torch.randn((bsr.ncols, K_MAIN), generator=gen,
+                            dtype=bsr.data.dtype, device=device)
+                for _ in range(2))
+        before = variant_counts((mm_mod,))
+        ms = step_ms(bsr, X, G)
+        after = variant_counts((mm_mod,))
+        print(json.dumps({
+            "label": args.label, "shape": "banded8", "dtype": name,
+            "k": K_MAIN, "op": "bsr_spmm fwd+bwd step", "ms": ms,
+            "variants": {v: n - before.get(v, 0) for v, n in after.items()
+                         if n != before.get(v, 0)},
+            "package": sp.__file__, "card": card}), flush=True)
+        del X, G
     return 0
 
 

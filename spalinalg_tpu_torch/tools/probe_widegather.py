@@ -17,7 +17,8 @@ reads 0, as the TPU tool's ``FILL_OR_DROP`` gather does.
   one to ``LAUNCHES["float32"]``.
 - :func:`main` checks the kernel against the plain version and prints the
   time per take and the gathered elements per second, timed with CUDA
-  events. Run on a machine with a card:
+  events, and the launch floor (:func:`launch_floor_us`). Run on a machine
+  with a card:
 
       python -m spalinalg_tpu_torch.tools.probe_widegather
 
@@ -41,14 +42,19 @@ import torch
 from ..device import resolve_device
 from ..errors import DTypeError, ShapeError
 
-__all__ = ["LAUNCHES", "N", "NCOL", "TAKES", "LANES", "WARMUP", "TIMED",
-           "inputs", "main", "run", "wide_gather_mac",
-           "wide_gather_mac_plain"]
+__all__ = ["LAUNCHES", "N", "NCOL", "TAKES", "LANES", "SPLIT", "WARMUP",
+           "TIMED", "inputs", "launch_floor_us", "main", "run",
+           "wide_gather_mac", "wide_gather_mac_plain"]
 
 N = 16384          # operand columns (the TPU tool's lanes)
 NCOL = 64          # operand rows (right-hand-side columns)
 TAKES = 256        # gathers accumulated per output entry
 LANES = 128        # output columns
+# The kernel's order of summation (``csrc/wide_gather.cu``, ``kSplit``):
+# each output sums SPLIT runs of consecutive takes, each in order, then adds
+# the runs' sums in order. The plain version sums all takes in order; the
+# two may differ in the last bits.
+SPLIT = 8
 WARMUP = 3         # launches before the timed run
 TIMED = 100        # timed launches
 # A spin of the card's clock queued before the timed launches (about 25 ms
@@ -121,20 +127,17 @@ def inputs(device, seed: int = 0):
     return tuple(torch.from_numpy(a).to(device) for a in (xt, idx, val))
 
 
-def run(device=None, seed: int = 0) -> dict:
-    """Check the kernel against the plain version at the tool's shapes and
-    time it: ``1 + WARMUP + TIMED`` launches on ``device`` (``None``: the
-    default device), which must be a card. Returns the
-    output, the relative error, and the microseconds per take, per call and
-    the Gelem/s gathered."""
+def _card(device):
     device = resolve_device(device)
     if device.type != "cuda":
         raise ValueError(f"the probe times the kernel on a card, not on "
                          f"{device}")
-    xt, idx, val = inputs(device, seed)
-    out = wide_gather_mac(xt, idx, val)
-    ref = wide_gather_mac_plain(xt, idx, val)
-    err = float((out - ref).abs().max() / (ref.abs().max() + 1e-9))
+    return device
+
+
+def _us_per_call(xt, idx, val) -> float:
+    """Microseconds a call: WARMUP launches, then TIMED launches queued
+    behind a spin of the card and timed with CUDA events."""
     for _ in range(WARMUP):
         wide_gather_mac(xt, idx, val)
     start = torch.cuda.Event(enable_timing=True)
@@ -145,7 +148,30 @@ def run(device=None, seed: int = 0) -> dict:
         wide_gather_mac(xt, idx, val)
     end.record()
     end.synchronize()
-    per_call_us = start.elapsed_time(end) * 1e3 / TIMED
+    return start.elapsed_time(end) * 1e3 / TIMED
+
+
+def launch_floor_us(device=None, seed: int = 0) -> float:
+    """Microseconds a call of the kernel at one operand row and one take (S
+    = 1, K = 1; the tool's N and L), timed as :func:`run` times the tool's
+    shapes: what a launch of the kernel costs with almost no work, below
+    which no call comes, whatever its bound."""
+    xt, idx, val = inputs(_card(device), seed)
+    return _us_per_call(xt[:1].contiguous(), idx[:1].contiguous(),
+                        val[:1].contiguous())
+
+
+def run(device=None, seed: int = 0) -> dict:
+    """Check the kernel against the plain version at the tool's shapes and
+    time it: ``1 + WARMUP + TIMED`` launches on ``device`` (``None``: the
+    default device), which must be a card. Returns the
+    output, the relative error, and the microseconds per take, per call and
+    the Gelem/s gathered."""
+    xt, idx, val = inputs(_card(device), seed)
+    out = wide_gather_mac(xt, idx, val)
+    ref = wide_gather_mac_plain(xt, idx, val)
+    err = float((out - ref).abs().max() / (ref.abs().max() + 1e-9))
+    per_call_us = _us_per_call(xt, idx, val)
     per_take_us = per_call_us / TAKES
     return {"out": out, "rel_err": err, "us_per_call": per_call_us,
             "us_per_take": per_take_us,
@@ -161,6 +187,8 @@ def main() -> int:
     print(f"wide gather OK, rel err {res['rel_err']:.2e}")
     print(f"per take {res['us_per_take']:.3f} us -> "
           f"{res['gelem_per_s']:.1f} Gelem/s gathered")
+    print(f"{res['us_per_call']:.3f} us a call; launch floor (S = 1, K = 1) "
+          f"{launch_floor_us():.3f} us")
     print(json.dumps({k: v for k, v in res.items() if k != "out"}))
     return 0
 

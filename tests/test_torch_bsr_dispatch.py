@@ -1,23 +1,27 @@
 """The BSR kernels' variant choice, and the plain versions at the shapes
 that sit on either side of it, against the JAX package.
 
-Each BSR source has two variants (``csrc/bsr_spmv.cu``: ``vector`` and
-``scalar``; ``csrc/bsr_spmm.cu``: ``tiled`` and ``register``), picked in
-Python by ``bsr_spmv_variant`` / ``bsr_spmm_variant`` from shapes, dtypes
-and addresses and passed to the kernel by name. Those functions run on any
-device, so the choice is checked here on CPU tensors, alignment included
-(views at a storage offset); the kernels themselves are held against the
-plain versions on the card by ``chip_smoke.py``. The plain versions at the
-new edge shapes ((128, 128) blocks with k = 17 and 130, (96, 160) blocks)
-are held against the JAX package's public BSR path on the CPU, entry by
-entry ``|y - y_jax| <= tol·(|A|·|x|)`` (1e-5 f32 and bf16 blocks, 1e-12
-f64), as ``tests/test_torch_bsr.py`` does.
+The BSR sources have variants (``csrc/bsr_spmv.cu``: ``vector`` and
+``scalar``; ``csrc/bsr_spmm.cu``: ``tiled``, ``staged`` and ``register``),
+picked in Python by ``bsr_spmv_variant`` / ``bsr_spmm_variant`` from
+shapes, dtypes and addresses and passed to the kernel by name. Those
+functions run on any device, so the choice is checked here on CPU tensors,
+alignment included (views at a storage offset); the kernels themselves are
+held against the plain versions on the card by ``chip_smoke.py``. The
+plain versions at the shapes around the variants' bounds ((128, 128)
+blocks with k = 17 and 130, (96, 160) blocks, and the small blocks of the
+staged SpMM: 2 x 2, 4 x 4 and 8 x 8 at k = 8, 16, 64 and 65) are held
+against the JAX package's public BSR path on the CPU, entry by entry
+``|y - y_jax| <= tol·(|A|·|x|)`` (1e-5 f32 and bf16 blocks, 1e-12 f64), as
+``tests/test_torch_bsr.py`` does; at the small blocks their gradients are
+held against ``jax.grad`` at the same tolerance.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import spalinalg_tpu as jsp
@@ -90,9 +94,10 @@ def test_spmv_variant(bs, dtype):
 
 
 # (br, bc, k): the SpMM variant for float32, bfloat16 and float64 blocks.
-# The tiled variant needs br >= 32, bc >= 16, k >= 16 (32 for a float64 X),
-# and bc * itemsize and k * itemsize of X (float32 for bfloat16 blocks)
-# multiples of 16 bytes.
+# Both wide variants need bc * itemsize and k * itemsize of X (float32 for
+# bfloat16 blocks) to be multiples of 16 bytes; then the tiled variant
+# takes br >= 32, bc >= 16, k >= 16 (32 for a float64 X), the staged one
+# 2 <= br <= 16 and bc <= 16 at k >= 8.
 SPMM_CASES = {
     (128, 128, 64): ("tiled", "tiled", "tiled"),    # tri128
     (128, 128, 16): ("tiled", "tiled", "register"),
@@ -111,8 +116,24 @@ SPMM_CASES = {
     (32, 15, 16): ("register", "register", "register"),
     (64, 8, 64): ("register", "register", "register"),
     (40, 18, 64): ("register", "register", "tiled"),  # 72 / 36 / 144 bytes
-    (8, 8, 64): ("register", "register", "register"),  # banded8
+    (8, 8, 64): ("staged", "staged", "staged"),     # banded8
     (5, 40, 64): ("register", "register", "register"),
+    (16, 16, 64): ("staged", "staged", "staged"),
+    (16, 16, 8): ("staged", "staged", "staged"),
+    (17, 16, 64): ("register", "register", "register"),
+    (16, 17, 64): ("register", "register", "register"),
+    (4, 4, 64): ("staged", "register", "staged"),   # 8 bytes of bf16
+    (4, 8, 64): ("staged", "staged", "staged"),
+    (8, 4, 64): ("staged", "register", "staged"),
+    (2, 2, 64): ("register", "register", "staged"),  # 8 / 4 / 16 bytes
+    (3, 3, 64): ("register", "register", "register"),
+    (1, 8, 64): ("register", "register", "register"),  # one-row blocks
+    (2, 8, 64): ("staged", "staged", "staged"),
+    (8, 8, 8): ("staged", "staged", "staged"),
+    (8, 8, 4): ("register", "register", "register"),   # k below 8
+    (8, 8, 65): ("register", "register", "register"),  # 260 / 520 bytes
+    (8, 8, 66): ("register", "register", "staged"),    # 264 / 528 bytes
+    (8, 8, 68): ("staged", "staged", "staged"),        # 17 / 34 groups
 }
 
 
@@ -156,7 +177,27 @@ def test_cpu_wrappers_count_no_launches():
         dict(m.VARIANT_LAUNCHES) for m in (bsr_spmv_mod, bsr_spmm_mod)]
     assert after == before
     assert set(bsr_spmv_mod.VARIANT_LAUNCHES) == {"scalar", "vector"}
-    assert set(bsr_spmm_mod.VARIANT_LAUNCHES) == {"register", "tiled"}
+    assert set(bsr_spmm_mod.VARIANT_LAUNCHES) == {"register", "tiled",
+                                                  "staged"}
+
+
+def test_variant_override():
+    """``bsr_spmm(..., variant=...)`` names a variant on purpose (the card
+    compares two on the same operands); on the CPU the plain version runs
+    whatever is named, and counts nothing. A name the kernel has not
+    raises."""
+    ptr = torch.tensor([0, 1, 1], dtype=torch.int32)
+    ind = torch.tensor([0], dtype=torch.int32)
+    data = torch.arange(64.0).reshape(1, 8, 8)
+    X = torch.ones(8, 16)
+    before = dict(bsr_spmm_mod.VARIANT_LAUNCHES)
+    ys = [bsr_spmm(ptr, ind, data, X, variant=v)
+          for v in (None, "register", "tiled", "staged")]
+    for y in ys[1:]:
+        torch.testing.assert_close(y, ys[0], rtol=0, atol=0)
+    assert bsr_spmm_mod.VARIANT_LAUNCHES == before
+    with pytest.raises(ValueError, match="no variant 'vector'"):
+        bsr_spmm(ptr, ind, data, X, variant="vector")
 
 
 def test_metrics_path_is_lazy():
@@ -204,11 +245,18 @@ def _block_pair(rng, br, bc, nbr, nbc, dtype, empty=(1,)):
     return jmat, tmat, dense
 
 
+# Small blocks of the staged SpMM (and of register below its bounds): br =
+# bc in {2, 4, 8} at k = 8, 16, 64 and 65.
+SMALL_CASES = [((b, b), k) for b in (2, 4, 8) for k in (8, 16, 64, 65)]
+SMALL_IDS = [f"{b}x{b}-k{k}" for (b, _), k in SMALL_CASES]
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("bs,k", [((128, 128), 17), ((128, 128), 130),
-                                  ((96, 160), None), ((96, 160), 64)],
+                                  ((96, 160), None), ((96, 160), 64)]
+                         + SMALL_CASES,
                          ids=["128x128-k17", "128x128-k130", "96x160-x",
-                              "96x160-k64"])
+                              "96x160-k64"] + SMALL_IDS)
 def test_edge_shapes_match_jax(bs, k, dtype):
     """``bsr @ x`` / ``bsr @ X`` at the shapes around the variants'
     bounds, with an empty block row, through both packages' public
@@ -228,3 +276,41 @@ def test_edge_shapes_match_jax(bs, k, dtype):
     err = np.abs(y.astype(np.float64) - yj.astype(np.float64))
     assert np.all(err <= TOL[dtype] * scale), (err / (scale + 1e-300)).max()
     np.testing.assert_array_equal(y[br:2 * br], 0)   # the empty block row
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("bs,k", SMALL_CASES, ids=SMALL_IDS)
+def test_small_blocks_grad_match_jax(bs, k, dtype):
+    """The gradients of ``bsr @ X`` to the blocks and to X at the small
+    blocks of the staged SpMM, with an empty block row and a padding block,
+    against ``jax.grad`` of ``<G, A @ X>`` through the JAX package's public
+    path: ``dX`` within ``tol·(|A|ᵀ·|G|)``, ``ddata`` within
+    ``tol·Σ_c |G||X|`` per entry."""
+    rng = np.random.default_rng(91)
+    br, bc = bs
+    jmat, tmat, dense = _block_pair(rng, br, bc, 4, 3, dtype)
+    acc = np.float64 if dtype == "float64" else np.float32
+    x = rng.normal(size=(tmat.ncols, k)).astype(acc)
+    g = rng.normal(size=(tmat.nrows, k)).astype(acc)
+
+    def f(data, xv):
+        return jnp.vdot(jnp.asarray(g), jmat.with_data(data) @ xv)
+
+    jdd, jdx = (np.asarray(a) for a in jax.grad(f, argnums=(0, 1))(
+        jmat.data, jnp.asarray(x)))
+    data = tmat.data.clone().requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (tmat.with_data(data) @ xt).backward(torch.from_numpy(g))
+    dd, dx = data.grad.numpy(), xt.grad.numpy()
+    assert dd.dtype == jdd.dtype and dx.dtype == jdx.dtype
+    tol = TOL[dtype]
+    scale = np.abs(dense).T @ np.abs(g.astype(np.float64))
+    assert np.all(np.abs(dx - jdx) <= tol * scale)
+    nblocks = int(tmat.indptr[-1])
+    rows = np.repeat(np.arange(tmat.nrows // br),
+                     np.diff(tmat.indptr.numpy()))
+    G = np.abs(g).reshape(-1, br, k)[rows]
+    X = np.abs(x).reshape(-1, bc, k)[tmat.indices.numpy()[:nblocks]]
+    block_scale = np.einsum("kil,kjl->kij", G, X)
+    assert np.all(np.abs(dd[:nblocks] - jdd[:nblocks])
+                  <= tol * block_scale)

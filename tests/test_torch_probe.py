@@ -12,6 +12,7 @@ reference (``:75-77``) is a second oracle.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -92,6 +93,41 @@ def test_plain_matches_tool_kernel_interpret(out_of_range):
     assert np.all(np.abs(got - want) <= 1e-5 * _scale(xt, idx, val) + 1e-30)
 
 
+def test_split_matches_kernel_source():
+    """``probe.SPLIT`` is the kernel's own K split."""
+    src = (Path(probe.__file__).resolve().parents[1] / "csrc"
+           / "wide_gather.cu").read_text()
+    assert re.search(r"constexpr int kSplit = (\d+);", src).group(1) \
+        == str(probe.SPLIT)
+
+
+@pytest.mark.parametrize("out_of_range", [False, True],
+                         ids=["tool_inputs", "out_of_range"])
+def test_split_order_matches_tool_kernel_interpret(out_of_range):
+    """The kernel's order of summation, emulated in float32 (SPLIT runs of
+    consecutive takes, each summed in order, then the runs' sums in order),
+    is within the tolerance of the tool's kernel: the redesign may change
+    the last bits, not the function."""
+    tool = _tool()
+    xt, idx, val = _inputs(3, out_of_range)
+    fn = pl.pallas_call(
+        tool._kernel, interpret=True,
+        out_shape=jax.ShapeDtypeStruct((tool.NCOL, 128), jnp.float32))
+    want = np.asarray(fn(jnp.asarray(xt), jnp.asarray(idx),
+                         jnp.asarray(val)))
+    ok = (idx >= 0) & (idx < xt.shape[1])
+    safe = np.where(ok, idx, 0)
+    run = -(-probe.TAKES // probe.SPLIT)
+    got = np.zeros_like(want)
+    for r in range(probe.SPLIT):
+        part = np.zeros_like(want)
+        for k in range(r * run, min(probe.TAKES, (r + 1) * run)):
+            part += np.where(ok[k], xt[:, safe[k]], np.float32(0)) * val[k]
+        got += part
+    assert got.dtype == np.float32
+    assert np.all(np.abs(got - want) <= 1e-5 * _scale(xt, idx, val) + 1e-30)
+
+
 def test_plain_matches_tool_numpy_reference():
     xt, idx, val = _inputs(1, False)
     ref = np.zeros((probe.NCOL, 128), np.float32)
@@ -117,6 +153,11 @@ def test_wrapper_checks_and_counts():
         probe.wide_gather_mac(xt.to("meta"), idx.to("meta"), val.to("meta"))
     with pytest.raises(ValueError, match="not on cpu"):
         probe.run("cpu")
+
+
+def test_launch_floor_needs_a_card():
+    with pytest.raises(ValueError, match="not on cpu"):
+        probe.launch_floor_us("cpu")
 
 
 def test_main_needs_a_card(capsys):
