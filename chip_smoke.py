@@ -110,6 +110,34 @@ pass; each prints its seconds):
     and per take, Gelem/s, and the launch floor (the same kernel at S = 1,
     K = 1, behind the same spin).
 
+16. The Krylov solvers (``spalinalg_tpu_torch.linalg``): CG with Jacobi on
+    the 7-point Laplacian of a 128**3 grid (n = 2,097,152, 14,581,760
+    entries) in float64 and float32 to ``1e-8·||b||`` / ``1e-4·||b||``;
+    CG with Chebyshev (degree 8) on it in float64; PCG with IC(0) against
+    Jacobi on the 64**3 Laplacian (190 levels a triangular solve: the
+    device path); GMRES(32) and BiCGSTAB with ILU(0) on a 64**3
+    convection-diffusion matrix (upwind), float64; CG on the BSR form
+    (``to_bsr(8)``) of the 64**3 Laplacian, float32. Each solve runs once
+    between a reset and a read of the launch counts, which must be exactly
+    the SpMVs its iterations need (CG: iterations + 1) on the CSR or BSR
+    SpMV kernel, and nothing else; on each solver's matrix and dtype that
+    kernel is held against its plain version (``b`` as the operand,
+    within ``TOL·|A||x|``); ``||b - A·x||``, recomputed in float64 by the
+    plain SpMV, must be within 1.01 x tol; the metrics path must name
+    ``csr_spmv:cuda:*`` / ``bsr_spmv:cuda:*``. Prints iterations, ms per
+    iteration beside the SpMV kernel's ms, and the device operations of
+    one IC(0) application.
+17. BASELINE config[3]: ``cholesky`` -> ``cholesky_solve`` on the 5-point
+    Laplacian of a 512**2 grid (n = 262,144, 1,308,672 entries) in float64
+    and float32, where ``method="auto"`` must take the supernodal path:
+    host seconds of ordering, symbolic analysis and plan, the cold factor,
+    the re-factor with the plan cached (and its GFLOP/s from the front
+    shapes, its device operations), the solve, ``||A·x - b|| / ||b||``
+    (the plain SpMV) within 1e-10 / 1e-4, whether two factors repeat bitwise (else they
+    must agree within the dtype's tol), the peak device memory; and the
+    256**2 Laplacian in float64, where ``auto`` must take the banded path,
+    whose solve must match ``method="supernodal"``'s within 1e-10.
+
 Each main path (config[0]; a forward and backward SpMV per dtype; config[1]
 forward and backward for each matrix and for ``csc @ X``; config[2]
 forward and backward; on the CSR paths also the kernel variants of
@@ -126,7 +154,8 @@ the plain version's, the bound from compulsory bytes or operations, and the
 time of one PyTorch library call that computes the same function, or null
 where there is none; the rows of kernels with variants also the launches
 of each variant; banded8 has BSR rows of its own, the banded matrix CSR
-SpMM rows, and SDDMM at k = 1 rows beside its k = 64 ones) and the card's
+SpMM rows, and SDDMM at k = 1 rows beside its k = 64 ones; the CSR and BSR
+SpMV rows also the launches of phase 16's solvers) and the card's
 ``nvidia-smi`` name and power limit; the last line is the ``{"ok": true,
 "device": ...}`` record.
 """
@@ -171,6 +200,8 @@ from spalinalg_tpu_torch.ops.kernels.dia_spmv import (_shifted_products,
                                                       dia_spmv_plain)
 from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import (
     spgemm_numeric, spgemm_numeric_plain)
+from spalinalg_tpu_torch.linalg import (bicgstab, cg, chebyshev, cholesky,
+                                        cholesky_solve, gmres, ic0, ilu0)
 from spalinalg_tpu_torch.tools import probe_widegather as probe
 from spalinalg_tpu_torch.utils import metrics
 
@@ -297,6 +328,18 @@ N_DIA = 2**25    # bench.py's dia cells (n = 2**22) scaled past the L2
 DIA9_OFFSETS = [-300, -130, -1, 0, 1, 7, 129, 250, 333]
 LAP_K = 256      # lap3d: the 7-point Laplacian of a LAP_K**3 grid
 STENCIL_K = 64   # the stencil path's grid
+KRYLOV_K = 128   # phase 16: CG on the 7-point Laplacian of a KRYLOV_K**3 grid
+PRECOND_K = 64   # phase 16: IC(0), ILU(0) and BSR CG on PRECOND_K**3 grids
+CONVECTION = 0.5  # upwind convection of phase 16's nonsymmetric grid
+CG_RTOL = {"float64": 1e-8, "float32": 1e-4}   # tol = CG_RTOL·||b||
+GMRES_RESTART = 32
+CHEBYSHEV_DEGREE = 8
+CHOL_K = 512     # phase 17, config[3]: the 5-point Laplacian of CHOL_K**2
+BAND_K = 256     # phase 17: the banded path's grid
+CHOL_RTOL = {"float64": 1e-10, "float32": 1e-4}  # ||A·x - b|| / ||b||
+BAND_MATCH = 1e-10   # banded against supernodal solve, relative
+REFACTORS = 3
+SOLVES = 5
 
 
 def nvidia_smi_card() -> str:
@@ -2212,11 +2255,400 @@ def check_probe(res, device, report, card: str) -> None:
           f"{card}")
 
 
-def kernel_line(launches, report, seen) -> list:
+def stencil_csr(k: int, dims: int, device, convection: float = 0.0):
+    """The (2·dims + 1)-point Laplacian of a k**dims grid (diagonal 2·dims,
+    neighbours -1), plus ``convection`` times the upwind first difference
+    along each axis (nonsymmetric when positive), float64 CSR from sorted
+    host arrays through the validating constructor."""
+    n = k ** dims
+    idx = np.arange(n, dtype=np.int64)
+    rows, cols = [idx], [idx]
+    vals = [np.full(n, dims * (2.0 + convection))]
+    for d in range(dims):
+        stride = k ** d
+        coord = (idx // stride) % k
+        for step in (-1, 1):
+            ok = (coord + step >= 0) & (coord + step < k)
+            rows.append(idx[ok])
+            cols.append(idx[ok] + step * stride)
+            vals.append(np.full(int(ok.sum()),
+                                -1.0 - (convection if step < 0 else 0.0)))
+    r, c, v = (np.concatenate(a) for a in (rows, cols, vals))
+    order = np.lexsort((c, r))
+    ptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(ptr, r + 1, 1)
+    return CsrMatrix(n, n, np.cumsum(ptr), c[order], v[order], device=device)
+
+
+def card_vector(n: int, np_dtype, seed: int, device) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=n).astype(np_dtype)).to(device)
+
+
+def solver_run(fn):
+    """Run ``fn`` once between a reset and a read of every launch count:
+    ``(result, seconds to the card's completion, launches)``."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = {kname: {key: n for key, n in counts.items() if n}
+           for kname, (_, counts) in KERNELS.items()}
+    return out, seconds, {kname: per for kname, per in got.items() if per}
+
+
+def expect_launches(what: str, got, kname: str, name: str, n: int,
+                    solver_launches) -> None:
+    """Fail unless the run launched ``kname`` in ``name`` exactly ``n``
+    times and no other kernel; add ``n`` to the kernel line's
+    ``solver_launches``."""
+    if got != {kname: {name: n}}:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{{{kname!r}: {{{name!r}: {n}}}}}")
+    solver_launches[kname, name] = solver_launches.get((kname, name), 0) + n
+
+
+def true_residual(A64, x, b) -> float:
+    """``||b - A·x||`` recomputed in float64 by the plain SpMV, not by
+    the kernel the solver ran."""
+    ax = csr_spmv_plain(A64.rowptr, A64.colind, A64.values, x.double(),
+                        A64.nrows)
+    return float(torch.linalg.vector_norm(b.double() - ax))
+
+
+def hold_spmv(what: str, mat, x) -> str:
+    """The SpMV kernel of ``mat`` (CSR or BSR) against its plain version on
+    the solver's matrix and right-hand side, entry by entry within
+    ``TOL·(|A||x|)``; names the variant that ran and the max |err|."""
+    if isinstance(mat, BsrMatrix):
+        kname, n = "bsr_spmv", ()
+        kern, plain = bsr_spmv, bsr_spmv_plain
+        ptr, ind, vals = mat.indptr, mat.indices, mat.data
+    else:
+        kname, n = "csr_spmv", (mat.nrows,)
+        kern, plain = csr_spmv, csr_spmv_plain
+        ptr, ind, vals = mat.rowptr, mat.colind, mat.values
+    before = dict(VARIANTS[kname])
+    y = kern(ptr, ind, vals, x, *n)
+    variant = ran_variant(VARIANTS[kname], before, f"{what} SpMV")
+    err = (y - plain(ptr, ind, vals, x, *n)).abs()
+    tol = TOL[str(x.dtype).removeprefix("torch.")]
+    within(err, plain(ptr, ind, vals.abs(), x.abs(), *n), tol,
+           f"{what} SpMV against its plain version")
+    return (f"{kname}:{variant} == plain within {tol}·|A||x| (max |err| "
+            f"{float(err.max()):.3e})")
+
+
+def check_residual(what: str, A64, x, b, tol: float) -> float:
+    resid = true_residual(A64, x, b)
+    if not resid <= 1.01 * tol:
+        raise AssertionError(f"{what}: ||b - A·x|| {resid:.4e} > 1.01 x tol "
+                             f"{tol:.4e}")
+    return resid
+
+
+def check_paths(what: str, fn, prefix: str) -> str:
+    """Run ``fn`` with the metrics recorder on; fail unless every product
+    it recorded ran a kernel (``prefix``)."""
+    rec = metrics.enable()
+    rec.records.clear()
+    try:
+        fn()
+        torch.cuda.synchronize()
+        paths = sorted({r.path for r in rec.records})
+    finally:
+        metrics.disable()
+        rec.records.clear()
+    if not paths or not all(p.startswith(prefix) for p in paths):
+        raise AssertionError(f"{what}: metrics paths {paths}, expected "
+                             f"{prefix}*")
+    return ", ".join(paths)
+
+
+def launches_per_call(fn, calls: int):
+    """Device operations (kernels, copies, fills) per call of ``fn`` and
+    ms per call, from ``torch.profiler``; None where it saw none."""
+    wall, _, per_name = profile_steps(fn, calls)
+    if not per_name:
+        return None, wall / calls
+    return sum(n for _, (_, n) in per_name) / calls, wall / calls
+
+
+def krylov_phase(device, card: str, solver_launches) -> None:
+    """Phase 16: CG (Jacobi) on the 128**3 Laplacian in both dtypes, PCG
+    with IC(0) against Jacobi on the 64**3 one, GMRES(32) and BiCGSTAB
+    with ILU(0) on a 64**3 convection-diffusion matrix, CG with Chebyshev
+    on the 128**3 Laplacian, and CG on the BSR form of the 64**3 one."""
+    A64 = stencil_csr(KRYLOV_K, 3, device)
+    n = A64.nrows
+    print(f"phase 16: 7-point Laplacian {KRYLOV_K}^3: n={n} nnz={A64.nnz}")
+    for name, (np_dtype, dtype) in DTYPES.items():
+        A = A64 if name == "float64" else A64.astype(dtype)
+        b = card_vector(n, np_dtype, 16, device)
+        tol = CG_RTOL[name] * float(torch.linalg.vector_norm(b.double()))
+        # the metrics check doubles as the warm-up: the SpMV plan and the
+        # first use of each vector op in this dtype
+        paths = check_paths(
+            f"CG {name}",
+            lambda: cg(A, b, maxiter=2, precondition="jacobi"),
+            "csr_spmv:cuda:")
+        held = hold_spmv(f"CG {name}", A, b)
+        # the Jacobi setup, the first residual and its dot products
+        _, setup_s, _ = solver_run(
+            lambda: cg(A, b, maxiter=0, precondition="jacobi"))
+        res, sec, got = solver_run(
+            lambda: cg(A, b, tol=tol, precondition="jacobi"))
+        expect_launches(f"CG {name}", got, "csr_spmv", name,
+                        res.iterations + 1, solver_launches)
+        resid = check_residual(f"CG {name}", A64, res.x, b, tol)
+        spmv_ms = time_ms(lambda: A @ b, TIMED_LAUNCHES, spin=True)
+        itemsize = A.values.element_size()
+        spmv_bound = bound((itemsize + 4) * A.nse + itemsize * 2 * n
+                           + 4 * (n + 1), 2 * A.nse, name)["bound_ms"]
+        print(f"phase 16: CG+Jacobi {KRYLOV_K}^3 {name}: "
+              f"{res.iterations} iterations, {sec * 1e3 / res.iterations:.4f}"
+              f" ms/iteration ({sec:.3f} s, the Jacobi setup included; "
+              f"maxiter=0 {setup_s * 1e3:.3f} ms), SpMV "
+              f"kernel {spmv_ms:.4f} ms (bound {spmv_bound:.4f}; B1 launches "
+              f"{res.iterations + 1} = iterations + 1; path {paths}; {held});"
+              f" ||b - A·x|| (plain SpMV) = {resid / tol:.4f} x tol (tol "
+              f"{CG_RTOL[name]}·||b||) | {card}")
+        print_profile(f"phase 16: CG+Jacobi {name}, 20 iterations and the "
+                      "Jacobi setup:",
+                      lambda: cg(A, b, maxiter=20, precondition="jacobi"), 1)
+        del A, b, res
+
+    b = card_vector(n, np.float64, 17, device)
+    tol = CG_RTOL["float64"] * float(torch.linalg.vector_norm(b))
+    t0 = time.perf_counter()
+    M = chebyshev(A64, degree=CHEBYSHEV_DEGREE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    res, sec, got = solver_run(lambda: cg(A64, b, tol=tol, precondition=M))
+    expect_launches("CG+Chebyshev", got, "csr_spmv", "float64",
+                    (res.iterations + 1) * (CHEBYSHEV_DEGREE + 1),
+                    solver_launches)
+    resid = check_residual("CG+Chebyshev", A64, res.x, b, tol)
+    print(f"phase 16: CG+Chebyshev(degree {CHEBYSHEV_DEGREE}) {KRYLOV_K}^3 "
+          f"float64: lmax {M.lmax:.6f} (setup {build_s:.3f} s), "
+          f"{res.iterations} iterations, {sec * 1e3 / res.iterations:.4f} "
+          f"ms/iteration, {(res.iterations + 1) * (CHEBYSHEV_DEGREE + 1)} "
+          f"SpMV; ||b - A·x|| (plain SpMV) = {resid / tol:.4f} x tol | "
+          f"{card}")
+    del A64, M, b, res
+    free_memory()
+
+    P64 = stencil_csr(PRECOND_K, 3, device)
+    n = P64.nrows
+    print(f"phase 16: 7-point Laplacian {PRECOND_K}^3: n={n} nnz={P64.nnz}")
+    b = card_vector(n, np.float64, 18, device)
+    tol = CG_RTOL["float64"] * float(torch.linalg.vector_norm(b))
+    t0 = time.perf_counter()
+    M = ic0(P64)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not (M.l_plan.use_device and M.u_plan.use_device):
+        raise AssertionError(f"IC(0): {M.l_plan.n_levels} levels, past the "
+                             "device cap")
+    held = hold_spmv(f"PCG {PRECOND_K}^3", P64, b)   # and the SpMV plan
+    cg(P64, b, maxiter=2, precondition="jacobi")      # warm-up
+    jac, jsec, got = solver_run(
+        lambda: cg(P64, b, tol=tol, precondition="jacobi"))
+    expect_launches("PCG Jacobi", got, "csr_spmv", "float64",
+                    jac.iterations + 1, solver_launches)
+    res, sec, got = solver_run(lambda: cg(P64, b, tol=tol, precondition=M))
+    expect_launches("PCG IC(0)", got, "csr_spmv", "float64",
+                    res.iterations + 1, solver_launches)
+    resid = check_residual("PCG IC(0)", P64, res.x, b, tol)
+    ops, solve_ms = launches_per_call(lambda: M.solve(b), 3)
+    print(f"phase 16: PCG+IC(0) {PRECOND_K}^3 float64: {res.iterations} "
+          f"iterations against Jacobi's {jac.iterations}; "
+          f"{sec * 1e3 / res.iterations:.4f} ms/iteration against "
+          f"{jsec * 1e3 / jac.iterations:.4f}; IC(0) setup {build_s:.3f} s, "
+          f"{M.l_plan.n_levels} + {M.u_plan.n_levels} levels (device path), "
+          f"one application {solve_ms:.4f} ms, "
+          f"{'not measured' if ops is None else f'{ops:.0f}'} device "
+          f"operations; {held}; ||b - A·x|| (plain SpMV) = "
+          f"{resid / tol:.4f} x tol | {card}")
+    del M, jac, res
+
+    B = P64.astype(torch.float32).to_bsr(8)
+    b32 = b.float()
+    tol32 = CG_RTOL["float32"] * float(torch.linalg.vector_norm(b32.double()))
+    paths = check_paths("CG on BSR", lambda: cg(B, b32, maxiter=2),
+                        "bsr_spmv:cuda:")
+    held = hold_spmv("CG on BSR", B, b32)
+    res, sec, got = solver_run(lambda: cg(B, b32, tol=tol32))
+    expect_launches("CG on BSR", got, "bsr_spmv", "float32",
+                    res.iterations + 1, solver_launches)
+    resid = check_residual("CG on BSR", P64, res.x, b32, tol32)
+    spmv_ms = time_ms(lambda: B @ b32, TIMED_LAUNCHES, spin=True)
+    print(f"phase 16: CG on csr.to_bsr(8) {PRECOND_K}^3 float32: "
+          f"{res.iterations} iterations, {sec * 1e3 / res.iterations:.4f} "
+          f"ms/iteration, BSR SpMV kernel {spmv_ms:.4f} ms (B4 launches "
+          f"{res.iterations + 1} = iterations + 1; path {paths}; {held}); "
+          f"||b - A·x|| (plain SpMV) = {resid / tol32:.4f} x tol | {card}")
+    del B, b32, res, P64
+
+    C = stencil_csr(PRECOND_K, 3, device, convection=CONVECTION)
+    t0 = time.perf_counter()
+    M = ilu0(C)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not (M.l_plan.use_device and M.u_plan.use_device):
+        raise AssertionError("ILU(0): past the device cap")
+    atol = max(CG_RTOL["float64"] * float(torch.linalg.vector_norm(b)),
+               CG_RTOL["float64"])
+    held = hold_spmv("convection-diffusion", C, b)   # and the SpMV plan
+    for sname in ("gmres", "bicgstab"):
+        if sname == "gmres":
+            res, sec, got = solver_run(lambda: gmres(
+                C, b, tol=CG_RTOL["float64"], restart=GMRES_RESTART, M=M))
+            cycles = res.iterations // (GMRES_RESTART + 1)
+            spmv = 1 + res.iterations + cycles
+        else:
+            res, sec, got = solver_run(lambda: bicgstab(
+                C, b, tol=CG_RTOL["float64"], M=M))
+            spmv = 1 + res.iterations
+        expect_launches(sname, got, "csr_spmv", "float64", spmv,
+                        solver_launches)
+        resid = check_residual(f"{sname}+ILU(0)", C, res.x, b, atol)
+        print(f"phase 16: {sname}{'(32)' if sname == 'gmres' else ''}"
+              f"+ILU(0) convection-diffusion {PRECOND_K}^3 (upwind "
+              f"{CONVECTION}) float64: {res.iterations} matvecs ({spmv} "
+              f"SpMV), {sec * 1e3 / res.iterations:.4f} ms/matvec "
+              f"({sec:.3f} s); ILU(0) setup {build_s:.3f} s; {held}; "
+              f"||b - A·x|| (plain SpMV) = {resid / atol:.4f} x tol | {card}")
+    del C, M, res, b
+    free_memory()
+
+
+def refactor_s(A) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cholesky(A, method="supernodal")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def cholesky_phase(device, card: str) -> None:
+    """Phase 17, config[3]: ``cholesky`` -> ``cholesky_solve`` on the
+    512**2 Laplacian (the supernodal path) in both dtypes, and on the
+    256**2 one (the banded path, against the supernodal solve)."""
+    L = stencil_csr(CHOL_K, 2, device)
+    n = L.nrows
+    print(f"phase 17: 5-point Laplacian {CHOL_K}^2: n={n} nnz={L.nnz}")
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    for name in ("float64", "float32"):     # float64 builds the plan
+        np_dtype, dtype = DTYPES[name]
+        A = L if name == "float64" else L.astype(dtype)
+        rec = metrics.enable()
+        rec.records.clear()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fac = cholesky(A)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            host = {r.op: r.seconds for r in rec.records
+                    if r.op.startswith("chol_")}
+        finally:
+            metrics.disable()
+            rec.records.clear()
+        if fac.path != "supernodal":
+            raise AssertionError(f"config[3] {name}: auto took the "
+                                 f"{fac.path} path, not supernodal")
+        plan = fac.snf.plan
+        if not fac.snf.ok:
+            raise AssertionError(f"config[3] {name}: a front was not "
+                                 "positive definite")
+        times = [refactor_s(A) for _ in range(REFACTORS)]
+        refactor = sorted(times)[len(times) // 2]
+        again = cholesky(A, method="supernodal")
+        same = all(torch.equal(again.snf.panels[k], p)
+                   for k, p in fac.snf.panels.items())
+        worst = max(float((again.snf.panels[k] - p).abs().max()
+                          / p.abs().max().clamp_min(1e-300))
+                    for k, p in fac.snf.panels.items())
+        if not same and not worst <= TOL[name]:
+            raise AssertionError(f"config[3] {name}: two factors differ by "
+                                 f"{worst:.3e} relative, past {TOL[name]}")
+        ops, _ = launches_per_call(lambda: cholesky(A, method="supernodal"), 1)
+        b = card_vector(n, np_dtype, 19, device)
+        x = cholesky_solve(fac, b)
+        solve_ms = time_ms(lambda: cholesky_solve(fac, b), SOLVES)
+        rel = true_residual(L, x, b) / float(torch.linalg.vector_norm(
+            b.double()))
+        if not rel <= CHOL_RTOL[name]:
+            raise AssertionError(f"config[3] {name}: ||A·x - b|| / ||b|| "
+                                 f"{rel:.3e} > {CHOL_RTOL[name]}")
+        nbk = sum(len(bks) for bks in plan.levels)
+        hosts = ", ".join(f"{op.removeprefix('chol_')} {sec:.3f} s"
+                          for op, sec in host.items()) or "cached"
+        repeat = ("bitwise equal" if same else
+                  f"equal within {worst:.3e} relative (index_add_ atomics)")
+        print(f"phase 17: config[3] {CHOL_K}^2 {name}: auto -> "
+              f"{fac.path}; host (ordering, symbolic, plan): {hosts}; cold "
+              f"factor {cold:.3f} s; re-factor (plan cached) "
+              f"{refactor * 1e3:.2f} ms (runs "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in times)}), "
+              f"{plan.flops() / refactor / 1e9:.1f} GFLOP/s over "
+              f"{plan.flops() / 1e9:.3f} GFLOP of fronts, "
+              f"{'not measured' if ops is None else f'{ops:.0f}'} device "
+              f"operations over {len(plan.levels)} levels, {nbk} buckets; "
+              f"solve {solve_ms:.3f} ms; ||A·x - b|| / ||b|| = {rel:.3e}; "
+              f"two factors {repeat} | {card}")
+        del fac, again, x, b, A
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 17: peak device memory {peak / 1e9:.3f} GB "
+          f"({resident / 1e9:.3f} GB resident before) | {card}")
+    del L
+    free_memory()
+
+    Bm = stencil_csr(BAND_K, 2, device)
+    b = card_vector(Bm.nrows, np.float64, 20, device)
+    out = {}
+    for method in ("auto", "supernodal"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fac = cholesky(Bm, method=method)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cholesky(Bm, method=method)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        x = cholesky_solve(fac, b)
+        solve_ms = time_ms(lambda: cholesky_solve(fac, b), SOLVES)
+        out[method] = (fac.path, x)
+        print(f"phase 17: {BAND_K}^2 float64 method={method} -> {fac.path}:"
+              f" factor {cold:.3f} s cold, {warm:.3f} s again; solve "
+              f"{solve_ms:.3f} ms | {card}")
+    if out["auto"][0] != "banded":
+        raise AssertionError(f"{BAND_K}^2: auto took {out['auto'][0]}, not "
+                             "the banded path")
+    xb, xs = out["auto"][1], out["supernodal"][1]
+    rel = float(torch.linalg.vector_norm(xb - xs)
+                / torch.linalg.vector_norm(xs))
+    if not rel <= BAND_MATCH:
+        raise AssertionError(f"{BAND_K}^2: banded and supernodal solves "
+                             f"differ by {rel:.3e} relative")
+    print(f"phase 17: {BAND_K}^2 banded solve against supernodal: "
+          f"{rel:.3e} relative (<= {BAND_MATCH})")
+    del Bm, b, out, fac
+    free_memory()
+
+
+def kernel_line(launches, report, seen, solver_launches) -> list:
     """One row per kernel and dtype (its launches over every main path),
     and the rows of EXTRA_ROWS (the launches of their own matrix's main
     path); each row of a kernel with variants names the variants its
-    launches ran."""
+    launches ran; the rows of the kernels the solvers of phase 16 ran
+    carry those launches as ``solver_launches``."""
     def variants(kname, name, shapes=None):
         out = {}
         for (k, shape, n), per in seen.items():
@@ -2234,6 +2666,8 @@ def kernel_line(launches, report, seen) -> list:
                    "launches": launches[kname][name], **report[kname, name]}
             if kname in VARIANTS:
                 row["variants"] = variants(kname, name)
+            if (kname, name) in solver_launches:
+                row["solver_launches"] = solver_launches[kname, name]
             rows.append(row)
     for (kname, suffix), shape in EXTRA_ROWS.items():
         for name in ("float32", "float64"):
@@ -2416,9 +2850,18 @@ def main() -> int:
     probe_out = drive("B10 probe", lambda: probe.run(device), launches)
     with phase("phase 15"):
         check_probe(probe_out, device, report, card)
+    del probe_out
+    free_memory()
+
+    # ---- the solver tier: Krylov solvers (phase 16), config[3] (17) ----
+    solver_launches = {}
+    with phase("phase 16"):
+        krylov_phase(device, card, solver_launches)
+    with phase("phase 17"):
+        cholesky_phase(device, card)
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
-    kernels = kernel_line(launches, report, seen)
+    kernels = kernel_line(launches, report, seen, solver_launches)
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError("a kernel was not launched on the main path")
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,9 @@ Pallas kernels replaced by kernels written by hand for NVIDIA Hopper
     csr.to_bsr(bs) | BsrMatrix(...)  ->  bsr.astype(torch.bfloat16)  ->  bsr @ x, bsr @ X
     diags, kron, hstack, vstack, block_diag, bmat, tril, triu, sprandom  ->  CSR
     DiaMatrix.from_diagonals(...) | DiaMatrix.from_csr(csr)  ->  dia @ x, dia @ X
+    mat_sum, mat_mean, diagonal, multiply, norm; row_slice, select_rows, ...
+    linalg: cg, gmres, bicgstab (+ jacobi, ic0, ilu0, chebyshev),
+            cholesky -> cholesky_solve, solve_triangular_csr
 
 Builders live on the host; a compressed matrix lives on the device it was
 built for. An entry point that places data and is given no ``device``
@@ -39,7 +42,11 @@ from .ops.matvec import csc_matmat, csc_matvec, csr_matmat, csr_matvec
 from .ops.spgemm import SpgemmPlan, spgemm, spgemm_apply, spgemm_plan
 from .ops.structure import bmat, block_diag, hstack, kron, tril, triu, vstack
 from .ops.construct import diags, sprandom
+from .ops.indexing import (getcol, getrow, row_slice, select_cols,
+                           select_rows, submatrix)
+from .ops.reduce_api import diagonal, mat_mean, mat_sum, multiply, norm
 from . import io
+from . import linalg
 from . import utils
 
 __version__ = "0.1.0"
@@ -68,7 +75,11 @@ __all__ = [
     "spgemm_plan",
     "spgemm_apply",
     "SpgemmPlan",
+    "mat_sum", "mat_mean", "diagonal", "multiply", "norm",
+    "row_slice", "select_rows", "select_cols", "submatrix", "getrow",
+    "getcol",
     "io",
+    "linalg",
     "utils",
     "__version__",
 ]

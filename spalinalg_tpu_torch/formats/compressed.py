@@ -343,19 +343,55 @@ class _CompressedMatrix:
         return self.transpose()
 
     # ------------------------------------------------------------------
+    # Reductions / queries (scipy-style surface; ops/reduce_api.py)
+    # ------------------------------------------------------------------
+
+    def sum(self, axis=None):
+        from ..ops.reduce_api import mat_sum
+
+        return mat_sum(self, axis)
+
+    def mean(self, axis=None):
+        from ..ops.reduce_api import mat_mean
+
+        return mat_mean(self, axis)
+
+    def diagonal(self, k: int = 0):
+        from ..ops.reduce_api import diagonal
+
+        return diagonal(self, k)
+
+    def multiply(self, other):
+        """Elementwise (Hadamard) product, not SpGEMM (``*`` is, as in
+        the reference); scipy's ``A.multiply(B)``."""
+        from ..ops.reduce_api import multiply
+
+        return multiply(self, other)
+
+    def norm(self, ord="fro"):
+        from ..ops.reduce_api import norm
+
+        return norm(self, ord)
+
+    # ------------------------------------------------------------------
     # Export helpers
     # ------------------------------------------------------------------
+
+    def _host_arrays(self):
+        """Host ``(ptr, minor, values)``, int64 indices, exact nnz: the
+        host symbolic phases (orderings, plans) read these."""
+        numpy_dtype(self.dtype)  # DTypeError for bfloat16
+        ptr = _host(self._ptr).astype(np.int64)
+        nnz = int(ptr[-1])
+        return (ptr, _host(self._minor[:nnz]).astype(np.int64),
+                _host(self._values[:nnz]))
 
     def _coo_arrays_host(self):
         """Host ``(rows, cols, values)`` in major-sorted order, exact nnz."""
         from ..convert.engine import expand_ptr_host
 
-        numpy_dtype(self.dtype)  # DTypeError for bfloat16
-        ptr = _host(self._ptr).astype(np.int64)
-        nnz = int(ptr[-1])
+        ptr, minor, values = self._host_arrays()
         major = expand_ptr_host(ptr)
-        minor = _host(self._minor[:nnz]).astype(np.int64)
-        values = _host(self._values[:nnz])
         if self._MAJOR_AXIS == 0:
             return major, minor, values
         return minor, major, values

@@ -1,0 +1,127 @@
+"""Conjugate gradients, the canonical SpMV consumer (counterpart of
+``spalinalg_tpu/linalg/cg.py``).
+
+The JAX package runs the whole iteration inside one ``lax.while_loop``
+with the convergence test on the device; here the loop is Python and the
+test reads ``r·r`` back each iteration (one synchronisation with the card
+a step), with the same test (``r·r > tol²``, in the vectors' dtype) and so
+the same iteration count. Every ``A @ v`` is the operand's own product:
+on a ``CsrMatrix`` the CSR SpMV kernel, on a ``BsrMatrix`` the BSR one.
+
+Examples
+--------
+>>> import torch
+>>> from spalinalg_tpu_torch import CsrMatrix
+>>> A = CsrMatrix(2, 2, [0, 2, 4], [0, 1, 0, 1], [4.0, 1.0, 1.0, 3.0],
+...               device="cpu")
+>>> res = cg(A, torch.tensor([1.0, 2.0], dtype=torch.float64), tol=1e-10)
+>>> bool(res.residual < 1e-10), res.iterations
+(True, 2)
+>>> [round(float(v), 6) for v in res.x]
+[0.090909, 0.636364]
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..device import resolve_device
+from ..ops.reduce_api import diagonal
+
+__all__ = ["cg", "CgResult"]
+
+
+class CgResult(NamedTuple):
+    x: torch.Tensor
+    iterations: int         # CG steps taken
+    residual: torch.Tensor  # final ||r|| of the recurrence (0-d)
+
+
+def _vector(v, A) -> torch.Tensor:
+    """``v`` as a tensor on the operand's device (a NumPy array or a
+    tensor elsewhere is placed there); an operand with no device (a bare
+    ``@`` object) takes the default device (``device.py``)."""
+    if isinstance(v, torch.Tensor) and not hasattr(A, "device"):
+        return v
+    dev = A.device if hasattr(A, "device") else resolve_device()
+    return torch.as_tensor(v, device=dev)
+
+
+def _cg_loop(matvec, b, x0, tol, maxiter, psolve=None) -> CgResult:
+    """(Preconditioned) CG; stops when ``r·r <= tol²`` or after
+    ``maxiter`` steps."""
+    psolve = psolve if psolve is not None else (lambda r: r)
+    x = x0
+    r = b - matvec(x)
+    z = psolve(r)
+    p = z
+    rz = torch.dot(r, z)
+    rr = torch.dot(r, r)
+    k = 0
+    while k < maxiter and bool(rr > tol * tol):
+        ap = matvec(p)
+        alpha = rz / torch.dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = psolve(r)
+        rz_new = torch.dot(r, z)
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        rr = torch.dot(r, r)
+        k += 1
+    return CgResult(x=x, iterations=k, residual=torch.sqrt(rr))
+
+
+def _jacobi_precond(A) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Inverse-diagonal preconditioner of a CSR/BSR matrix, built on its
+    device (a zero or missing diagonal entry counts as 1)."""
+    d = diagonal(A.to_csr() if hasattr(A, "to_csr") else A)
+    inv = torch.where(d != 0, 1 / torch.where(d != 0, d, 1), 1)
+    return lambda r: inv * r
+
+
+def _resolve_precond(M, A):
+    """``M`` as a callable ``r -> M⁻¹r``: None stays None, ``"jacobi"``
+    builds :func:`_jacobi_precond` of ``A``, an object with ``.solve``
+    gives that method, a callable itself; anything else is a
+    ``ValueError``."""
+    if M is None:
+        return None
+    if isinstance(M, str) and M == "jacobi":
+        return _jacobi_precond(A)
+    if hasattr(M, "solve"):
+        return M.solve
+    if callable(M):
+        return M
+    raise ValueError(f"a preconditioner must be 'jacobi', a callable or an "
+                     f"object with .solve, got {M!r}")
+
+
+def cg(
+    A,
+    b,
+    x0=None,
+    *,
+    tol: float = 1e-10,
+    maxiter: Optional[int] = None,
+    precondition=None,
+) -> CgResult:
+    """Solve SPD ``A x = b`` by (optionally preconditioned) CG.
+
+    ``A``: a ``CsrMatrix``, ``BsrMatrix`` or anything with ``@`` and
+    ``ncols``. ``b`` and ``x0`` are placed on ``A``'s device. ``tol`` is
+    absolute on ``||r||``; ``maxiter`` defaults to ``10·n``.
+    ``precondition``: ``"jacobi"``, a callable ``r -> M⁻¹r``, or an
+    object with a ``.solve`` method (:func:`~.precond.ic0`,
+    :func:`~.precond.chebyshev`).
+    """
+    b = _vector(b, A)
+    n = A.ncols
+    maxiter = maxiter if maxiter is not None else 10 * n
+    x0 = (torch.zeros(n, dtype=b.dtype, device=b.device) if x0 is None
+          else _vector(x0, A))
+    psolve = _resolve_precond(precondition, A)
+    with torch.no_grad():
+        return _cg_loop(lambda v: A @ v, b, x0, tol, maxiter, psolve)

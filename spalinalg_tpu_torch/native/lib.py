@@ -3,14 +3,18 @@
 ``spalinalg_tpu_torch/native/src/host_kernels.cpp`` is plain C++ with a C
 interface and no tie to any framework: the port's copy of the functions it
 needs from the JAX package's ``host_kernels.cpp``, each copied with its
-first caller. It is compiled with ``g++ -O3 -fPIC -std=c++17 -shared``,
-without ``-march=native``, so the library runs on any x86-64 host. The
+first caller. It is compiled with ``g++ -O3 -fPIC -std=c++17 -shared``
+(and ``-mfma`` on x86-64), without ``-march=native``, so the library runs
+on any x86-64 host with FMA (since 2013). The
 build happens at first use, into ``build/native/`` at the repository root,
 named by a hash of the source and flags; nothing is written beside the
 source. A failed build raises :class:`NativeBuildError`: callers that need
 the library do not drop to NumPy.
 
-Bound so far: ``spal_spgemm_symbolic``, the SpGEMM symbolic phase.
+Bound: ``spal_spgemm_symbolic`` (the SpGEMM symbolic phase); ``spal_rcm``,
+``spal_level_schedule``, ``spal_etree``, ``spal_chol_symbolic`` and
+``spal_amd`` (orderings and the Cholesky symbolic phase); ``spal_ilu0`` and
+``spal_ic0`` (the incomplete factorizations' numeric sweeps).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,13 +31,19 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["NativeBuildError", "SOURCE", "library_path", "load_library",
-           "spgemm_symbolic"]
+           "spgemm_symbolic", "rcm", "level_schedule", "etree",
+           "chol_symbolic", "amd", "ilu0_values", "ic0_values"]
 
 SOURCE = Path(__file__).resolve().parent / "src" / "host_kernels.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+# x86-64 needs -mfma to fuse a*b + c, as the JAX package's -march=native
+# build does on any FMA host: the incomplete factorizations then give
+# the same bits in both packages (other architectures fuse by default).
+FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared") + (
+    ("-mfma",) if platform.machine() in ("x86_64", "AMD64") else ())
 
 _I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_F64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
 class NativeBuildError(RuntimeError):
@@ -79,6 +90,18 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
+    for name in ("spal_rcm", "spal_etree", "spal_amd"):
+        getattr(lib, name).restype = None
+        getattr(lib, name).argtypes = [_I64, _I64, ctypes.c_int64, _I64]
+    lib.spal_level_schedule.restype = ctypes.c_int64
+    lib.spal_level_schedule.argtypes = [_I64, _I64, ctypes.c_int64,
+                                        ctypes.c_int32, _I64]
+    lib.spal_chol_symbolic.restype = ctypes.c_int64
+    lib.spal_chol_symbolic.argtypes = [
+        _I64, _I64, ctypes.c_int64, _I64, _I64, _I64, _I64, ctypes.c_void_p]
+    for name in ("spal_ilu0", "spal_ic0"):
+        getattr(lib, name).restype = ctypes.c_int64
+        getattr(lib, name).argtypes = [_I64, _I64, _F64, ctypes.c_int64]
     return lib
 
 
@@ -112,3 +135,97 @@ def spgemm_symbolic(aptr, acol, nrows_a, bptr, bcol, ncols_b):
         pv(a_idx), pv(b_idx), pv(gid), pv(out_rowptr), pv(out_colind))
     return (a_idx[:total], b_idx[:total], gid[:total], out_rowptr,
             out_colind[:n_out].copy())
+
+
+def _structure(ptr, ind, n):
+    """``ptr``/``ind`` as contiguous int64 arrays, checked against ``n``:
+    the C functions index with them unchecked."""
+    ptr = np.ascontiguousarray(ptr, dtype=np.int64)
+    ind = np.ascontiguousarray(ind, dtype=np.int64)
+    if (ptr.size != n + 1 or ind.size < ptr[-1] or np.any(np.diff(ptr) < 0)
+            or (ptr[-1] and (ind[:ptr[-1]].min() < 0
+                             or ind[:ptr[-1]].max() >= n))):
+        raise ValueError("inconsistent CSR structure")
+    return ptr, ind
+
+
+def rcm(ptr, ind, n):
+    """Reverse Cuthill-McKee permutation of a structurally symmetric
+    structure."""
+    lib = load_library()
+    ptr, ind = _structure(ptr, ind, n)
+    perm = np.empty(n, dtype=np.int64)
+    lib.spal_rcm(ptr, ind, n, perm)
+    return perm
+
+
+def level_schedule(ptr, ind, n, *, lower):
+    """``(n_levels, level of each row)`` of a triangular solve."""
+    lib = load_library()
+    ptr, ind = _structure(ptr, ind, n)
+    lev = np.zeros(n, dtype=np.int64)
+    n_levels = lib.spal_level_schedule(ptr, ind, n, int(lower), lev)
+    return int(n_levels), lev
+
+
+def etree(ptr, ind, n):
+    """Elimination tree (``parent[j] = -1`` for roots)."""
+    lib = load_library()
+    ptr, ind = _structure(ptr, ind, n)
+    parent = np.empty(n, dtype=np.int64)
+    lib.spal_etree(ptr, ind, n, parent)
+    return parent
+
+
+def chol_symbolic(ptr, ind, n):
+    """Supernodal symbolic phase on a POSTORDERED symmetric structure:
+    ``(parent, snode_ptr, rows_ptr, rows_idx)``. Two calls, as the C
+    function asks: the first sizes ``rows_idx``, the second fills it."""
+    lib = load_library()
+    ptr, ind = _structure(ptr, ind, n)
+    parent = np.empty(max(n, 1), dtype=np.int64)
+    nsn_out = np.zeros(1, dtype=np.int64)
+    snode_ptr = np.zeros(n + 1, dtype=np.int64)
+    rows_ptr = np.zeros(n + 1, dtype=np.int64)
+    total = lib.spal_chol_symbolic(ptr, ind, n, parent, nsn_out, snode_ptr,
+                                   rows_ptr, None)
+    rows_idx = np.empty(max(total, 1), dtype=np.int64)
+    lib.spal_chol_symbolic(ptr, ind, n, parent, nsn_out, snode_ptr,
+                           rows_ptr, rows_idx.ctypes.data_as(ctypes.c_void_p))
+    nsn = int(nsn_out[0])
+    return (parent[:n], snode_ptr[: nsn + 1].copy(),
+            rows_ptr[: nsn + 1].copy(), rows_idx[:total])
+
+
+def amd(ptr, ind, n):
+    """Approximate-minimum-degree permutation (``perm[k]`` = k-th pivot)."""
+    lib = load_library()
+    ptr, ind = _structure(ptr, ind, n)
+    perm = np.empty(n, dtype=np.int64)
+    lib.spal_amd(ptr, ind, n, perm)
+    return perm
+
+
+def ilu0_values(ptr, ind, values, n):
+    """ILU(0) numeric sweep in float64 on a copy of ``values``:
+    ``(values, bad_row)``, ``bad_row`` -1 on success, else the row of the
+    first zero pivot or missing diagonal."""
+    lib = load_library()
+    ptr, ind = _structure(ptr, ind, n)
+    values = np.array(values, dtype=np.float64, copy=True, order="C")
+    if values.size < ptr[-1]:
+        raise ValueError("fewer values than entries")
+    bad = int(lib.spal_ilu0(ptr, ind, values, int(n)))
+    return values, bad
+
+
+def ic0_values(lptr, lind, lvalues, n):
+    """IC(0) numeric sweep in float64 on a copy of the lower pattern's
+    values (the diagonal last in each row): ``(values, bad_row)``."""
+    lib = load_library()
+    lptr, lind = _structure(lptr, lind, n)
+    lvalues = np.array(lvalues, dtype=np.float64, copy=True, order="C")
+    if lvalues.size < lptr[-1]:
+        raise ValueError("fewer values than entries")
+    bad = int(lib.spal_ic0(lptr, lind, lvalues, int(n)))
+    return lvalues, bad

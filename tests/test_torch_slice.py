@@ -121,7 +121,19 @@ def test_port_never_imports_jax():
             "spalinalg_tpu_torch.ops.structure, "
             "spalinalg_tpu_torch.ops.construct, "
             "spalinalg_tpu_torch.ops.kernels.dia_spmv, "
-            "spalinalg_tpu_torch.tools.probe_widegather, chip_smoke; "
+            "spalinalg_tpu_torch.tools.probe_widegather, "
+            "spalinalg_tpu_torch.linalg, spalinalg_tpu_torch.linalg.cg, "
+            "spalinalg_tpu_torch.linalg.iterative, "
+            "spalinalg_tpu_torch.linalg.precond, "
+            "spalinalg_tpu_torch.linalg.triangular, "
+            "spalinalg_tpu_torch.linalg.ordering, "
+            "spalinalg_tpu_torch.linalg.symbolic, "
+            "spalinalg_tpu_torch.linalg.banded, "
+            "spalinalg_tpu_torch.linalg.supernodal, "
+            "spalinalg_tpu_torch.linalg.cholesky, "
+            "spalinalg_tpu_torch.ops.reduce_api, "
+            "spalinalg_tpu_torch.ops.indexing, "
+            "spalinalg_tpu_torch.ops.reduction, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'spalinalg_tpu' or "
             "m.startswith('spalinalg_tpu.')]; "
@@ -286,6 +298,16 @@ def test_no_plain_torch_off_the_cpu():
     "spalinalg_tpu_torch.ops.construct",
     "spalinalg_tpu_torch.ops.kernels.dia_spmv",
     "spalinalg_tpu_torch.tools.probe_widegather",
+    "spalinalg_tpu_torch.ops.reduce_api",
+    "spalinalg_tpu_torch.ops.indexing",
+    "spalinalg_tpu_torch.ops.reduction",
+    "spalinalg_tpu_torch.linalg.cg",
+    "spalinalg_tpu_torch.linalg.iterative",
+    "spalinalg_tpu_torch.linalg.precond",
+    "spalinalg_tpu_torch.linalg.triangular",
+    "spalinalg_tpu_torch.linalg.ordering",
+    "spalinalg_tpu_torch.linalg.banded",
+    "spalinalg_tpu_torch.linalg.cholesky",
 ])
 def test_port_doctests(module):
     result = doctest.testmod(importlib.import_module(module))
@@ -402,6 +424,15 @@ def test_unscoped_entry_points_go_to_the_card():
         empty.run(tsp.CsrMatrix.from_coo, coo)
     with pytest.raises((AssertionError, RuntimeError)):
         empty.run(tsp.DiaMatrix.from_diagonals, [1.0], [0], 3)
+
+    class Op:                           # an operand with no device
+        ncols = 2
+
+        def __matmul__(self, v):
+            return v
+
+    with pytest.raises((AssertionError, RuntimeError)):
+        empty.run(tsp.linalg.cg, Op(), np.ones(2))
     assert empty.run(lambda: tsp.CsrMatrix.from_coo(
         coo, device="cpu").device) == torch.device("cpu")
     with tsp.default_device("meta"):
@@ -409,3 +440,121 @@ def test_unscoped_entry_points_go_to_the_card():
             assert resolve_device() == torch.device("cpu")
         assert resolve_device() == torch.device("meta")
         assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_linalg_imports_with_jax_blocked():
+    """``import spalinalg_tpu_torch.linalg`` in a process where importing
+    jax (or the JAX package) fails."""
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', "
+            "'spalinalg_tpu'):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "for m in [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib')]:\n"
+            "    del sys.modules[m]\n"
+            "import spalinalg_tpu_torch.linalg as la\n"
+            "assert 'cholesky' in la.__all__\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _solver_matrix(pkg, k):
+    """The 5-point Laplacian of a k x k grid, as COO triplets (with
+    duplicates that sum to the stencil) -> CSR."""
+    rows, cols, vals = [], [], []
+    for i in range(k):
+        for j in range(k):
+            r = i * k + j
+            rows += [r, r]
+            cols += [r, r]
+            vals += [3.0, 1.0]
+            for ii, jj in ((i - 1, j), (i + 1, j), (i, j - 1), (i, j + 1)):
+                if 0 <= ii < k and 0 <= jj < k:
+                    rows.append(r)
+                    cols.append(ii * k + jj)
+                    vals.append(-1.0)
+    return pkg.CsrMatrix.from_coo(pkg.CooMatrix.with_triplets(
+        k * k, k * k, rows, cols, vals))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_solver_slice_matches_jax(dtype):
+    """COO -> CSR -> ``cg`` (Jacobi) and ``cholesky`` -> ``cholesky_solve``
+    through both packages: the same iterations and solutions (float64:
+    atol 1e-8 for CG, rtol 1e-9 for Cholesky; float32: rtol 1e-4 / 1e-5)."""
+    import spalinalg_tpu.linalg as jla
+    import spalinalg_tpu_torch.linalg as tla
+
+    jA = _solver_matrix(jsp, 12).astype(dtype)
+    tA = _solver_matrix(tsp, 12).astype(dtype)
+    np.testing.assert_array_equal(tA.colind.numpy(), np.asarray(jA.colind))
+    b = np.random.default_rng(11).normal(size=144).astype(dtype)
+    tol = 1e-9 if dtype == np.float64 else 1e-4
+    jres = jla.cg(jA, b, tol=tol, precondition="jacobi")
+    tres = tla.cg(tA, b, tol=tol, precondition="jacobi")
+    jx = np.asarray(jres.x)
+    if dtype == np.float64:
+        assert tres.iterations == int(jres.iterations)
+        np.testing.assert_allclose(tres.x.numpy(), jx, atol=1e-8)
+    else:
+        np.testing.assert_allclose(tres.x.numpy(), jx, rtol=1e-4,
+                                   atol=1e-4 * np.abs(jx).max())
+    for method in ("auto", "supernodal"):
+        jx = np.asarray(jla.cholesky_solve(jla.cholesky(jA, method=method),
+                                           b))
+        tx = tla.cholesky_solve(tla.cholesky(tA, method=method), b).numpy()
+        rtol = 1e-9 if dtype == np.float64 else 1e-5
+        np.testing.assert_allclose(tx, jx, rtol=rtol,
+                                   atol=rtol * np.abs(jx).max())
+
+
+def test_solver_slice_no_build_on_cpu(monkeypatch):
+    """The solvers and factorizations on CPU tensors never reach the
+    kernel build or ``nvcc`` (the native host library is g++'s)."""
+    import spalinalg_tpu_torch.linalg as tla
+
+    calls = []
+    monkeypatch.setattr(_build, "find_nvcc", lambda: calls.append(1))
+    monkeypatch.setattr(_build, "_build", lambda out: calls.append(1))
+    monkeypatch.setattr(_build, "_run_all", lambda cmds: calls.append(cmds))
+    _build.load_library.cache_clear()
+    A = _solver_matrix(tsp, 8)
+    b = np.ones(64)
+    for M in (None, "jacobi", tla.ic0(A), tla.chebyshev(A)):
+        assert float(tla.cg(A, b, tol=1e-8, precondition=M).residual) <= 1e-8
+    tla.cg(A.to_bsr(4), b, tol=1e-8)
+    tla.gmres(A, b, M=tla.ilu0(A))
+    tla.bicgstab(A, b, M=tla.ilu0(A))
+    for method in ("auto", "supernodal", "dense"):
+        tla.cholesky_solve(tla.cholesky(A, method=method), b)
+    assert calls == []
+    assert _build.load_library.cache_info().currsize == 0
+
+
+def test_solver_metrics_path():
+    """The solver's products are the CSR SpMV (its plain version on the
+    CPU), and the supernodal host phases are recorded."""
+    import spalinalg_tpu_torch.linalg as tla
+    from spalinalg_tpu_torch.utils import metrics
+
+    A = _solver_matrix(tsp, 6)
+    rec = metrics.enable()
+    try:
+        rec.records.clear()
+        res = tla.cg(A, np.ones(36), tol=1e-10)
+        paths = [r.path for r in rec.records]
+        assert paths == ["csr_spmv:plain"] * (res.iterations + 1)
+        rec.records.clear()
+        B = A.with_values(A.values.clone())
+        B = tsp.CsrMatrix._from_parts(36, 36, B.rowptr.clone(),
+                                      B.colind.clone(), B.values)
+        tla.cholesky(B, method="supernodal")
+        assert [r.op for r in rec.records] == [
+            "chol_ordering", "chol_symbolic", "chol_plan"]
+    finally:
+        metrics.disable()
+        rec.records.clear()
