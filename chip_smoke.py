@@ -137,6 +137,38 @@ pass; each prints its seconds):
     must agree within the dtype's tol), the peak device memory; and the
     256**2 Laplacian in float64, where ``auto`` must take the banded path,
     whose solve must match ``method="supernodal"``'s within 1e-10.
+18. LU, ``spsolve``, QR: ``lu`` -> ``lu_solve`` on the upwind
+    convection-diffusion of a 512**2 grid (n = 262,144, 1,308,672
+    entries) in float64 and float32, where ``auto`` must take the
+    supernodal path through the slab guard: host seconds of symmetrize,
+    AMD, etree + postorder, symbolic analysis and plan, the cold factor,
+    the re-factor through ``supernodal_lu_factor`` (median of 3, GFLOP/s
+    over the padded fronts), the solve with exactly one B1 launch
+    (``refine=1``), ``||b - A·x|| / ||b||`` from the plain SpMV within
+    1e-10 / 1e-4, the gap between two factors, the peak memory;
+    ``spsolve`` on the 256**2 convection-diffusion (auto -> LU -> banded;
+    against ``lu_solve`` and the supernodal solve within 1e-10) and on the
+    256**2 Laplacian (auto -> Cholesky); ``lstsq`` on the 512**2 gradient
+    operator ``[Dx; Dy; 0.1·I]`` (785,408 x 262,144) in both dtypes: AᵀA
+    by exactly one B3 launch (held against the plain SpGEMM), the refined
+    solve by exactly three B1 launches, ``||Aᵀ(b - A·x)|| / ||Aᵀb||`` within
+    1e-10 / 1e-3; ``qr_r_dense``, ``qr_q_apply`` and ``qr_qt_apply`` on the
+    64**2 gradient operator (n = 4096), one B2 launch each at k = 8 on a
+    transposed view.
+19. Eigen and funm, float64: ``eigsh(L, k=4, sigma=0, block=2)`` on the
+    512**2 Laplacian (48 ``lu_solve``, one B1 launch each; eigenvalues
+    within 1e-8 of ``4 - 2cos(πi/513) - 2cos(πj/513)``); ``eigsh(k=1,
+    which="LA", m=64)`` on phase 16's 128**3 Laplacian (64 B1 launches;
+    the Ritz value at most λ_max and within 0.01 of it); ``lobpcg(k=8,
+    maxiter=40)`` on the 512**2 Laplacian (B2 launches 41 at k = 8 and 40
+    at k = 24, read from the metrics recorder; Ritz values not below the
+    exact ones); ``svds(A, k=6)`` on phase 18's gradient operator (64 B1
+    launches and one B2; singular values interlacing the exact ones);
+    ``expm_multiply(-L, b, m=32)`` (32 B1 launches; within 1e-10 of a
+    plain scaling-and-squaring Taylor reference). The B2 kernel is held
+    against its plain version on the operands these solvers hand it: a
+    transposed slice (``blk.T``, k = 2), QR's ``Q`` (k = 24), a column
+    slice of it (k = 8).
 
 Each main path (config[0]; a forward and backward SpMV per dtype; config[1]
 forward and backward for each matrix and for ``csc @ X``; config[2]
@@ -155,7 +187,8 @@ time of one PyTorch library call that computes the same function, or null
 where there is none; the rows of kernels with variants also the launches
 of each variant; banded8 has BSR rows of its own, the banded matrix CSR
 SpMM rows, and SDDMM at k = 1 rows beside its k = 64 ones; the CSR and BSR
-SpMV rows also the launches of phase 16's solvers) and the card's
+SpMV rows also the launches of phase 16's solvers, and the CSR SpMV,
+SpMM and SpGEMM rows those of phases 18-19) and the card's
 ``nvidia-smi`` name and power limit; the last line is the ``{"ok": true,
 "device": ...}`` record.
 """
@@ -201,7 +234,12 @@ from spalinalg_tpu_torch.ops.kernels.dia_spmv import (_shifted_products,
 from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import (
     spgemm_numeric, spgemm_numeric_plain)
 from spalinalg_tpu_torch.linalg import (bicgstab, cg, chebyshev, cholesky,
-                                        cholesky_solve, gmres, ic0, ilu0)
+                                        cholesky_solve, eigsh, expm_multiply,
+                                        gmres, ic0, ilu0, lobpcg, lstsq, lu,
+                                        lu_solve, qr, qr_q_apply, qr_qt_apply,
+                                        qr_r_dense, spsolve, svds)
+from spalinalg_tpu_torch.linalg.cholesky import SLAB_LIMIT_BYTES
+from spalinalg_tpu_torch.linalg.supernodal_lu import supernodal_lu_factor
 from spalinalg_tpu_torch.tools import probe_widegather as probe
 from spalinalg_tpu_torch.utils import metrics
 
@@ -340,6 +378,38 @@ CHOL_RTOL = {"float64": 1e-10, "float32": 1e-4}  # ||A·x - b|| / ||b||
 BAND_MATCH = 1e-10   # banded against supernodal solve, relative
 REFACTORS = 3
 SOLVES = 5
+LU_K = 512       # phase 18: upwind convection-diffusion of LU_K**2 (lu)
+SPSOLVE_K = 256  # phase 18: spsolve's grids (banded LU and Cholesky)
+LU_RTOL = {"float64": 1e-10, "float32": 1e-4}   # ||b - A·x|| / ||b||
+LSQ_K = 512      # phase 18, 19: the gradient operator of LSQ_K**2
+GRAD_REG = 0.1   # its regularising identity's weight
+LSQ_RTOL = {"float64": 1e-10, "float32": 1e-3}  # ||Aᵀ(b - A·x)|| / ||Aᵀb||
+QR_APPLY_K = 64  # phase 18: qr_q_apply / qr_qt_apply / qr_r_dense, n = 4096
+QR_APPLY_COLS = 8
+QR_RTOL = 1e-10
+EIG_K = 512      # phase 19: the 5-point Laplacian of EIG_K**2
+EIG_SI_K = 4     # shift-invert eigenpairs (a degenerate pair among them)
+EIG_BLOCK = 2
+EIG_SI_STEPS = 12   # eigsh's block Lanczos steps: ceil(max(2k + 8, 24) / 2)
+EIG_RTOL = 1e-8     # against the exact eigenvalues, relative to the largest
+EIG_RESID = 1e-5    # ||L·v - λ·v|| / ||L|| (||L|| <= 8, Gershgorin)
+LANCZOS_M = 64
+LOBPCG_K = 8
+LOBPCG_ITERS = 40
+LOBPCG_CONV_K = 32   # lobpcg run to convergence: the LOBPCG_CONV_K**2 Laplacian
+LOBPCG_CONV_ITERS = 200
+LOBPCG_RTOL = 1e-8   # its Ritz values against the exact ones, relative
+LOBPCG_RESID = 1e-5  # its residuals ||A·x - θ·x|| (plain SpMM)
+RESID_ATOL = 1e-10   # a reported residual against the plain recomputation
+RITZ_RTOL = 1e-8     # eigsh LA / svds Ritz values against plain Lanczos
+RITZ_RESID_RTOL = 1e-4  # and their residuals against the reference's
+                        # (relative, above RESID_ATOL)
+SVDS_K = 6
+SVDS_M = 32      # eigsh's default Krylov size for k = 6
+EXPM_M = 32
+EXPM_STEPS = 16  # the plain reference: exp(-L) = exp(-L / 16)**16, ...
+EXPM_TERMS = 18  # ... each a Taylor series of 18 terms (||L|| / 16 <= 0.5)
+EXPM_RTOL = 1e-10
 
 
 def nvidia_smi_card() -> str:
@@ -2304,10 +2374,20 @@ def expect_launches(what: str, got, kname: str, name: str, n: int,
     """Fail unless the run launched ``kname`` in ``name`` exactly ``n``
     times and no other kernel; add ``n`` to the kernel line's
     ``solver_launches``."""
-    if got != {kname: {name: n}}:
+    expect_counts(what, got, {kname: {name: n}}, solver_launches)
+
+
+def expect_counts(what: str, got, want, solver_launches) -> None:
+    """Fail unless the run launched exactly ``want`` (``{kernel: {dtype:
+    n}}``) and nothing else; add each count to the kernel line's
+    ``solver_launches``."""
+    if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected "
-                             f"{{{kname!r}: {{{name!r}: {n}}}}}")
-    solver_launches[kname, name] = solver_launches.get((kname, name), 0) + n
+                             f"{want}")
+    for kname, per in want.items():
+        for name, n in per.items():
+            solver_launches[kname, name] = (
+                solver_launches.get((kname, name), 0) + n)
 
 
 def true_residual(A64, x, b) -> float:
@@ -2643,12 +2723,618 @@ def cholesky_phase(device, card: str) -> None:
     free_memory()
 
 
+def hold_spmm(what: str, mat, X) -> str:
+    """The SpMM kernel of ``mat`` on the operand ``X`` as a solver hands
+    it over (a transposed view, a column slice, QR's layout), through the
+    wrapper and through ``mat @ X``, against the plain version on a
+    contiguous copy, entry by entry within ``TOL·(|A||X|)``."""
+    n = mat.nrows
+    ptr, ind, vals = mat.rowptr, mat.colind, mat.values
+    before = dict(VARIANTS["csr_spmm"])
+    Y = csr_spmm(ptr, ind, vals, X, n)
+    variant = ran_variant(VARIANTS["csr_spmm"], before, f"{what} SpMM")
+    Xc = X.contiguous()
+    err = (Y - csr_spmm_plain(ptr, ind, vals, Xc, n)).abs()
+    tol = TOL[str(X.dtype).removeprefix("torch.")]
+    within(err, csr_spmm_plain(ptr, ind, vals.abs(), Xc.abs(), n), tol,
+           f"{what} SpMM against its plain version")
+    if not torch.equal(mat @ X, Y):
+        raise AssertionError(f"{what}: mat @ X differs from the wrapper")
+    layout = "contiguous" if X.is_contiguous() else f"strides {X.stride()}"
+    return (f"csr_spmm:{variant} k={X.shape[1]} ({layout}) == plain within "
+            f"{tol}·|A||X| (max |err| {float(err.max()):.3e})")
+
+
+def hold_spgemm(what: str, a, b, c) -> str:
+    """The SpGEMM numeric kernel's output ``c = a * b`` against the plain
+    numeric phase on the same (cached) plan, slot by slot within
+    ``TOL·Σ|a||b|``."""
+    plan = spgemm_mod._cached_plan(a, b)
+    args = (plan.gid, plan.a_idx, plan.b_idx)
+    if not (torch.equal(c.rowptr, plan.rowptr)
+            and torch.equal(c.colind, plan.colind)):
+        raise AssertionError(f"{what}: A·B has another structure than its "
+                             "plan")
+    ref = spgemm_numeric_plain(*args, a.values, b.values, plan.n_out)
+    err = (c.values - ref).abs()
+    tol = TOL[str(c.dtype).removeprefix("torch.")]
+    within(err, spgemm_numeric_plain(*args, a.values.abs(), b.values.abs(),
+                                     plan.n_out), tol, f"{what} SpGEMM")
+    return (f"spgemm ({plan.a_idx.numel()} terms, {plan.n_out} slots) == "
+            f"plain within {tol}·Σ|a||b| (max |err| {float(err.max()):.3e})")
+
+
+def gradient_csr(k: int, device, reg: float = GRAD_REG):
+    """``[Dx; Dy; reg·I]`` of a k**2 grid (forward differences along the
+    fast and the slow axis, then the regularising identity): 2k(k - 1) +
+    k**2 rows, k**2 columns, float64 CSR through the validating
+    constructor. Least squares on it reconstructs a field from its
+    gradients."""
+    n = k * k
+    idx = np.arange(n, dtype=np.int64).reshape(k, k)
+    dx = idx[:, :-1].ravel()                   # i·k + j, j < k - 1
+    dy = idx[:-1, :].ravel()                   # i·k + j, i < k - 1
+    m_d = dx.size
+    rows = np.concatenate([np.arange(m_d), np.arange(m_d),
+                           m_d + np.arange(m_d), m_d + np.arange(m_d),
+                           2 * m_d + np.arange(n)])
+    cols = np.concatenate([dx, dx + 1, dy, dy + k, np.arange(n)])
+    vals = np.concatenate([np.full(m_d, -1.0), np.full(m_d, 1.0),
+                           np.full(m_d, -1.0), np.full(m_d, 1.0),
+                           np.full(n, reg)])
+    order = np.lexsort((cols, rows))
+    ptr = np.zeros(2 * m_d + n + 1, dtype=np.int64)
+    np.add.at(ptr, rows + 1, 1)
+    return CsrMatrix(2 * m_d + n, n, np.cumsum(ptr), cols[order],
+                     vals[order], device=device)
+
+
+def lu_refactor_ms(plan, svals) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    supernodal_lu_factor(plan, svals, perturb=True)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def factor_gap(a, b) -> tuple:
+    """Whether two supernodal LU factors are bitwise equal, and their
+    largest difference relative to each bucket's largest entry."""
+    same, worst = True, 0.0
+    for part in ("lu11", "l21", "u12"):
+        for key, p in getattr(a, part).items():
+            q = getattr(b, part)[key]
+            if p.numel() == 0:
+                continue
+            same = same and torch.equal(p, q)
+            worst = max(worst, float((p - q).abs().max()
+                                     / p.abs().max().clamp_min(1e-300)))
+    same = same and all(torch.equal(p, b.perm11[key])
+                        for key, p in a.perm11.items())
+    return same, worst
+
+
+def relative_residual(A64, x, b) -> float:
+    return true_residual(A64, x, b) / float(torch.linalg.vector_norm(
+        b.double()))
+
+
+def lu_phase(device, card: str, solver_launches) -> None:
+    """Phase 18: ``lu`` on the upwind convection-diffusion of the 512**2
+    grid in both dtypes (``auto`` -> supernodal through the slab guard);
+    ``spsolve`` on the 256**2 convection-diffusion (LU, banded) and
+    Laplacian (Cholesky); ``lstsq`` on the 512**2 gradient operator in
+    both dtypes; ``qr_q_apply`` / ``qr_qt_apply`` / ``qr_r_dense`` at
+    n = 4096."""
+    C = stencil_csr(LU_K, 2, device, convection=CONVECTION)
+    n = C.nrows
+    nb = 64
+    slab_gb = -(-n // nb) * (nb + LU_K) ** 2 * 8 / 1e9
+    print(f"phase 18: upwind convection-diffusion {LU_K}^2 (convection "
+          f"{CONVECTION}): n={n} nnz={C.nnz}; RCM band {LU_K}, float64 slab "
+          f"stack {slab_gb:.2f} GB > {SLAB_LIMIT_BYTES / 1e9:.1f} GB")
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    for name in ("float64", "float32"):     # float64 builds the plan
+        np_dtype, dtype = DTYPES[name]
+        A = C if name == "float64" else C.astype(dtype)
+        b = card_vector(n, np_dtype, 21, device)
+        held = hold_spmv(f"LU {name}", A, b)
+        rec = metrics.enable()
+        rec.records.clear()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fac = lu(A)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            host = {r.op: r.seconds for r in rec.records
+                    if r.op.startswith("lu_")}
+        finally:
+            metrics.disable()
+            rec.records.clear()
+        if fac.path != "supernodal":
+            raise AssertionError(f"LU {LU_K}^2 {name}: auto took the "
+                                 f"{fac.path} path, not supernodal")
+        plan, svals = fac.snlu.plan, fac.values
+        times = [lu_refactor_ms(plan, svals) for _ in range(REFACTORS)]
+        refactor = sorted(times)[len(times) // 2]
+        again = supernodal_lu_factor(plan, svals, perturb=True)
+        same, worst = factor_gap(fac.snlu, again)
+        if not same and not worst <= TOL[name]:
+            raise AssertionError(f"LU {name}: two factors differ by "
+                                 f"{worst:.3e} relative, past {TOL[name]}")
+        del again
+        ops, _ = launches_per_call(
+            lambda: supernodal_lu_factor(plan, svals, perturb=True), 1)
+        x, _, got = solver_run(lambda: lu_solve(fac, b))
+        expect_counts(f"LU solve {name} (refine=1)", got,
+                      {"csr_spmv": {name: 1}}, solver_launches)
+        solve_ms = time_ms(lambda: lu_solve(fac, b), SOLVES)
+        rel = relative_residual(C, x, b)
+        if not rel <= LU_RTOL[name]:
+            raise AssertionError(f"LU {name}: ||b - A·x|| / ||b|| {rel:.3e}"
+                                 f" > {LU_RTOL[name]}")
+        nbk = sum(len(bks) for bks in plan.levels)
+        hosts = ", ".join(f"{op.removeprefix('lu_')} {sec:.3f} s"
+                          for op, sec in host.items()) or "cached"
+        repeat = ("bitwise equal" if same else
+                  f"equal within {worst:.3e} relative (index_add_ atomics)")
+        print(f"phase 18: LU {LU_K}^2 {name}: auto -> {fac.path}; host "
+              f"(symmetrize, ordering = AMD, etree = etree + postorder, "
+              f"symbolic, plan): {hosts}; cold factor {cold:.3f} s; "
+              f"re-factor supernodal_lu_factor(plan, values) {refactor:.2f} "
+              f"ms (runs {', '.join(f'{t:.2f}' for t in times)}), "
+              f"{plan.flops() / refactor / 1e6:.1f} GFLOP/s over "
+              f"{plan.flops() / 1e9:.3f} GFLOP of padded fronts, "
+              f"{'not measured' if ops is None else f'{ops:.0f}'} device "
+              f"operations over {len(plan.levels)} levels, {nbk} buckets; "
+              f"L+U entries {plan.lu_nnz}; solve (refine=1: one B1 launch) "
+              f"{solve_ms:.3f} ms; ||b - A·x|| / ||b|| (plain SpMV) = "
+              f"{rel:.3e}; two factors {repeat}; {held} | {card}")
+        print_profile(f"phase 18: LU re-factor {name}:", lambda:
+                      supernodal_lu_factor(plan, svals, perturb=True), 1)
+        if name == "float64":
+            print_profile("phase 18: LU solve float64 (refine=1):",
+                          lambda: lu_solve(fac, b), 1)
+        del fac, x, b, A, svals
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 18: LU peak device memory {peak / 1e9:.3f} GB "
+          f"({resident / 1e9:.3f} GB resident before) | {card}")
+    del C
+    free_memory()
+
+    # spsolve: the convection-diffusion matrix (LU, banded) and the
+    # Laplacian (Cholesky) of the 256**2 grid
+    S = stencil_csr(SPSOLVE_K, 2, device, convection=CONVECTION)
+    b = card_vector(S.nrows, np.float64, 22, device)
+    rec = metrics.enable()
+    rec.records.clear()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fac = lu(S)
+        torch.cuda.synchronize()
+        band_s = time.perf_counter() - t0
+        slab_s = sum(r.seconds for r in rec.records
+                     if r.op == "lu_band_slabs")
+    finally:
+        metrics.disable()
+        rec.records.clear()
+    if fac.path != "banded":
+        raise AssertionError(f"spsolve {SPSOLVE_K}^2: lu's auto took "
+                             f"{fac.path}, not the banded path")
+    x_band = lu_solve(fac, b)
+    band_ms = time_ms(lambda: lu_solve(fac, b), 1)
+    del fac
+    x, sp_s, got = solver_run(lambda: spsolve(S, b))
+    expect_counts("spsolve convection-diffusion", got, {}, solver_launches)
+    gap = float(torch.linalg.vector_norm(x - x_band)
+                / torch.linalg.vector_norm(x_band))
+    fac_sn = lu(S, method="supernodal")
+    x_sn = lu_solve(fac_sn, b)
+    del fac_sn
+    rel_sn = float(torch.linalg.vector_norm(x - x_sn)
+                   / torch.linalg.vector_norm(x_sn))
+    rel = relative_residual(S, x, b)
+    if not (gap <= BAND_MATCH and rel_sn <= BAND_MATCH
+            and rel <= LU_RTOL["float64"]):
+        raise AssertionError(f"spsolve {SPSOLVE_K}^2: against lu {gap:.3e},"
+                             f" against supernodal {rel_sn:.3e}, residual "
+                             f"{rel:.3e}")
+    print(f"phase 18: spsolve convection-diffusion {SPSOLVE_K}^2 float64: "
+          f"auto -> LU -> banded (lu alone {band_s:.3f} s, of it the host "
+          f"slabs {slab_s:.3f} s and {-(-S.nrows // 64)} panels of 64 "
+          f"Doolittle steps; its solve "
+          f"{band_ms:.3f} ms; no kernel launch: the banded path does not "
+          f"refine); spsolve {sp_s:.3f} s, {gap:.3e} from lu_solve, "
+          f"{rel_sn:.3e} from lu(method='supernodal'); ||b - A·x|| / ||b|| "
+          f"(plain SpMV) = {rel:.3e} | {card}")
+    del S, x, x_band, x_sn
+    Lap = stencil_csr(SPSOLVE_K, 2, device)
+    x, sp_s, got = solver_run(lambda: spsolve(Lap, b))
+    expect_counts("spsolve Laplacian", got, {}, solver_launches)
+    rel = relative_residual(Lap, x, b)
+    if not rel <= CHOL_RTOL["float64"]:
+        raise AssertionError(f"spsolve Laplacian: residual {rel:.3e}")
+    print(f"phase 18: spsolve Laplacian {SPSOLVE_K}^2 float64: auto -> "
+          f"symmetric -> Cholesky (banded) + probe solve; {sp_s:.3f} s; "
+          f"||b - A·x|| / ||b|| (plain SpMV) = {rel:.3e} | {card}")
+    del Lap, x, b
+    free_memory()
+
+    # lstsq: the regularised gradient operator of the 512**2 grid
+    G64 = gradient_csr(LSQ_K, device)
+    print(f"phase 18: gradient operator [Dx; Dy; {GRAD_REG}·I] of {LSQ_K}^2: "
+          f"{G64.nrows} x {G64.ncols}, nnz={G64.nnz}")
+    for name in ("float64", "float32"):
+        np_dtype, dtype = DTYPES[name]
+        G = G64 if name == "float64" else G64.astype(dtype)
+        b = card_vector(G.nrows, np_dtype, 23, device)
+        t0 = time.perf_counter()
+        fac = qr(G)                     # warm: SpGEMM plan, Cholesky plan
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        held = (hold_spmv(f"lstsq {name} A", G, fac.at @ b) + "; "
+                + hold_spmv(f"lstsq {name} Aᵀ", fac.at, b) + "; "
+                + hold_spgemm(f"lstsq {name} AᵀA", fac.at, G, fac.gram))
+        if fac.chol.path != "supernodal":
+            raise AssertionError(f"lstsq {name}: AᵀA took {fac.chol.path}")
+        del fac
+        x, sec, got = solver_run(lambda: lstsq(G, b))
+        expect_counts(f"lstsq {name}", got,
+                      {"spgemm": {name: 1}, "csr_spmv": {name: 3}},
+                      solver_launches)
+        at = G.transpose()
+        r = b.double() - csr_spmv_plain(G64.rowptr, G64.colind, G64.values,
+                                        x.double(), G64.nrows)
+        ne = float(torch.linalg.vector_norm(csr_spmv_plain(
+            at.rowptr, at.colind, at.values.double(), r, G64.ncols))
+            / torch.linalg.vector_norm(csr_spmv_plain(
+                at.rowptr, at.colind, at.values.double(), b.double(),
+                G64.ncols)))
+        if not ne <= LSQ_RTOL[name]:
+            raise AssertionError(f"lstsq {name}: ||Aᵀ(b - A·x)|| / ||Aᵀb|| "
+                                 f"{ne:.3e} > {LSQ_RTOL[name]}")
+        print(f"phase 18: lstsq {LSQ_K}^2 {name}: qr with plans cold "
+              f"{cold:.3f} s; lstsq (plans cached: AᵀA by one B3 launch, "
+              f"Cholesky, qr_solve refine=1 by three B1 launches) "
+              f"{sec:.3f} s; ||Aᵀ(b - A·x)|| / ||Aᵀb|| (plain SpMV) = "
+              f"{ne:.3e}; {held} | {card}")
+        del G, b, x, at, r
+    free_memory()
+
+    # the explicit R and the implicit Q at n = 4096
+    Gs = gradient_csr(QR_APPLY_K, device)
+    k = QR_APPLY_COLS
+    rng_y = card_vector(Gs.ncols * k, np.float64, 24, device)
+    Y = rng_y.view(k, Gs.ncols).mT               # (n, k), transposed view
+    fac, _, got = solver_run(lambda: qr(Gs, method="sparse"))
+    expect_counts("qr (n = 4096)", got, {"spgemm": {"float64": 1}},
+                  solver_launches)
+    held = hold_spgemm(f"qr n={Gs.ncols} AᵀA", fac.at, Gs, fac.gram)
+    R = qr_r_dense(fac)
+    gram = fac.gram.to_dense()
+    r_err = float((R.mT @ R - gram).abs().max() / gram.abs().max())
+    QY, _, got = solver_run(lambda: qr_q_apply(fac, Y))
+    expect_counts("qr_q_apply", got, {"csr_spmm": {"float64": 1}},
+                  solver_launches)
+    back, _, got = solver_run(lambda: qr_qt_apply(fac, QY))
+    expect_counts("qr_qt_apply", got, {"csr_spmm": {"float64": 1}},
+                  solver_launches)
+    trip = float((back - Y).abs().max() / Y.abs().max())
+    held += "; " + "; ".join((
+        hold_spmm("qr_q_apply", Gs, torch.linalg.solve_triangular(
+            R, Y, upper=True)), hold_spmm("qr_qt_apply", fac.at, QY)))
+    if not (r_err <= QR_RTOL and trip <= QR_RTOL):
+        raise AssertionError(f"qr n={Gs.ncols}: RᵀR against AᵀA {r_err:.3e},"
+                             f" Qᵀ(Qy) against y {trip:.3e}")
+    print(f"phase 18: qr of the {QR_APPLY_K}^2 gradient operator "
+          f"({Gs.nrows} x {Gs.ncols}): qr_r_dense RᵀR == AᵀA within "
+          f"{r_err:.3e} relative; qr_qt_apply(qr_q_apply(Y)) == Y within "
+          f"{trip:.3e} (k={k}, Y a transposed view; one B3 launch for AᵀA, "
+          f"one B2 launch each apply); "
+          f"{held} | {card}")
+    del Gs, fac, R, gram, QY, back, Y
+    free_memory()
+
+
+def laplacian_modes(k: int, count: int, dims: int = 2) -> np.ndarray:
+    """The ``count`` smallest eigenvalues of the (2·dims + 1)-point
+    Dirichlet Laplacian of a k**dims grid, ascending."""
+    mu = 2.0 - 2.0 * np.cos(np.pi * np.arange(1, k + 1) / (k + 1))
+    lam = mu[:, None] + mu[None, :]
+    return np.sort(lam.ravel())[:count]
+
+
+def plain_expm(A64, b, t: float) -> torch.Tensor:
+    """``exp(t·A) b`` by scaling and squaring with a Taylor series, every
+    product the plain SpMV: an independent reference for
+    ``expm_multiply`` (``||t·A|| / EXPM_STEPS <= 0.5`` here)."""
+    x = b.double()
+    for _ in range(EXPM_STEPS):
+        term, acc = x, x.clone()
+        for j in range(1, EXPM_TERMS + 1):
+            term = csr_spmv_plain(A64.rowptr, A64.colind, A64.values, term,
+                                  A64.nrows) * (t / EXPM_STEPS / j)
+            acc += term
+        x = acc
+    return x
+
+
+def plain_lanczos(matvec, v0, m: int):
+    """Reference Lanczos for the eigensolver gates: ``m`` steps from
+    ``v0``, each product ``matvec`` (plain SpMVs), each new vector
+    reorthogonalised against the whole basis by classical Gram-Schmidt
+    twice. Returns the Ritz values (ascending) and unit Ritz vectors."""
+    V = v0.new_zeros((m, v0.numel()))
+    V[0] = v0 / torch.linalg.vector_norm(v0)
+    T = v0.new_zeros((m, m))
+    for i in range(m):
+        w = matvec(V[i])
+        T[i, i] = torch.dot(V[i], w)
+        for _ in range(2):
+            w = w - V[:i + 1].mT @ (V[:i + 1] @ w)
+        if i + 1 < m:
+            T[i, i + 1] = T[i + 1, i] = torch.linalg.vector_norm(w)
+            V[i + 1] = w / T[i, i + 1]
+    theta, y = torch.linalg.eigh(T)
+    X = V.mT @ y
+    return theta, X / torch.linalg.vector_norm(X, dim=0, keepdim=True)
+
+
+def plain_spmm(A, X) -> torch.Tensor:
+    return csr_spmm_plain(A.rowptr, A.colind, A.values, X.contiguous(),
+                          A.nrows)
+
+
+def lobpcg_run(what: str, A, k: int, iters: int, solver_launches):
+    """``lobpcg(A, k=k, maxiter=iters)`` once, with its exact SpMM launches
+    (``iters + 1`` at k, ``iters`` at 3k, by the recorder's flops) and
+    its outputs held against the plain SpMM: orthonormal Ritz vectors,
+    Ritz values their Rayleigh quotients, the reported residuals
+    ``||A·x - θ·x||`` the plain ones. Returns ``(w, plain residuals,
+    seconds, widths, largest gap of a reported residual)``."""
+    rec = metrics.enable()
+    rec.records.clear()
+    try:
+        (w, X, resid), sec, got = solver_run(
+            lambda: lobpcg(A, k=k, maxiter=iters))
+        widths = {}
+        for r in rec.records:
+            if r.op == "csr_spmm":
+                kk = r.flops // (2 * A.nse)
+                widths[kk] = widths.get(kk, 0) + 1
+    finally:
+        metrics.disable()
+        rec.records.clear()
+    want = {k: iters + 1, 3 * k: iters}
+    if widths != want:
+        raise AssertionError(f"{what}: SpMM launches by k {widths}, "
+                             f"expected {want}")
+    expect_counts(what, got, {"csr_spmm": {"float64": 2 * iters + 1}},
+                  solver_launches)
+    AX = plain_spmm(A, X)
+    orth = float((X.mT @ X - torch.eye(k, dtype=X.dtype, device=X.device))
+                 .abs().max())
+    rq = float(((X * AX).sum(0) - w).abs().max() / w.abs().max())
+    res = torch.linalg.vector_norm(AX - X * w[None, :], dim=0)
+    gap = float((resid - res).abs().max())
+    if not (orth <= 1e-10 and rq <= 1e-10 and gap <= RESID_ATOL):
+        raise AssertionError(f"{what}: XᵀX - I {orth:.3e}, Ritz values "
+                             f"against xᵀAx {rq:.3e}, reported residuals "
+                             f"{gap:.3e} from the plain ones")
+    return w, res, sec, widths, gap
+
+
+def eigen_phase(device, card: str, solver_launches) -> None:
+    """Phase 19: shift-invert block ``eigsh`` on the 512**2 Laplacian (LU),
+    ``eigsh`` LA on phase 16's 128**3 Laplacian, ``lobpcg`` on the 512**2
+    Laplacian and to convergence on a 32**2 one, ``svds`` on phase 18's
+    gradient operator and ``expm_multiply`` on the 512**2 Laplacian, all
+    float64. eigsh LA and svds are held against a plain Lanczos from the
+    same start vector."""
+    L = stencil_csr(EIG_K, 2, device)
+    n = L.nrows
+    b = card_vector(n, np.float64, 25, device)
+    held = hold_spmv("eigsh sigma=0", L, b)
+    # the SpMM operands of lobpcg, block Lanczos and svds, as they come
+    basis = card_vector(24 * n, np.float64, 26, device).view(24, n)
+    Q, _ = torch.linalg.qr(basis.mT)
+    spmm_held = "; ".join(
+        hold_spmm(f"{EIG_K}^2 Laplacian {label}", L, X) for label, X in (
+            ("blk.T", basis[2:4].mT), ("Q", Q), ("X", Q[:, 8:16]),
+            ("X (k = 8, copy)", Q[:, :8].contiguous())))
+    del basis, Q
+    ref = laplacian_modes(EIG_K, EIG_SI_K)
+    (w, v), sec, got = solver_run(
+        lambda: eigsh(L, k=EIG_SI_K, sigma=0.0, block=EIG_BLOCK))
+    solves = 2 * EIG_SI_STEPS * EIG_BLOCK    # block Lanczos, then op @ V.T
+    expect_counts("eigsh sigma=0", got, {"csr_spmv": {"float64": solves}},
+                  solver_launches)
+    err = float(np.abs(w.cpu().numpy() - ref).max() / ref.max())
+    res = max(float(torch.linalg.vector_norm(csr_spmv_plain(
+        L.rowptr, L.colind, L.values, v[:, j], n) - w[j] * v[:, j]))
+        for j in range(EIG_SI_K))
+    if not (err <= EIG_RTOL and res / 8.0 <= EIG_RESID):
+        raise AssertionError(f"eigsh sigma=0: eigenvalues {err:.3e} from "
+                             f"4 - 2cos(πi/{EIG_K + 1}) - 2cos(πj/"
+                             f"{EIG_K + 1}), Ritz residual {res:.3e}")
+    print(f"phase 19: eigsh(L, k={EIG_SI_K}, sigma=0, block={EIG_BLOCK}) "
+          f"{EIG_K}^2 float64: {sec:.3f} s (the LU: supernodal; {solves} "
+          f"lu_solve with refine=1, one B1 launch each); eigenvalues "
+          f"{', '.join(f'{x:.12e}' for x in w.tolist())}, max {err:.3e} "
+          f"relative from 4 - 2cos(πi/{EIG_K + 1}) - 2cos(πj/{EIG_K + 1});"
+          f" ||L·v - λ·v|| (plain SpMV) <= {res:.3e}; {held}; {spmm_held} |"
+          f" {card}")
+    del w, v
+
+    # eigsh LA on phase 16's 128**3 Laplacian: 64 Lanczos steps
+    K = stencil_csr(KRYLOV_K, 3, device)
+    v0 = card_vector(K.nrows, np.float64, 27, device)
+    hold = hold_spmv("eigsh LA", K, v0)
+    (w, v), sec, got = solver_run(lambda: eigsh(K, k=1, which="LA",
+                                                m=LANCZOS_M, v0=v0))
+    expect_counts("eigsh LA", got, {"csr_spmv": {"float64": LANCZOS_M}},
+                  solver_launches)
+
+    def k_plain(x):
+        return csr_spmv_plain(K.rowptr, K.colind, K.values, x, K.nrows)
+
+    lam_max = 6.0 + 6.0 * np.cos(np.pi / (KRYLOV_K + 1))
+    res = float(torch.linalg.vector_norm(k_plain(v[:, 0]) - w[0] * v[:, 0]))
+    theta, y = plain_lanczos(k_plain, v0, LANCZOS_M)
+    t_ref, y_ref = float(theta[-1]), y[:, -1]
+    res_ref = float(torch.linalg.vector_norm(k_plain(y_ref) - t_ref * y_ref))
+    del y, y_ref
+    d_val = abs(float(w[0]) - t_ref) / t_ref
+    d_res = abs(res - res_ref) / max(res_ref, RESID_ATOL / RITZ_RESID_RTOL)
+    if not (lam_max - 0.01 <= float(w[0]) <= lam_max + 1e-9
+            and d_val <= RITZ_RTOL and d_res <= RITZ_RESID_RTOL):
+        raise AssertionError(
+            f"eigsh LA: Ritz value {float(w[0])!r} (λ_max {lam_max!r}), "
+            f"{d_val:.3e} from plain Lanczos; residual {res:.3e}, "
+            f"{d_res:.3e} from the reference's {res_ref:.3e}")
+    print(f"phase 19: eigsh(k=1, which='LA', m={LANCZOS_M}) {KRYLOV_K}^3 "
+          f"Laplacian float64: {sec:.3f} s, {sec * 1e3 / LANCZOS_M:.3f} ms a "
+          f"step ({LANCZOS_M} B1 launches); Ritz value {float(w[0]):.10f} "
+          f"against λ_max {lam_max:.10f} ({lam_max - float(w[0]):.3e} "
+          f"below); Ritz residual ||A·v - θ·v|| (plain SpMV) {res:.3e}; "
+          f"plain Lanczos from the same v0: Ritz value {d_val:.3e} and "
+          f"residual {d_res:.3e} relative away; {hold} | {card}")
+    del K, w, v, v0
+    free_memory()
+
+    # lobpcg: B2 at k and 3k, 40 steps on the 512**2 Laplacian (far from
+    # converged with no preconditioner), then to convergence on a 32**2 one
+    k = LOBPCG_K
+    w, res, sec, widths, gap = lobpcg_run("lobpcg", L, k, LOBPCG_ITERS,
+                                          solver_launches)
+    ref = laplacian_modes(EIG_K, k)
+    wl = w.cpu().numpy()
+    if not np.all(wl >= ref - 1e-9):
+        raise AssertionError(f"lobpcg: Ritz values {wl} below the "
+                             f"eigenvalues {ref}")
+    print(f"phase 19: lobpcg(k={k}, maxiter={LOBPCG_ITERS}) {EIG_K}^2 "
+          f"Laplacian float64: {sec:.3f} s, {sec * 1e3 / LOBPCG_ITERS:.3f} ms"
+          f" a step; B2 launches by k {widths}; Ritz values / exact "
+          f"{', '.join(f'{a / e:.4f}' for a, e in zip(wl, ref))}; residuals "
+          f"||A·x - θ·x|| (plain SpMM) "
+          f"{', '.join(f'{x:.3e}' for x in res.tolist())}, the reported "
+          f"ones within {gap:.3e} (<= {RESID_ATOL}) | {card}")
+    S = stencil_csr(LOBPCG_CONV_K, 2, device)
+    basis = card_vector(3 * k * S.nrows, np.float64, 28, device).view(
+        3 * k, S.nrows)
+    Q, _ = torch.linalg.qr(basis.mT)
+    conv_held = "; ".join(
+        hold_spmm(f"{LOBPCG_CONV_K}^2 Laplacian {label}", S, X)
+        for label, X in (("Q", Q), ("X", Q[:, :k])))
+    w, res, sec, widths, gap = lobpcg_run("lobpcg (converged)", S, k,
+                                          LOBPCG_CONV_ITERS, solver_launches)
+    ref = laplacian_modes(LOBPCG_CONV_K, k)
+    err = float(np.abs(w.cpu().numpy() - ref).max() / ref.max())
+    if not (err <= LOBPCG_RTOL and float(res.max()) <= LOBPCG_RESID):
+        raise AssertionError(f"lobpcg {LOBPCG_CONV_K}^2: Ritz values "
+                             f"{err:.3e} from the exact ones, residuals up "
+                             f"to {float(res.max()):.3e}")
+    print(f"phase 19: lobpcg(k={k}, maxiter={LOBPCG_CONV_ITERS}) "
+          f"{LOBPCG_CONV_K}^2 Laplacian float64: {sec:.3f} s; B2 launches by"
+          f" k {widths}; Ritz values max {err:.3e} relative from the exact "
+          f"ones (<= {LOBPCG_RTOL}); residuals (plain SpMM) <= "
+          f"{float(res.max()):.3e} (<= {LOBPCG_RESID}), the reported ones "
+          f"within {gap:.3e}; {conv_held} | {card}")
+    del w, res, S, basis, Q
+
+    # svds on the gradient operator of the 512**2 grid
+    G = gradient_csr(LSQ_K, device)
+    at = G.transpose()
+    held_g = (hold_spmv("svds A", G, card_vector(G.ncols, np.float64, 29,
+                                                  device)) + "; "
+              + hold_spmv("svds Aᵀ", at, card_vector(G.nrows, np.float64,
+                                                     30, device)))
+    (u, s, vt), sec, got = solver_run(lambda: svds(G, k=SVDS_K))
+    expect_counts("svds", got, {"csr_spmv": {"float64": 2 * SVDS_M},
+                                "csr_spmm": {"float64": 1}}, solver_launches)
+    v = vt.mT                                 # the recovery SpMM's operand
+    held_g += "; " + hold_spmm("svds A·v", G, v)
+    u_plain = plain_spmm(G, v)
+    within((u - u_plain / s[None, :]).abs(),
+           csr_spmm_plain(G.rowptr, G.colind, G.values.abs(),
+                          v.abs().contiguous(), G.nrows) / s[None, :],
+           TOL["float64"], "svds u = A·v / s")
+
+    def at_plain(x):
+        return csr_spmv_plain(at.rowptr, at.colind, at.values, x, G.ncols)
+
+    def gram_plain(x):
+        return at_plain(csr_spmv_plain(G.rowptr, G.colind, G.values, x,
+                                       G.nrows))
+
+    # svds's start vector: eigsh's draw, seed 0, on the operand's device
+    v0 = torch.randn((G.ncols,), dtype=torch.float64, device=G.values.device,
+                     generator=torch.Generator(
+                         device=G.values.device).manual_seed(0))
+    theta, y = plain_lanczos(gram_plain, v0, SVDS_M)
+    s_ref = torch.sqrt(theta[-SVDS_K:].flip(0))
+    y_ref = y[:, -SVDS_K:].flip(1)
+    del y
+    res = torch.stack([torch.linalg.vector_norm(at_plain(u[:, j].contiguous())
+                                                - s[j] * v[:, j])
+                       for j in range(SVDS_K)])
+    res_ref = torch.stack([torch.linalg.vector_norm(
+        gram_plain(y_ref[:, j].contiguous()) / s_ref[j] - s_ref[j]
+        * y_ref[:, j]) for j in range(SVDS_K)])
+    d_val = float(((s - s_ref).abs() / s_ref).max())
+    d_res = float(((res - res_ref).abs()
+                   / res_ref.clamp_min(RESID_ATOL / RITZ_RESID_RTOL)).max())
+    mu = 2.0 - 2.0 * np.cos(np.pi * np.arange(LSQ_K) / LSQ_K)
+    sig = np.sqrt(np.sort((mu[:, None] + mu[None, :]).ravel())[::-1][:SVDS_K]
+                  + GRAD_REG ** 2)
+    sl = s.cpu().numpy()
+    # Ritz values interlace: the j-th largest is at most the exact one
+    if not (np.all(np.diff(sl) <= 0) and np.all(sl <= sig * (1 + 1e-12))
+            and d_val <= RITZ_RTOL and d_res <= RITZ_RESID_RTOL):
+        raise AssertionError(f"svds: singular values {sl} against {sig}, "
+                             f"{d_val:.3e} from plain Lanczos; residuals "
+                             f"{d_res:.3e} from the reference's")
+    print(f"phase 19: svds(A, k={SVDS_K}) gradient operator {LSQ_K}^2 "
+          f"float64: {sec:.3f} s ({2 * SVDS_M} B1 launches: {SVDS_M} Lanczos "
+          f"steps on AᵀA, matrix-free; one B2 launch at k={SVDS_K}); "
+          f"s / exact {', '.join(f'{a / e:.6f}' for a, e in zip(sl, sig))};"
+          f" ||Aᵀu - s·v|| (plain SpMV) "
+          f"{', '.join(f'{x:.3e}' for x in res.tolist())}; plain Lanczos on "
+          f"AᵀA from the same start: s {d_val:.3e} and residuals {d_res:.3e}"
+          f" relative away; u == A·v / s (plain SpMM) within "
+          f"{TOL['float64']}·|A||v| / s; {held_g} | {card}")
+    del G, u, s, vt, v, at, u_plain, y_ref, v0
+
+    # expm_multiply: 32 Arnoldi steps on -L
+    N = -L
+    held = hold_spmv("expm_multiply -L", N, b)
+    x, sec, got = solver_run(lambda: expm_multiply(N, b, m=EXPM_M))
+    expect_counts("expm_multiply", got, {"csr_spmv": {"float64": EXPM_M}},
+                  solver_launches)
+    want = plain_expm(N, b, 1.0)
+    rel = float(torch.linalg.vector_norm(x - want)
+                / torch.linalg.vector_norm(want))
+    if not rel <= EXPM_RTOL:
+        raise AssertionError(f"expm_multiply: {rel:.3e} from the plain "
+                             "Taylor reference")
+    print(f"phase 19: expm_multiply(-L, b, m={EXPM_M}) {EIG_K}^2 float64: "
+          f"{sec * 1e3:.3f} ms ({EXPM_M} B1 launches); {rel:.3e} relative "
+          f"from scaling and squaring ({EXPM_STEPS} x {EXPM_TERMS} Taylor "
+          f"terms, plain SpMV); {held} | {card}")
+    del L, N, b, x, want
+    free_memory()
+
+
 def kernel_line(launches, report, seen, solver_launches) -> list:
     """One row per kernel and dtype (its launches over every main path),
     and the rows of EXTRA_ROWS (the launches of their own matrix's main
     path); each row of a kernel with variants names the variants its
-    launches ran; the rows of the kernels the solvers of phase 16 ran
-    carry those launches as ``solver_launches``."""
+    launches ran; the rows of the kernels the solvers of phases 16, 18
+    and 19 ran carry those launches as ``solver_launches``."""
     def variants(kname, name, shapes=None):
         out = {}
         for (k, shape, n), per in seen.items():
@@ -2859,6 +3545,11 @@ def main() -> int:
         krylov_phase(device, card, solver_launches)
     with phase("phase 17"):
         cholesky_phase(device, card)
+    # ---- the linalg tier: LU, spsolve, QR (18), eigen and funm (19) ----
+    with phase("phase 18"):
+        lu_phase(device, card, solver_launches)
+    with phase("phase 19"):
+        eigen_phase(device, card, solver_launches)
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
     kernels = kernel_line(launches, report, seen, solver_launches)

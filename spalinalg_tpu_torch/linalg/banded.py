@@ -31,6 +31,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.metrics import instrument
+
 __all__ = [
     "BandCholeskyFactor",
     "BandLuFactor",
@@ -210,10 +212,13 @@ def _lu_nopivot(M: torch.Tensor) -> torch.Tensor:
 
 def band_lu_factor(csr, *, bandwidth: int, panel: int = 64) -> BandLuFactor:
     """Factor a banded CSR matrix ``A = L U`` (no pivoting), on the
-    matrix's device."""
+    matrix's device. The host slab build is recorded as ``lu_band_slabs``
+    when the metrics recorder is on."""
     nb = max(1, min(panel, csr.nrows))
     b = max(int(bandwidth), 1)
-    slabs, P, n_pad, m = _band_slabs(csr, b, nb)
+    slabs, P, n_pad, m = instrument(
+        "lu_band_slabs", lambda: _band_slabs(csr, b, nb), path="host",
+        device=torch.device("cpu"))
     slabs = torch.as_tensor(slabs, device=csr.device)
     panels = torch.empty((P, m, nb), dtype=slabs.dtype, device=csr.device)
     u12 = torch.empty((P, nb, b), dtype=slabs.dtype, device=csr.device)

@@ -89,6 +89,18 @@ def permute_csr(csr, perm: np.ndarray):
         csr.values[torch.as_tensor(src, device=dev)])
 
 
+def band_too_costly(n: int, bw: int, panel: int, dtype,
+                    band_threshold: float) -> bool:
+    """Whether ``auto`` leaves the banded path for the supernodal one: the
+    band is too wide for the ``O(n·b²)`` panel work, or the ``(P, m, m)``
+    slab stack that ``banded.py`` builds on the host passes
+    ``SLAB_LIMIT_BYTES`` (``cholesky`` and ``lu`` both ask)."""
+    nb = max(1, min(panel, n))
+    slab_bytes = -(-n // nb) * (nb + bw) ** 2 * dtype.itemsize
+    return (bw >= max(2, int(band_threshold * n))
+            or slab_bytes > SLAB_LIMIT_BYTES)
+
+
 @dataclass(frozen=True, eq=False)
 class CholeskyFactor:
     """Factorization result: ordering + banded, supernodal or dense
@@ -200,14 +212,9 @@ def cholesky(csr, *, reorder: bool = True, panel: int = 64,
             dense_l, _ = _cholesky_nan(mat.to_dense())
         return CholeskyFactor(n=n, perm=perm, band=None, dense_l=dense_l)
 
-    if method == "auto":
-        # band too wide for the O(n·b²) panel path, or its (P, m, m) slab
-        # stack too large: the general supernodal path instead
-        nb = max(1, min(panel, n))
-        slab_bytes = -(-n // nb) * (nb + bw) ** 2 * mat.dtype.itemsize
-        if (bw >= max(2, int(band_threshold * n))
-                or slab_bytes > SLAB_LIMIT_BYTES):
-            return _supernodal_cholesky(csr, reorder=reorder)
+    if method == "auto" and band_too_costly(n, bw, panel, mat.dtype,
+                                            band_threshold):
+        return _supernodal_cholesky(csr, reorder=reorder)
 
     fac = band_cholesky_factor(mat, bandwidth=bw, panel=panel)
     return CholeskyFactor(n=n, perm=perm, band=fac, dense_l=None)

@@ -255,16 +255,22 @@ def build_supernodal_plan(sym: SupernodalSymbolic, ptr: np.ndarray,
                 ext=ext_list, colg=colg, rowg=rowg,
             ))
         out_levels.append(buckets)
+    return SupernodalPlan(n=n, sym=sym, levels=out_levels,
+                          l_nnz=sym.l_nnz, last_reads=_last_reads(out_levels))
+
+
+def _last_reads(levels) -> Dict[Tuple[int, int], List[Tuple[int, int]]]:
+    """For each (level, bucket), the buckets whose Schur updates it is the
+    last to extend-add (the numeric phase frees them after it)."""
     last_reader: Dict[Tuple[int, int], Tuple[int, int]] = {}
-    for l, buckets in enumerate(out_levels):
+    for l, buckets in enumerate(levels):
         for bi, bk in enumerate(buckets):
             for key, _, _ in bk.ext:
                 last_reader[key] = (l, bi)
     last_reads: Dict[Tuple[int, int], List[Tuple[int, int]]] = {}
     for key, reader in last_reader.items():
         last_reads.setdefault(reader, []).append(key)
-    return SupernodalPlan(n=n, sym=sym, levels=out_levels,
-                          l_nnz=sym.l_nnz, last_reads=last_reads)
+    return last_reads
 
 
 def _factor_bucket(F: torch.Tensor, B: int, nsp: int, mup: int):

@@ -131,6 +131,12 @@ def test_port_never_imports_jax():
             "spalinalg_tpu_torch.linalg.banded, "
             "spalinalg_tpu_torch.linalg.supernodal, "
             "spalinalg_tpu_torch.linalg.cholesky, "
+            "spalinalg_tpu_torch.linalg.supernodal_lu, "
+            "spalinalg_tpu_torch.linalg.lu, "
+            "spalinalg_tpu_torch.linalg.solve, "
+            "spalinalg_tpu_torch.linalg.qr, "
+            "spalinalg_tpu_torch.linalg.funm, "
+            "spalinalg_tpu_torch.linalg.eigen, "
             "spalinalg_tpu_torch.ops.reduce_api, "
             "spalinalg_tpu_torch.ops.indexing, "
             "spalinalg_tpu_torch.ops.reduction, chip_smoke; "
@@ -308,6 +314,11 @@ def test_no_plain_torch_off_the_cpu():
     "spalinalg_tpu_torch.linalg.ordering",
     "spalinalg_tpu_torch.linalg.banded",
     "spalinalg_tpu_torch.linalg.cholesky",
+    "spalinalg_tpu_torch.linalg.lu",
+    "spalinalg_tpu_torch.linalg.solve",
+    "spalinalg_tpu_torch.linalg.qr",
+    "spalinalg_tpu_torch.linalg.funm",
+    "spalinalg_tpu_torch.linalg.eigen",
 ])
 def test_port_doctests(module):
     result = doctest.testmod(importlib.import_module(module))
@@ -456,7 +467,12 @@ def test_linalg_imports_with_jax_blocked():
             "('jax', 'jaxlib')]:\n"
             "    del sys.modules[m]\n"
             "import spalinalg_tpu_torch.linalg as la\n"
-            "assert 'cholesky' in la.__all__\n")
+            "import spalinalg_tpu_torch.linalg.supernodal_lu\n"
+            "for name in ('cholesky', 'lu', 'lu_solve', 'spsolve', "
+            "'factorized', 'is_symmetric', 'qr', 'qr_solve', 'lstsq', "
+            "'eigsh', 'lanczos', 'block_lanczos', 'lobpcg', 'svds', "
+            "'arnoldi', 'expm_multiply'):\n"
+            "    assert name in la.__all__ and callable(getattr(la, name))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -531,6 +547,40 @@ def test_solver_slice_no_build_on_cpu(monkeypatch):
     tla.bicgstab(A, b, M=tla.ilu0(A))
     for method in ("auto", "supernodal", "dense"):
         tla.cholesky_solve(tla.cholesky(A, method=method), b)
+    assert calls == []
+    assert _build.load_library.cache_info().currsize == 0
+
+
+def test_linalg_all_matches_jax():
+    """The port's linalg tier exports every name of the JAX package's."""
+    import spalinalg_tpu.linalg as jla
+    import spalinalg_tpu_torch.linalg as tla
+
+    assert sorted(tla.__all__) == sorted(jla.__all__)
+
+
+def test_linalg_tier_no_build_on_cpu(monkeypatch):
+    """LU, spsolve, QR, the eigensolvers and expm_multiply on CPU tensors
+    never reach the kernel build or ``nvcc``."""
+    import spalinalg_tpu_torch.linalg as tla
+
+    calls = []
+    monkeypatch.setattr(_build, "find_nvcc", lambda: calls.append(1))
+    monkeypatch.setattr(_build, "_build", lambda out: calls.append(1))
+    monkeypatch.setattr(_build, "_run_all", lambda cmds: calls.append(cmds))
+    _build.load_library.cache_clear()
+    A = _solver_matrix(tsp, 8)
+    b = np.ones(64)
+    for method in ("auto", "supernodal", "dense"):
+        tla.lu_solve(tla.lu(A, method=method), b)
+    tla.spsolve(A, b, assume_a="gen")
+    tla.lstsq(tsp.vstack([A, A]), np.ones(128))
+    tla.qr_qt_apply(tla.qr(tsp.vstack([A, A]), method="sparse"),
+                    np.ones((128, 2)))
+    tla.eigsh(A, k=2, sigma=0.0, block=2)
+    tla.lobpcg(A, k=2, maxiter=3)
+    tla.svds(A, k=2)
+    tla.expm_multiply(-A, b, m=8)
     assert calls == []
     assert _build.load_library.cache_info().currsize == 0
 
