@@ -169,6 +169,28 @@ pass; each prints its seconds):
     against its plain version on the operands these solvers hand it: a
     transposed slice (``blk.T``, k = 2), QR's ``Q`` (k = 24), a column
     slice of it (k = 8).
+20. The distributed tier (``spalinalg_tpu_torch.parallel``) on a one-rank
+    NCCL group (``make_row_mesh()``: the script needs one card, and NCCL
+    takes one rank a card): BASELINE config[4], the 5-point
+    Laplacian of a 3163**2 grid (10,004,569 rows, 50,010,193 entries)
+    built by formula in float64, and its float32 copy: ``partition_csr``
+    host seconds in both comm modes; ``dist_spmv`` (one B1 launch) and
+    ``dist_spmm`` at k = 64 (one B2 launch) in both modes against the
+    plain SpMV / SpMM of the whole matrix on the card within
+    ``TOL·|A||x|``, whether they are bitwise equal to ``csr @ x`` /
+    ``csr @ X``, and their times beside the single-card product's (each
+    run behind the spin); CG with Jacobi on a DistCsr of phase 16's
+    128**3 Laplacian (cg(csr)'s iteration count, one B1 launch a step and
+    one more); ``dist_bsr_spmv`` on tri128 and banded8 in both dtypes (one
+    B4/B6 launch each) against the plain BSR SpMV; ``DistCsr * DistCsr``
+    on phase 7's power-law generator at n = 2**16 (one B3 launch; the
+    structure of the single-card plan of ``a * a``, values within tol of
+    the plain numeric phase on it);
+    ``supernodal_factor_sharded`` on config[3]'s 512**2 Laplacian (its
+    solve's residual within 1e-10 of ``supernodal_factor``'s); the
+    ``heartbeat`` latency. Every count is exact; multi-rank correctness
+    (halo slabs, uneven shards) is the 4-rank gloo tests'
+    (``tests/test_torch_parallel.py``).
 
 Each main path (config[0]; a forward and backward SpMV per dtype; config[1]
 forward and backward for each matrix and for ``csc @ X``; config[2]
@@ -188,8 +210,9 @@ where there is none; the rows of kernels with variants also the launches
 of each variant; banded8 has BSR rows of its own, the banded matrix CSR
 SpMM rows, and SDDMM at k = 1 rows beside its k = 64 ones; the CSR and BSR
 SpMV rows also the launches of phase 16's solvers, and the CSR SpMV,
-SpMM and SpGEMM rows those of phases 18-19) and the card's
-``nvidia-smi`` name and power limit; the last line is the ``{"ok": true,
+SpMM and SpGEMM rows those of phases 18-19; the CSR SpMV and SpMM,
+SpGEMM and BSR SpMV rows those of phase 20 as ``dist_launches``) and the
+card's ``nvidia-smi`` name and power limit; the last line is the ``{"ok": true,
 "device": ...}`` record.
 """
 
@@ -238,8 +261,18 @@ from spalinalg_tpu_torch.linalg import (bicgstab, cg, chebyshev, cholesky,
                                         gmres, ic0, ilu0, lobpcg, lstsq, lu,
                                         lu_solve, qr, qr_q_apply, qr_qt_apply,
                                         qr_r_dense, spsolve, svds)
-from spalinalg_tpu_torch.linalg.cholesky import SLAB_LIMIT_BYTES
+from spalinalg_tpu_torch.linalg.cholesky import SLAB_LIMIT_BYTES, permute_csr
+from spalinalg_tpu_torch.linalg.supernodal import (supernodal_factor,
+                                                   supernodal_factor_sharded,
+                                                   supernodal_solve)
 from spalinalg_tpu_torch.linalg.supernodal_lu import supernodal_lu_factor
+from spalinalg_tpu_torch.parallel import (dist_bsr_spmv, dist_dot, dist_spmm,
+                                          dist_spmv, make_row_mesh,
+                                          multihost, partition_bsr,
+                                          partition_csr, shard_bsr_vector,
+                                          shard_matrix_rows, shard_vector,
+                                          unshard_vector)
+from spalinalg_tpu_torch.parallel.partition import gather_rows, mesh_device
 from spalinalg_tpu_torch.tools import probe_widegather as probe
 from spalinalg_tpu_torch.utils import metrics
 
@@ -410,6 +443,9 @@ EXPM_M = 32
 EXPM_STEPS = 16  # the plain reference: exp(-L) = exp(-L / 16)**16, ...
 EXPM_TERMS = 18  # ... each a Taylor series of 18 terms (||L|| / 16 <= 0.5)
 EXPM_RTOL = 1e-10
+DIST_K = 3163    # phase 20, config[4]: the 5-point Laplacian of DIST_K**2
+DIST_KMM = 64    # its dist_spmm's k (10,004,569 x 64 float64: 5.1 GB)
+DIST_GEMM_N = 2**16   # phase 20: DistCsr * DistCsr on the power-law matrix
 
 
 def nvidia_smi_card() -> str:
@@ -528,24 +564,25 @@ def spmm_inputs(device):
     return mats, rhs
 
 
-def power_law(device):
+def power_law(device, n: int = N_GEMM):
     """``bench.py``'s config[2] generator (zipf 1.8 row lengths capped at
-    512, uniform random columns, seed 1) at n = 2**19, in both dtypes on
-    one structure. It can repeat a column within a row, as bench.py's
-    does, which the validating constructor refuses, so the matrix goes
-    through the trusted one; SpGEMM sums such terms like any other."""
+    512, uniform random columns, seed 1) at ``n`` rows (2**19 for
+    config[2]), in both dtypes on one structure. It can repeat a column
+    within a row, as bench.py's does, which the validating constructor
+    refuses, so the matrix goes through the trusted one; SpGEMM sums such
+    terms like any other."""
     rng = np.random.default_rng(1)
-    deg = np.minimum(rng.zipf(1.8, size=N_GEMM), 512)
+    deg = np.minimum(rng.zipf(1.8, size=n), 512)
     rowptr = np.concatenate([[0], np.cumsum(deg)])
     nnz = int(rowptr[-1])
-    colind = rng.integers(0, N_GEMM, size=nnz)
-    order = np.repeat(np.arange(N_GEMM), deg)
+    colind = rng.integers(0, n, size=nnz)
+    order = np.repeat(np.arange(n), deg)
     colind = colind[np.lexsort((colind, order))]
     values = rng.normal(size=nnz)
     ptr_t = torch.from_numpy(rowptr.astype(np.int32)).to(device)
     ind_t = torch.from_numpy(colind.astype(np.int32)).to(device)
     return {name: CsrMatrix._from_parts(
-                N_GEMM, N_GEMM, ptr_t, ind_t,
+                n, n, ptr_t, ind_t,
                 torch.from_numpy(values.astype(np_dtype)).to(device))
             for name, (np_dtype, _) in DTYPES.items()}
 
@@ -3329,12 +3366,319 @@ def eigen_phase(device, card: str, solver_launches) -> None:
     free_memory()
 
 
-def kernel_line(launches, report, seen, solver_launches) -> list:
+def laplacian5(k: int, device):
+    """BASELINE config[4]: the 5-point Laplacian of a k x k grid in
+    float64, its rowptr, colind and values by formula (vectorised NumPy;
+    no COO -> CSR), through the validating constructor."""
+    n = k * k
+    i = np.arange(n, dtype=np.int64)
+    r, c = i // k, i % k
+    ok = np.stack([r > 0, c > 0, np.ones(n, dtype=bool), c < k - 1,
+                   r < k - 1], axis=1)
+    ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(ok.sum(axis=1), out=ptr[1:])
+    cols = (i[:, None] + np.array([-k, -1, 0, 1, k]))[ok]
+    vals = np.broadcast_to(np.array([-1.0, -1.0, 4.0, -1.0, -1.0]),
+                           ok.shape)[ok]
+    return CsrMatrix(n, n, ptr, cols, vals, device=device)
+
+
+def plain_spmm_within(A, X, Y, tol: float, what: str) -> float:
+    """``Y`` against the plain SpMM of ``A`` on ``X``, entry by entry
+    within ``tol·(|A||X|)``, eight columns at a time (the plain version
+    gathers a row of X for every entry: 25.6 GB at once for config[4]'s
+    f64 operand at k = 64). Returns the max |err|."""
+    ptr, ind, vals = A.rowptr, A.colind, A.values
+    worst = 0.0
+    for j in range(0, X.shape[1], 8):
+        Xj = X[:, j:j + 8].contiguous()
+        err = (Y[:, j:j + 8] - csr_spmm_plain(ptr, ind, vals, Xj,
+                                              A.nrows)).abs()
+        within(err, csr_spmm_plain(ptr, ind, vals.abs(), Xj.abs(), A.nrows),
+               tol, what)
+        worst = max(worst, float(err.max()))
+        del Xj, err
+    return worst
+
+
+def dist_run(what: str, fn, want, dist_launches):
+    """Run ``fn`` once between a reset and a read of the launch counts;
+    fail unless they are exactly ``want``; add them to the kernel line's
+    ``dist_launches``. Returns ``(result, seconds)``."""
+    out, sec, got = solver_run(fn)
+    expect_counts(what, got, want, dist_launches)
+    return out, sec
+
+
+def dist_config4(mesh, device, card: str, dist_launches) -> None:
+    """config[4] at one rank: partition_csr (host seconds), dist_spmv in
+    both comm modes and dist_spmm at k = DIST_KMM, each against the
+    single-card product, and their times beside it. Each result is held
+    against the plain version on the whole matrix (``csr_spmv_plain``,
+    ``csr_spmm_plain``), not against ``A @ x``, which runs the same
+    kernel."""
+    t0 = time.perf_counter()
+    A64 = laplacian5(DIST_K, device)
+    torch.cuda.synchronize()
+    n = A64.nrows
+    print(f"phase 20: config[4] 5-point Laplacian {DIST_K}^2: n={n} "
+          f"nnz={A64.nnz}, built (NumPy by formula + CsrMatrix) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=device).manual_seed(20)
+    for name in ("float64", "float32"):
+        np_dtype, dtype = DTYPES[name]
+        A = A64 if name == "float64" else A64.astype(dtype)
+        tol = TOL[name]
+        dists, part_s = {}, {}
+        for comm in ("halo", "allgather"):
+            t0 = time.perf_counter()
+            dists[comm] = partition_csr(A, mesh, comm=comm)
+            torch.cuda.synchronize()
+            part_s[comm] = time.perf_counter() - t0
+        x = card_vector(n, np_dtype, 20, device)
+        y1 = A @ x
+        y_p = csr_spmv_plain(A.rowptr, A.colind, A.values, x, n)
+        scale = csr_spmv_plain(A.rowptr, A.colind, A.values.abs(), x.abs(),
+                               n)
+        single_ms = None
+        for comm, d in dists.items():
+            xl = shard_vector(x, d)
+            y, sec = dist_run(f"dist_spmv {comm} {name}",
+                              lambda: dist_spmv(d, xl),
+                              {"csr_spmv": {name: 1}}, dist_launches)
+            y = unshard_vector(y, d)
+            err = (y - y_p).abs()
+            within(err, scale, tol, f"config[4] dist_spmv {comm} {name} "
+                   "against the plain SpMV")
+            dist_ms, single_ms, _ = turns(lambda: dist_spmv(d, xl),
+                                          lambda: A @ x, TIMED_LAUNCHES,
+                                          TIMED_LAUNCHES, spin=True)
+            gather_ms = time_ms(lambda: gather_rows(xl, mesh),
+                                TIMED_LAUNCHES, spin=True)
+            print(f"phase 20: config[4] {name} dist_spmv comm={comm} "
+                  f"(halo width {d.halo_width}): partition_csr "
+                  f"{part_s[comm]:.3f} s on the host; 1 B1 launch; max |err| "
+                  f"against the plain SpMV {float(err.max()):.3e} within "
+                  f"{tol}·|A||x|, bitwise equal to csr @ x: "
+                  f"{torch.equal(y, y1)}; "
+                  f"dist_spmv {dist_ms:.4f} ms against csr @ x "
+                  f"{single_ms:.4f} ms (tier overhead "
+                  f"{dist_ms - single_ms:+.4f} ms; an all-gather of x "
+                  f"alone {gather_ms:.4f} ms) | {card}")
+            del y, err, xl
+        del x, y1, y_p, scale
+        free_memory()
+
+        X = torch.randn((n, DIST_KMM), generator=gen, dtype=dtype,
+                        device=device)
+        Xl = shard_matrix_rows(X, dists["halo"])
+        del X
+        if Xl.shape[0] != n:
+            raise AssertionError("one rank: the local rows are all rows")
+        Y1 = A @ Xl
+        for comm, d in dists.items():
+            Y, sec = dist_run(f"dist_spmm {comm} {name}",
+                              lambda: dist_spmm(d, Xl),
+                              {"csr_spmm": {name: 1}}, dist_launches)
+            # one rank: its rows are the global rows (unshard_vector would
+            # copy 5 GB to say so)
+            worst = plain_spmm_within(
+                A, Xl, Y, tol, f"config[4] dist_spmm {comm} {name} against "
+                "the plain SpMM")
+            same = torch.equal(Y, Y1)
+            del Y
+            dist_ms, single_ms, _ = turns(lambda: dist_spmm(d, Xl),
+                                          lambda: A @ Xl, TIMED_LAUNCHES // 4,
+                                          TIMED_LAUNCHES // 4, spin=True)
+            print(f"phase 20: config[4] {name} dist_spmm k={DIST_KMM} "
+                  f"comm={comm}: 1 B2 launch; max |err| against the plain "
+                  f"SpMM {worst:.3e} within {tol}·|A||X|, bitwise equal to "
+                  f"csr @ X: {same}; dist_spmm "
+                  f"{dist_ms:.4f} ms against csr @ X {single_ms:.4f} ms "
+                  f"(tier overhead {dist_ms - single_ms:+.4f} ms) | {card}")
+        del Xl, Y1, dists, A
+        free_memory()
+    del A64
+    free_memory()
+
+
+def dist_cg(mesh, device, card: str, dist_launches) -> None:
+    """CG with Jacobi on a DistCsr of phase 16's 128**3 Laplacian against
+    ``cg`` on the CsrMatrix: the same iteration count, one B1 launch a
+    step (and one for the first residual)."""
+    A = stencil_csr(KRYLOV_K, 3, device)
+    n = A.nrows
+    d = partition_csr(A, mesh)
+    b = card_vector(n, np.float64, 16, device)
+    tol = CG_RTOL["float64"] * float(torch.linalg.vector_norm(b))
+    bl = shard_vector(b, d)
+    cg(A, b, maxiter=2, precondition="jacobi")          # warm-up
+    cg(d, bl, maxiter=2, precondition="jacobi")
+    ref, ref_s, _ = solver_run(
+        lambda: cg(A, b, tol=tol, precondition="jacobi"))
+    res, sec = dist_run("DistCsr CG", lambda: cg(d, bl, tol=tol,
+                                                 precondition="jacobi"),
+                        {"csr_spmv": {"float64": ref.iterations + 1}},
+                        dist_launches)
+    if res.iterations != ref.iterations:
+        raise AssertionError(f"DistCsr CG: {res.iterations} iterations, "
+                             f"cg on the CsrMatrix {ref.iterations}")
+    resid = check_residual("DistCsr CG", A, unshard_vector(res.x, d), b, tol)
+    dot_ms = time_ms(lambda: dist_dot(bl, bl, d), TIMED_LAUNCHES)
+    print(f"phase 20: DistCsr CG+Jacobi {KRYLOV_K}^3 float64 (comm "
+          f"{d.comm}): {res.iterations} iterations = cg(csr)'s, "
+          f"{res.iterations + 1} B1 launches; {sec * 1e3 / res.iterations:.4f}"
+          f" ms/iteration against {ref_s * 1e3 / ref.iterations:.4f}; "
+          f"dist_dot (an all_reduce) {dot_ms:.4f} ms; ||b - A·x|| (plain "
+          f"SpMV) = {resid / tol:.4f} x tol | {card}")
+    del A, d, b, bl, ref, res
+    free_memory()
+
+
+def banded8_matrices(device):
+    """config[1]'s banded matrix (offsets -16..16, n = 2**19) through
+    ``to_bsr(8)``, in both dtypes."""
+    structures, rng = spmm_structures()
+    rowptr, colind = structures["banded"]
+    vals = rng.normal(size=colind.size)
+    return {name: CsrMatrix(N_MM, N_MM, rowptr, colind,
+                            vals.astype(np_dtype), device=device
+                            ).to_bsr(BAND_BS)
+            for name, (np_dtype, _) in DTYPES.items()}
+
+
+def dist_bsr(mesh, device, card: str, dist_launches) -> None:
+    """dist_bsr_spmv on tri128 and banded8 in both dtypes against the
+    plain BSR SpMV (``bsr_spmv_plain``), timed beside ``bsr @ x``."""
+    gen = torch.Generator(device=device).manual_seed(21)
+    tri = tri128_matrices(device, gen)
+    shapes = {"tri128": {name: tri[name] for name in DTYPES},
+              "banded8": banded8_matrices(device)}
+    del tri
+    for shape, by_dtype in shapes.items():
+        for name, bsr in by_dtype.items():
+            acc = torch.float64 if name == "float64" else torch.float32
+            t0 = time.perf_counter()
+            d = partition_bsr(bsr, mesh)
+            torch.cuda.synchronize()
+            part_s = time.perf_counter() - t0
+            x = torch.randn(bsr.ncols, generator=gen, dtype=acc,
+                            device=device)
+            xl = shard_bsr_vector(x, d)
+            y1 = bsr @ x
+            y, sec = dist_run(f"dist_bsr_spmv {shape} {name}",
+                              lambda: dist_bsr_spmv(d, xl),
+                              {"bsr_spmv": {name: 1}}, dist_launches)
+            y = unshard_vector(y, d)
+            ip, ix, data = bsr.indptr, bsr.indices, bsr.data
+            err = (y - bsr_spmv_plain(ip, ix, data, x)).abs()
+            within(err, bsr_spmv_plain(ip, ix, data.abs(), x.abs()),
+                   TOL[name], f"dist_bsr_spmv {shape} {name} against the "
+                   "plain BSR SpMV")
+            dist_ms, single_ms, _ = turns(lambda: dist_bsr_spmv(d, xl),
+                                          lambda: bsr @ x, TIMED_LAUNCHES,
+                                          TIMED_LAUNCHES, spin=True)
+            print(f"phase 20: dist_bsr_spmv {shape} {name} "
+                  f"(blocks {bsr.blocksize}, {d.nblk_per_shard} a shard): "
+                  f"partition_bsr {part_s:.3f} s; 1 B4/B6 launch; max |err| "
+                  f"against the plain BSR SpMV {float(err.max()):.3e} "
+                  f"within {TOL[name]}·|A||x|, bitwise equal to bsr @ x: "
+                  f"{torch.equal(y, y1)}"
+                  f"; {dist_ms:.4f} ms against bsr @ x {single_ms:.4f} ms "
+                  f"| {card}")
+            del d, x, xl, y, y1, err
+        free_memory()
+    del shapes
+    free_memory()
+
+
+def dist_spgemm(mesh, device, card: str, dist_launches) -> None:
+    """DistCsr * DistCsr on phase 7's power-law generator at n =
+    DIST_GEMM_N, gathered, against the plain numeric phase on the
+    single-card plan of ``a * a`` (``hold_spgemm``): the same structure,
+    values within tol, one B3 launch."""
+    for name, a in power_law(device, DIST_GEMM_N).items():
+        da = partition_csr(a, mesh)
+        c, sec = dist_run(f"DistCsr * DistCsr {name}", lambda: da * da,
+                          {"spgemm": {name: 1}}, dist_launches)
+        whole = c.to_csr()
+        held = hold_spgemm(f"DistCsr * DistCsr {name}", a, a, whole)
+        print(f"phase 20: DistCsr * DistCsr power-law n={DIST_GEMM_N} "
+              f"nnz={a.nnz} {name} (comm {da.comm}): nnz(C)={whole.nnz}, "
+              f"structure equal to the plan of a * a, {held}; 1 B3 launch; "
+              f"{sec:.3f} s with the host symbolic phase | {card}")
+        del da, c, whole
+    free_memory()
+
+
+def dist_supernodal(mesh, device, card: str) -> None:
+    """supernodal_factor_sharded on config[3]'s 512**2 Laplacian: its
+    solve's residual equals supernodal_factor's within 1e-10."""
+    L = stencil_csr(CHOL_K, 2, device)
+    fac = cholesky(L, method="supernodal")
+    plan = fac.snf.plan
+    pm = permute_csr(L, fac.perm) if fac.perm is not None else L
+    b = card_vector(L.nrows, np.float64, 22, device)
+    out = {}
+    for what, factor in (("supernodal_factor", lambda: supernodal_factor(
+            plan, pm.values)), ("supernodal_factor_sharded",
+                                lambda: supernodal_factor_sharded(
+                                    plan, pm.values, mesh))):
+        factor()                                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = factor()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        x = supernodal_solve(f, b, perm=fac.perm)
+        out[what] = (relative_residual(L, x, b), sec, f.ok)
+    (r1, s1, _), (r2, s2, ok) = out.values()
+    if not (ok and r2 <= CHOL_RTOL["float64"] and abs(r2 - r1) <= 1e-10):
+        raise AssertionError(f"supernodal_factor_sharded: residual {r2:.3e} "
+                             f"(ok {ok}) against {r1:.3e}")
+    print(f"phase 20: supernodal_factor_sharded config[3] {CHOL_K}^2 "
+          f"float64, {mesh.size()} rank(s): ||A·x - b|| / ||b|| {r2:.3e} "
+          f"against supernodal_factor's {r1:.3e}; factor {s2 * 1e3:.2f} ms "
+          f"against {s1 * 1e3:.2f} ms | {card}")
+    del L, fac, pm, b, out
+    free_memory()
+
+
+def dist_phase(device, card: str, dist_launches) -> None:
+    """Phase 20: the distributed tier on a one-rank NCCL group."""
+    import torch.distributed as tdist
+
+    mesh = make_row_mesh(device=device)
+    try:
+        backend = tdist.get_backend()
+        if device.type == "cuda" and backend != "nccl":
+            raise AssertionError(f"the process group's backend is "
+                                 f"{backend}, not nccl")
+        beat = multihost.heartbeat()
+        print(f"phase 20: make_row_mesh(): {backend} group of "
+              f"{tdist.get_world_size()} rank(s), mesh "
+              f"{mesh.mesh_dim_names} on {mesh_device(mesh)}; "
+              f"{multihost.global_device_summary()}; heartbeat "
+              f"{beat * 1e3:.3f} ms | {card}")
+        dist_config4(mesh, device, card, dist_launches)
+        dist_cg(mesh, device, card, dist_launches)
+        dist_bsr(mesh, device, card, dist_launches)
+        dist_spgemm(mesh, device, card, dist_launches)
+        dist_supernodal(mesh, device, card)
+        print(f"phase 20: heartbeat {multihost.heartbeat() * 1e3:.3f} ms | "
+              f"{card}")
+    finally:
+        tdist.destroy_process_group()
+
+
+def kernel_line(launches, report, seen, solver_launches,
+                dist_launches) -> list:
     """One row per kernel and dtype (its launches over every main path),
     and the rows of EXTRA_ROWS (the launches of their own matrix's main
     path); each row of a kernel with variants names the variants its
     launches ran; the rows of the kernels the solvers of phases 16, 18
-    and 19 ran carry those launches as ``solver_launches``."""
+    and 19 ran carry those launches as ``solver_launches``, and those the
+    distributed tier of phase 20 ran as ``dist_launches``."""
     def variants(kname, name, shapes=None):
         out = {}
         for (k, shape, n), per in seen.items():
@@ -3354,6 +3698,8 @@ def kernel_line(launches, report, seen, solver_launches) -> list:
                 row["variants"] = variants(kname, name)
             if (kname, name) in solver_launches:
                 row["solver_launches"] = solver_launches[kname, name]
+            if (kname, name) in dist_launches:
+                row["dist_launches"] = dist_launches[kname, name]
             rows.append(row)
     for (kname, suffix), shape in EXTRA_ROWS.items():
         for name in ("float32", "float64"):
@@ -3550,9 +3896,14 @@ def main() -> int:
         lu_phase(device, card, solver_launches)
     with phase("phase 19"):
         eigen_phase(device, card, solver_launches)
+    # ---- the distributed tier on a one-rank NCCL group (phase 20) -------
+    dist_launches = {}
+    with phase("phase 20"):
+        dist_phase(device, card, dist_launches)
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
-    kernels = kernel_line(launches, report, seen, solver_launches)
+    kernels = kernel_line(launches, report, seen, solver_launches,
+                          dist_launches)
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError("a kernel was not launched on the main path")
     print(json.dumps({"kernels": kernels}))

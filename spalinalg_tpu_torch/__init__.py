@@ -13,7 +13,13 @@ Pallas kernels replaced by kernels written by hand for NVIDIA Hopper
     DiaMatrix.from_diagonals(...) | DiaMatrix.from_csr(csr)  ->  dia @ x, dia @ X
     mat_sum, mat_mean, diagonal, multiply, norm; row_slice, select_rows, ...
     linalg: cg, gmres, bicgstab (+ jacobi, ic0, ilu0, chebyshev),
-            cholesky -> cholesky_solve, solve_triangular_csr
+            cholesky -> cholesky_solve, solve_triangular_csr, lu, qr,
+            lstsq, spsolve, eigsh, lobpcg, svds, expm_multiply
+    parallel: make_row_mesh -> partition_csr -> dist_spmv, dist_spmm,
+              DistCsr * DistCsr; partition_bsr -> dist_bsr_spmv; the
+              solvers and eigensolvers on a DistCsr;
+              supernodal_factor_sharded (torch.distributed, one card a
+              process)
 
 Builders live on the host; a compressed matrix lives on the device it was
 built for. An entry point that places data and is given no ``device``
@@ -24,6 +30,7 @@ and never JAX.
 
 from __future__ import annotations
 
+from .config import Config, default_config
 from .errors import (
     DTypeError,
     IndexError_,
@@ -60,6 +67,8 @@ __all__ = [
     "DeviceCoo",
     "DiaMatrix",
     "default_device",
+    "Config",
+    "default_config",
     "kron", "hstack", "vstack", "block_diag", "bmat", "tril", "triu",
     "diags", "sprandom",
     "SpalinalgError",

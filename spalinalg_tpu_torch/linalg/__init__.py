@@ -12,8 +12,11 @@ the port's CSR or BSR SpMV kernel, its CSR SpMM kernel for a block of
 vectors, and its SpGEMM kernel for ``AᵀA``, on the card. Dense work on
 fronts, panels and small projected problems (batched Cholesky and LU,
 triangular solves, Schur updates, QR, ``eigh``, ``matrix_exp``) is
-torch's. The JAX package's ``DistCsr`` branches of the eigensolvers wait
-for the port's distributed tier.
+torch's. ``cg``, ``gmres``, ``bicgstab``, ``chebyshev``, ``lanczos``,
+``eigsh`` and ``lobpcg`` also take a row-partitioned ``DistCsr``
+(:mod:`spalinalg_tpu_torch.parallel`), and
+:func:`~.supernodal.supernodal_factor_sharded` spreads the supernodal
+Cholesky's buckets over a row mesh.
 """
 
 from .banded import (

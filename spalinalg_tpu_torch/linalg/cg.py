@@ -8,6 +8,12 @@ a step), with the same test (``r·r > tol²``, in the vectors' dtype) and so
 the same iteration count. Every ``A @ v`` is the operand's own product:
 on a ``CsrMatrix`` the CSR SpMV kernel, on a ``BsrMatrix`` the BSR one.
 
+On a row-partitioned :class:`~spalinalg_tpu_torch.parallel.DistCsr` the
+vectors are this rank's padded slices (``shard_vector``), each product is
+``dist_spmv`` (one CSR SpMV kernel launch and its collectives) and the
+dot products are summed over the mesh, ``r·z`` and ``r·r`` in one
+``all_reduce``, so every rank takes the same steps.
+
 Examples
 --------
 >>> import torch
@@ -29,6 +35,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.reduce_api import diagonal
+from ..parallel.spmv import is_dist, summed
 
 __all__ = ["cg", "CgResult"]
 
@@ -49,54 +56,80 @@ def _vector(v, A) -> torch.Tensor:
     return torch.as_tensor(v, device=dev)
 
 
-def _cg_loop(matvec, b, x0, tol, maxiter, psolve=None) -> CgResult:
+def _dots(A):
+    """``pairs -> [u·v for each pair]``: global dot products, those of one
+    call summed over ``A``'s mesh in one ``all_reduce`` for a
+    ``DistCsr``."""
+    if not is_dist(A):
+        return lambda pairs: [torch.dot(u, v) for u, v in pairs]
+    total = summed(A)
+    return lambda pairs: total(torch.stack(
+        [torch.dot(u, v) for u, v in pairs])).unbind()
+
+
+def _cg_loop(matvec, b, x0, tol, maxiter, psolve, dots) -> CgResult:
     """(Preconditioned) CG; stops when ``r·r <= tol²`` or after
-    ``maxiter`` steps."""
+    ``maxiter`` steps. ``dots`` is :func:`_dots` of the operand."""
     psolve = psolve if psolve is not None else (lambda r: r)
     x = x0
     r = b - matvec(x)
     z = psolve(r)
     p = z
-    rz = torch.dot(r, z)
-    rr = torch.dot(r, r)
+    rz, rr = dots([(r, z), (r, r)])
     k = 0
     while k < maxiter and bool(rr > tol * tol):
         ap = matvec(p)
-        alpha = rz / torch.dot(p, ap)
+        (pap,) = dots([(p, ap)])
+        alpha = rz / pap
         x = x + alpha * p
         r = r - alpha * ap
         z = psolve(r)
-        rz_new = torch.dot(r, z)
+        rz_new, rr = dots([(r, z), (r, r)])
         p = z + (rz_new / rz) * p
         rz = rz_new
-        rr = torch.dot(r, r)
         k += 1
     return CgResult(x=x, iterations=k, residual=torch.sqrt(rr))
 
 
 def _jacobi_precond(A) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Inverse-diagonal preconditioner of a CSR/BSR matrix, built on its
-    device (a zero or missing diagonal entry counts as 1)."""
-    d = diagonal(A.to_csr() if hasattr(A, "to_csr") else A)
+    """Inverse-diagonal preconditioner of a CSR/BSR matrix, or of this
+    rank's rows of a ``DistCsr``, built on its device (a zero or missing
+    diagonal entry counts as 1)."""
+    if is_dist(A):
+        rows = A.brow.long()
+        on_diag = (A.colind.long() == rows + A.rank * A.rows_per_shard) & (
+            rows < A.rows_per_shard)
+        d = torch.ones(A.rows_per_shard, dtype=A.dtype, device=A.device)
+        d[rows[on_diag]] = A.values[on_diag]
+    else:
+        d = diagonal(A.to_csr() if hasattr(A, "to_csr") else A)
     inv = torch.where(d != 0, 1 / torch.where(d != 0, d, 1), 1)
     return lambda r: inv * r
 
 
-def _resolve_precond(M, A):
+def resolve_precond(M, A, *, jacobi: bool = True, error=ValueError):
     """``M`` as a callable ``r -> M⁻¹r``: None stays None, ``"jacobi"``
-    builds :func:`_jacobi_precond` of ``A``, an object with ``.solve``
-    gives that method, a callable itself; anything else is a
-    ``ValueError``."""
+    (where ``jacobi``) builds :func:`_jacobi_precond` of ``A``, an object
+    with ``.solve`` gives that method (on a ``DistCsr`` only where it
+    ``supports_dist``), a callable itself; anything else raises ``error``
+    (the JAX package's type: ``ValueError`` from the Krylov solvers,
+    ``TypeError`` from ``lobpcg``)."""
     if M is None:
         return None
-    if isinstance(M, str) and M == "jacobi":
+    if jacobi and isinstance(M, str) and M == "jacobi":
         return _jacobi_precond(A)
     if hasattr(M, "solve"):
+        if is_dist(A) and not getattr(M, "supports_dist", False):
+            raise ValueError(
+                "this preconditioner is single-chip; build it on the "
+                "DistCsr operand (chebyshev) or pass a sharding-aware "
+                "callable")
         return M.solve
     if callable(M):
         return M
-    raise ValueError(f"a preconditioner must be 'jacobi', a callable or an "
-                     f"object with .solve, got {M!r}")
+    names = "'jacobi', a callable" if jacobi else "a callable"
+    raise error(f"a preconditioner must be {names} or an object with "
+                f".solve, got {M!r}")
 
 
 def cg(
@@ -111,17 +144,24 @@ def cg(
     """Solve SPD ``A x = b`` by (optionally preconditioned) CG.
 
     ``A``: a ``CsrMatrix``, ``BsrMatrix`` or anything with ``@`` and
-    ``ncols``. ``b`` and ``x0`` are placed on ``A``'s device. ``tol`` is
-    absolute on ``||r||``; ``maxiter`` defaults to ``10·n``.
-    ``precondition``: ``"jacobi"``, a callable ``r -> M⁻¹r``, or an
-    object with a ``.solve`` method (:func:`~.precond.ic0`,
-    :func:`~.precond.chebyshev`).
+    ``ncols``; or a ``DistCsr``, when ``b`` (and ``x0``) are this rank's
+    padded slices and so is the result. ``b`` and ``x0`` are placed on
+    ``A``'s device. ``tol`` is absolute on ``||r||``; ``maxiter`` defaults
+    to ``10·n``. ``precondition``: ``"jacobi"``, a callable ``r ->
+    M⁻¹r``, or an object with a ``.solve`` method (:func:`~.precond.ic0`,
+    :func:`~.precond.chebyshev`; on a ``DistCsr`` only a Chebyshev
+    preconditioner built on it).
     """
     b = _vector(b, A)
-    n = A.ncols
+    n = A.nrows if is_dist(A) else A.ncols
     maxiter = maxiter if maxiter is not None else 10 * n
-    x0 = (torch.zeros(n, dtype=b.dtype, device=b.device) if x0 is None
-          else _vector(x0, A))
-    psolve = _resolve_precond(precondition, A)
+    if x0 is not None:
+        x0 = _vector(x0, A)
+    elif is_dist(A):
+        x0 = torch.zeros_like(b)
+    else:
+        x0 = torch.zeros(n, dtype=b.dtype, device=b.device)
+    psolve = resolve_precond(precondition, A)
     with torch.no_grad():
-        return _cg_loop(lambda v: A @ v, b, x0, tol, maxiter, psolve)
+        return _cg_loop(lambda v: A @ v, b, x0, tol, maxiter, psolve,
+                        _dots(A))

@@ -17,8 +17,15 @@ port's draws differ from the JAX package's ``jax.random`` ones, so Ritz
 values agree with the JAX package's only as far as both converged, and
 Ritz vectors only as subspaces.
 
-The JAX package's ``DistCsr`` branches (a row-partitioned operand on a
-mesh) wait for the port's distributed tier (ROADMAP queue A item 4).
+**Row-partitioned operands.** :func:`lanczos`, :func:`eigsh` (its
+single-vector path) and :func:`lobpcg` take a
+:class:`~spalinalg_tpu_torch.parallel.DistCsr`: vectors and blocks are
+then this rank's padded row slices (pad rows start zero and stay zero, so
+the Ritz values are exact), each product is ``dist_spmv``/``dist_spmm``,
+each reduction (dot products, basis projections, Gram matrices) an
+``all_reduce`` over the mesh, and the thin QR of a tall block is a TSQR
+(local QR, then one QR of the ranks' gathered ``R`` factors). ``svds`` and
+the block and shift-invert paths of ``eigsh`` refuse one.
 
 Examples
 --------
@@ -40,6 +47,8 @@ import torch
 
 from ..device import resolve_device
 from ..errors import ShapeError
+from ..parallel.spmv import is_dist, norms, summed
+from .cg import resolve_precond
 
 __all__ = ["eigsh", "svds", "lanczos", "block_lanczos", "lobpcg"]
 
@@ -63,6 +72,38 @@ def _normal(shape, seed: int, dtype, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
 
+def _shard_rows(X, A):
+    """This rank's padded row slice of ``X`` for a ``DistCsr`` ``A``; ``X``
+    itself otherwise."""
+    if is_dist(A):
+        from ..parallel.spmv import shard_matrix_rows, shard_vector
+
+        return (shard_vector if X.ndim == 1 else shard_matrix_rows)(X, A)
+    return X
+
+
+def _qr(S, A):
+    """Thin QR ``(Q, R)`` of a tall block: ``torch.linalg.qr``, or for a
+    ``DistCsr`` a TSQR: each rank factors its rows, the ranks' ``R``
+    factors are all-gathered and factored again (the same on every rank),
+    and each rank keeps its rows of ``Q``."""
+    Q1, R1 = torch.linalg.qr(S, mode="reduced")
+    if not is_dist(A):
+        return Q1, R1
+    from ..parallel.partition import gather_rows
+
+    r = R1.shape[0]
+    Q2, R = torch.linalg.qr(gather_rows(R1, A.mesh), mode="reduced")
+    return Q1 @ Q2[A.rank * r:(A.rank + 1) * r], R
+
+
+def _refuse_dist(A, what: str) -> None:
+    if is_dist(A):
+        raise ValueError(
+            f"{what} on DistCsr is unsupported — gather with A.to_csr() "
+            "first, or use the single-vector eigsh or lobpcg")
+
+
 def block_lanczos(A, m: int, b: int, *, seed: int = 0) -> torch.Tensor:
     """``m``-step block Lanczos with block size ``b`` and full
     reorthogonalisation: an orthonormal basis ``V`` of shape ``(m*b, n)``
@@ -72,6 +113,7 @@ def block_lanczos(A, m: int, b: int, *, seed: int = 0) -> torch.Tensor:
     ``b``. Each step is one SpMM (``A`` on an ``(n, b)`` block), two
     full-basis GEMM orthogonalisations and one thin QR.
     """
+    _refuse_dist(A, "block_lanczos")
     n = A.shape[1]
     dev, dt = _device(A), _dtype(A)
     with torch.no_grad():
@@ -97,30 +139,33 @@ def lanczos(A, m: int, *, v0=None, seed: int = 0):
     Returns ``(alpha, beta, V)``: the tridiagonal coefficients (``alpha``
     (m,), ``beta`` (m-1,)) and the orthonormal basis ``V`` ((m, n)).
     ``A`` is any operand with ``A @ v`` (CSR, CSC, BSR, dense tensor, an
-    operator object with ``shape``).
+    operator object with ``shape``), or a ``DistCsr``: ``v0`` and the
+    basis are then this rank's padded slices (``shard_vector``), and a
+    drawn start vector is the same global draw, sliced.
     """
     n = A.shape[1]
     dev = _device(A)
+    total = summed(A)
     if v0 is None:
-        v0 = _normal((n,), seed, _dtype(A), dev)
+        v0 = _shard_rows(_normal((n,), seed, _dtype(A), dev), A)
     v0 = torch.as_tensor(v0, device=dev)
     dtype = v0.dtype
     with torch.no_grad():
         V = v0.new_zeros((m + 1, v0.shape[0]))
-        V[0] = v0 / torch.linalg.vector_norm(v0)
+        V[0] = v0 / norms(v0, A)
         alpha = v0.new_zeros(m)
         beta = v0.new_zeros(m)
         for i in range(m):
             w = (A @ V[i]).to(dtype)
-            a = torch.dot(V[i], w)
+            a = total(torch.dot(V[i], w))
             # full reorthogonalisation: project out the whole current
             # basis (rows past i are zero, so plain products are safe),
             # twice
-            h = V @ w
+            h = total(V @ w)
             w = w - V.mT @ h
-            h2 = V @ w
+            h2 = total(V @ w)
             w = w - V.mT @ h2
-            bn = torch.linalg.vector_norm(w)
+            bn = norms(w, A)
             V[i + 1] = (torch.where(bn > 1e-12, 1.0, 0.0).to(dtype) * w
                         / bn.clamp_min(1e-300))
             alpha[i] = a
@@ -132,8 +177,8 @@ def _tridiagonal(alpha, beta) -> torch.Tensor:
     return torch.diag(alpha) + torch.diag(beta, 1) + torch.diag(beta, -1)
 
 
-def _unit_columns(v: torch.Tensor) -> torch.Tensor:
-    return v / torch.linalg.vector_norm(v, dim=0, keepdim=True)
+def _unit_columns(v: torch.Tensor, A=None) -> torch.Tensor:
+    return v / norms(v, A, keepdim=True)
 
 
 class _ShiftInvertOp:
@@ -186,8 +231,11 @@ def eigsh(A, k: int = 6, *, which: str = "LA", m: Optional[int] = None,
     ``d > 1`` only once; ``block=b >= d`` resolves such clusters
     (:func:`block_lanczos` + Rayleigh-Ritz, one SpMM a step). ``sigma``
     runs shift-invert on ``(A - σI)⁻¹`` through :func:`~.lu.lu`: the
-    eigenvalues nearest ``σ``.
+    eigenvalues nearest ``σ``. A ``DistCsr`` takes the single-vector path
+    only; ``v`` is then this rank's padded rows.
     """
+    if sigma is not None or block > 1:
+        _refuse_dist(A, "eigsh with sigma or block > 1")
     if sigma is not None:
         return _eigsh_shift_invert(A, k, sigma=sigma, m=m, seed=seed,
                                    block=block)
@@ -209,7 +257,7 @@ def eigsh(A, k: int = 6, *, which: str = "LA", m: Optional[int] = None,
     else:
         w_k, y_k = w[:k], y[:, :k]
     # Ritz vectors, renormalised (unit up to a breakdown)
-    return w_k, _unit_columns(V.mT @ y_k)
+    return w_k, _unit_columns(V.mT @ y_k, A)
 
 
 def _eigsh_shift_invert(A, k, *, sigma, m, seed, block=1):
@@ -285,6 +333,11 @@ def lobpcg(A, X0=None, k: Optional[int] = None, *, which: str = "SA",
     Returns ``(w, X, resid)``: Ritz values (ascending), Ritz vectors
     ``(n, k)`` and the residual norms ``||A x - θ x||``.
 
+    ``A`` may be a ``DistCsr``: ``X0`` is still the global ``(n, k)``
+    block (sliced here, as the drawn blocks are), the returned ``X`` is
+    this rank's padded rows, each SpMM runs ``dist_spmm``, and ``M`` must
+    then be sharding-aware (:func:`~.precond.chebyshev` on the operand).
+
     >>> import math
     >>> from spalinalg_tpu_torch import diags
     >>> n = 64
@@ -317,15 +370,12 @@ def lobpcg(A, X0=None, k: Optional[int] = None, *, which: str = "SA",
         raise ValueError(
             f"lobpcg needs n ≥ 3k for its trial space, got n={n}, k={k} "
             "(use eigsh or a dense eigh at this size)")
+    # Padded row slices for a DistCsr: pad rows start zero and every step
+    # keeps them zero, so the padded operator's zero modes never enter.
+    X0 = _shard_rows(X0, A)
+    total = summed(A)
 
-    if M is None:
-        psolve = None
-    elif hasattr(M, "solve"):
-        psolve = M.solve
-    elif callable(M):
-        psolve = M
-    else:
-        raise TypeError("M must be a callable r -> M⁻¹r or have .solve")
+    psolve = resolve_precond(M, A, jacobi=False, error=TypeError)
 
     def precond_block(R):
         if psolve is None:
@@ -336,37 +386,37 @@ def lobpcg(A, X0=None, k: Optional[int] = None, *, which: str = "SA",
     lo = 0 if which == "SA" else 2 * k
     hi = k if which == "SA" else 3 * k
     with torch.no_grad():
-        X, _ = torch.linalg.qr(X0, mode="reduced")
+        X, _ = _qr(X0, A)
         # P starts as a random orthonormal block: a zero P would hand QR a
         # rank-deficient trial block on step one. Its directions are
         # harmless (Rayleigh-Ritz ignores them) and are replaced after one
         # step by true conjugate directions.
-        P0 = _normal((n, k), seed + 1, dt, dev)
-        P, _ = torch.linalg.qr(P0 - X @ (X.mT @ P0), mode="reduced")
+        P0 = _shard_rows(_normal((n, k), seed + 1, dt, dev), A)
+        P, _ = _qr(P0 - X @ total(X.mT @ P0), A)
         for _ in range(maxiter):
             AX = (A @ X).to(dt)                            # (n, k) SpMM
-            H = X.mT @ AX
+            H = total(X.mT @ AX)
             R = AX - X @ H                                 # block residual
             S = torch.cat([X, precond_block(R), P], dim=1)  # (n, 3k)
-            Q, _ = torch.linalg.qr(S, mode="reduced")
-            T = Q.mT @ (A @ Q).to(dt)                      # (n, 3k) SpMM
+            Q, _ = _qr(S, A)
+            T = total(Q.mT @ (A @ Q).to(dt))               # (n, 3k) SpMM
             theta, Z = torch.linalg.eigh((T + T.mT) / 2.0)  # ascending
             Xn = Q @ Z[:, lo:hi]                           # (n, k)
             # conjugate direction: the part of the update outside
             # span(X), re-orthonormalised (kept from the last step where
             # it breaks down at convergence)
-            Qp, Rp = torch.linalg.qr(Xn - X @ (X.mT @ Xn), mode="reduced")
+            Qp, Rp = _qr(Xn - X @ total(X.mT @ Xn), A)
             good = torch.diagonal(Rp).abs() > 1e-10
             P = torch.where(good[None, :], Qp, P)
             X = Xn
 
         # final Rayleigh-Ritz on the converged block
         AX = (A @ X).to(dt)
-        T = X.mT @ AX
+        T = total(X.mT @ AX)
         w, Z = torch.linalg.eigh((T + T.mT) / 2.0)
         X = X @ Z
         AX = AX @ Z
-        resid = torch.linalg.vector_norm(AX - X * w[None, :], dim=0)
+        resid = norms(AX - X * w[None, :], A)
     return w, X, resid
 
 
@@ -396,7 +446,15 @@ def svds(A, k: int = 6, *, m: Optional[int] = None, seed: int = 0):
     Runs :func:`eigsh` on the Gram operator of the smaller side
     (``AᵀA`` or ``AAᵀ``, matrix-free: two SpMVs a Lanczos step), then
     recovers the other factor by one product with ``A`` (an SpMM).
+    A ``DistCsr`` raises ``ValueError`` (the operand spaces of ``A`` and
+    ``Aᵀ`` shard differently for a rectangular operand).
     """
+    if is_dist(A):
+        raise ValueError(
+            "svds on DistCsr is unsupported (the A / Aᵀ operand vector "
+            "spaces shard differently for rectangular operands) — gather "
+            "with A.to_csr() first, or use eigsh on a pre-formed Gram "
+            "operator")
     mm, nn = A.shape
     if not 0 < k < min(mm, nn):
         raise ValueError(f"need 0 < k < min(shape), got k={k}, "

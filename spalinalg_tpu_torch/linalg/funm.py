@@ -11,7 +11,9 @@ small dense exponential (``torch.linalg.matrix_exp``) of the projected
 The SpMVs dominate: one ``A @ v`` a step, the CSR SpMV kernel on the card
 for a CSR operand. The loop is a Python loop of ``m`` steps with no read
 back; a breakdown (a zero new direction) is guarded by ``1e-300`` floors,
-as in the JAX package, not by a test on the host.
+as in the JAX package, not by a test on the host. On a row-partitioned
+``DistCsr`` the vectors are this rank's padded slices and the norms and
+basis projections are summed over the mesh (``all_reduce``).
 
 Examples
 --------
@@ -38,6 +40,7 @@ import torch
 
 from ..device import resolve_device
 from ..errors import ShapeError
+from ..parallel.spmv import norms, summed
 
 __all__ = ["expm_multiply", "arnoldi"]
 
@@ -59,19 +62,20 @@ def arnoldi(A, v0, m: int):
     """
     v0 = _operand(A, v0)
     dtype = v0.dtype
+    total = summed(A)
     with torch.no_grad():
-        beta = torch.linalg.vector_norm(v0)
+        beta = norms(v0, A)
         V = v0.new_zeros((m + 1,) + tuple(v0.shape))
         V[0] = v0 / beta.clamp_min(1e-300)
         H = v0.new_zeros((m + 1, m))
         for i in range(m):
             w = (A @ V[i]).to(dtype)
-            h = V @ w
+            h = total(V @ w)
             w = w - V.mT @ h
-            h2 = V @ w
+            h2 = total(V @ w)
             w = w - V.mT @ h2
             h = h + h2
-            wnorm = torch.linalg.vector_norm(w)
+            wnorm = norms(w, A)
             H[:, i] = h
             H[i + 1, i] = wnorm
             V[i + 1] = (torch.where(wnorm > 1e-300, 1.0, 0.0).to(dtype) * w
@@ -85,7 +89,8 @@ def expm_multiply(A, b, *, t: float = 1.0, m: Optional[int] = None
 
     ``m`` defaults to ``min(n, 32)``; raise it when ``||tA||`` is large
     (``m`` of about ``||tA||`` or more, or split ``t`` into steps). Any
-    square operand with ``A @ v`` works.
+    square operand with ``A @ v`` works, a ``DistCsr`` with ``b`` this
+    rank's padded slice (``shard_vector``; the result is sliced alike).
     """
     b = _operand(A, b)
     n = A.shape[0]
@@ -94,7 +99,7 @@ def expm_multiply(A, b, *, t: float = 1.0, m: Optional[int] = None
                          f"got {A.shape}")
     m = int(m) if m is not None else min(n, 32)
     with torch.no_grad():
-        beta = torch.linalg.vector_norm(b)
+        beta = norms(b, A)
         V, H = arnoldi(A, b, m)
         Hm = H[:m, :m] * t
         y = torch.linalg.matrix_exp(Hm)[:, 0]     # expm(t H_m) e₁

@@ -14,6 +14,12 @@ SpMV a step and constant memory.
 - BiCGSTAB is a vector recurrence; its convergence test reads ``||r||``
   back each step.
 
+On a row-partitioned :class:`~spalinalg_tpu_torch.parallel.DistCsr` the
+vectors are this rank's padded slices, each product is ``dist_spmv`` and
+each reduction (dot products, the basis projections ``V @ w``) an
+``all_reduce`` over the mesh; the host least-squares solve sees the same
+numbers on every rank.
+
 The stopping tests are the JAX package's (``||r|| > max(tol·||b||,
 tol)``, in the vectors' dtype), so both packages take the same number of
 steps. ``iterations`` counts matvecs, as there.
@@ -38,7 +44,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .cg import _vector
+from ..parallel.spmv import is_dist, summed
+from .cg import _vector, resolve_precond
 
 __all__ = ["gmres", "bicgstab", "IterResult"]
 
@@ -49,32 +56,28 @@ class IterResult(NamedTuple):
     residual: torch.Tensor  # final ||r|| (0-d)
 
 
-def _resolve_precond(M):
-    """``M`` -> callable ``r -> M⁻¹r`` (None when there is none)."""
-    if M is None:
-        return None
-    if hasattr(M, "solve"):
-        return M.solve
-    if callable(M):
-        return M
-    raise ValueError(f"M must be a callable or preconditioner object, "
-                     f"got {M!r}")
-
-
-def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.dot(v, v))
-
-
 def _setup(A, b, x0, maxiter, tol):
+    """``(b, x, maxiter, atol, total, dot)``: ``total`` sums per-rank
+    partial results (:func:`~spalinalg_tpu_torch.parallel.spmv.summed`), ``dot`` is the global dot
+    product."""
     b = _vector(b, A)
-    n = A.ncols
-    x = (torch.zeros(n, dtype=b.dtype, device=b.device) if x0 is None
-         else _vector(x0, A))
+    total = summed(A)
+
+    def dot(u, v):
+        return total(torch.dot(u, v))
+
+    if is_dist(A):
+        n = A.nrows
+        x = torch.zeros_like(b) if x0 is None else _vector(x0, A)
+    else:
+        n = A.ncols
+        x = (torch.zeros(n, dtype=b.dtype, device=b.device) if x0 is None
+             else _vector(x0, A))
     maxiter = maxiter if maxiter is not None else 10 * n
-    bnorm = _norm(b)
+    bnorm = torch.sqrt(dot(b, b))
     atol = torch.maximum(tol * bnorm, torch.tensor(tol, dtype=b.dtype,
                                                    device=b.device))
-    return b, x, maxiter, atol
+    return b, x, maxiter, atol, total, dot
 
 
 def gmres(
@@ -95,8 +98,11 @@ def gmres(
     residual stays the true one): a callable ``r -> M⁻¹r`` or an object
     with ``.solve`` (:func:`~.precond.ilu0`).
     """
-    b, x, maxiter, atol = _setup(A, b, x0, maxiter, tol)
-    psolve = _resolve_precond(M)
+    b, x, maxiter, atol, total, dot = _setup(A, b, x0, maxiter, tol)
+    psolve = resolve_precond(M, A, jacobi=False)
+
+    def norm(v):
+        return torch.sqrt(dot(v, v))
 
     def matvec(v):
         return A @ v
@@ -110,7 +116,7 @@ def gmres(
     def cycle(x):
         """One restart cycle: m Arnoldi steps and the small LS solve."""
         r = b - matvec(x)
-        beta = _norm(r)
+        beta = norm(r)
         V = torch.zeros((m + 1,) + tuple(r.shape), dtype=dtype,
                         device=r.device)
         H = torch.zeros((m + 1, m), dtype=dtype, device=r.device)
@@ -120,11 +126,11 @@ def gmres(
             w = inner_matvec(V[i])
             # rows > i of V are zero: full-basis products suffice; one
             # re-orthogonalisation pass (classical Gram-Schmidt twice)
-            h = V @ w
+            h = total(V @ w)
             w = w - V.T @ h
-            h2 = V @ w
+            h2 = total(V @ w)
             w = w - V.T @ h2
-            wnorm = _norm(w)
+            wnorm = norm(w)
             H[:, i] = h + h2
             H[i + 1, i] = wnorm
             V[i + 1] = torch.where(wnorm > 1e-300,
@@ -140,11 +146,11 @@ def gmres(
         return x + corr
 
     with torch.no_grad():
-        res = _norm(b - matvec(x))
+        res = norm(b - matvec(x))
         it = 0
         while bool(res > atol) and it < maxiter:
             x = cycle(x)
-            res = _norm(b - matvec(x))
+            res = norm(b - matvec(x))
             it += m + 1
     return IterResult(x=x, iterations=it, residual=res)
 
@@ -161,8 +167,8 @@ def bicgstab(
     """BiCGSTAB for a general square system (two SpMV a step). ``M``
     right-preconditions (the reported residual stays the true one): a
     callable or an object with ``.solve`` (:func:`~.precond.ilu0`)."""
-    b, x, maxiter, atol = _setup(A, b, x0, maxiter, tol)
-    psolve = _resolve_precond(M) or (lambda r: r)
+    b, x, maxiter, atol, _, dot = _setup(A, b, x0, maxiter, tol)
+    psolve = resolve_precond(M, A, jacobi=False) or (lambda r: r)
     dtype = b.dtype
     # 1e-300 in the vectors' dtype (0 in float32, as in the JAX package)
     eps = torch.tensor(1e-300, dtype=dtype, device=b.device)
@@ -175,22 +181,22 @@ def bicgstab(
         rhat = r
         p = v = torch.zeros_like(b)
         rho = alpha = omega = torch.ones((), dtype=dtype, device=b.device)
-        res = _norm(r)
+        res = torch.sqrt(dot(r, r))
         it = 0
         while bool(res > atol) and it < maxiter:
-            rho_new = torch.dot(rhat, r)
+            rho_new = dot(rhat, r)
             beta = (rho_new / nonzero(rho)) * (alpha / nonzero(omega))
             p = r + beta * (p - omega * v)
             phat = psolve(p)
             v = A @ phat
-            alpha = rho_new / nonzero(torch.dot(rhat, v))
+            alpha = rho_new / nonzero(dot(rhat, v))
             s = r - alpha * v
             shat = psolve(s)
             t = A @ shat
-            omega = torch.dot(t, s) / nonzero(torch.dot(t, t))
+            omega = dot(t, s) / nonzero(dot(t, t))
             x = x + alpha * phat + omega * shat
             r = s - omega * t
-            res = _norm(r)
+            res = torch.sqrt(dot(r, r))
             rho = rho_new
             it += 2
     return IterResult(x=x, iterations=it, residual=res)

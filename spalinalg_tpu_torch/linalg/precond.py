@@ -35,6 +35,7 @@ import torch
 
 from ..errors import ShapeError, StructureError
 from ..native import lib as native
+from ..parallel.spmv import is_dist
 from .cg import _vector
 from .triangular import (TriangularPlan, _solve_device, _solve_host,
                          plan_triangular)
@@ -153,14 +154,21 @@ def ic0(csr) -> Ilu0Precond:
 @dataclass(frozen=True, eq=False)
 class ChebyshevPrecond:
     """Polynomial preconditioner ``M⁻¹r = p_k(A) r ≈ A⁻¹r``: ``degree``
-    products with the operand's own SpMV, no triangular solves. The
-    spectrum bounds ``(lmin, lmax)`` must bracket A's eigenvalues (SPD).
+    products with the operand's own SpMV, no triangular solves, so it
+    composes with any operand: CSR, BSR, or a ``DistCsr`` (``dist_spmv``
+    on this rank's slices). The spectrum bounds ``(lmin, lmax)`` must
+    bracket A's eigenvalues (SPD).
     """
 
     lmin: float
     lmax: float
     degree: int
     a: object
+
+    @property
+    def supports_dist(self) -> bool:
+        """Products only: sharding-aware exactly when its operand is."""
+        return is_dist(self.a)
 
     def solve(self, r) -> torch.Tensor:
         """Chebyshev iteration for ``A z = r`` from ``z0 = 0`` (Saad
@@ -193,7 +201,8 @@ def chebyshev(A, *, degree: int = 8, lmin: float = None,
     Missing bounds are estimated once: ``lmax`` by ``power_iters`` steps
     of power iteration from NumPy's ``default_rng(0)`` (a float64 start
     vector on the operand's device, as in the JAX package), inflated 5 %;
-    ``lmin`` defaults to ``lmax / 30``.
+    ``lmin`` defaults to ``lmax / 30``. A ``DistCsr`` operand needs
+    explicit ``(lmin, lmax)``.
     """
     shape = A.shape
     if shape[0] != shape[1]:
@@ -201,6 +210,10 @@ def chebyshev(A, *, degree: int = 8, lmin: float = None,
     if degree < 1:
         raise ValueError(f"degree must be >= 1, got {degree}")
     if lmax is None:
+        if is_dist(A):
+            raise ValueError(
+                "pass explicit (lmin, lmax) for DistCsr operands — the "
+                "setup-time power iteration is single-chip only")
         rng = np.random.default_rng(0)
         with torch.no_grad():
             v = _vector(rng.normal(size=shape[0]), A)

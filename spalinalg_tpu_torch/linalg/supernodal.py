@@ -38,7 +38,8 @@ from .banded import _cholesky_nan
 from .symbolic import SupernodalSymbolic
 
 __all__ = ["SupernodalPlan", "build_supernodal_plan", "supernodal_factor",
-           "supernodal_solve", "SupernodalFactor"]
+           "supernodal_factor_sharded", "supernodal_solve",
+           "SupernodalFactor"]
 
 
 def _pad_class(x: int) -> int:
@@ -287,13 +288,18 @@ def _factor_bucket(F: torch.Tensor, B: int, nsp: int, mup: int):
     return torch.cat([L, L21], dim=1), U, info
 
 
-def supernodal_factor(plan: SupernodalPlan, values: torch.Tensor
-                      ) -> SupernodalFactor:
-    """Numeric factorization: a batched partial Cholesky per level bucket,
-    on ``values``' device. ``values`` is the (postordered) matrix's CSR
-    value array; only its lower-triangle entries are read (through the
-    plan's ``a_src``). A bucket's Schur update lives until its last
-    extend-add."""
+def _factor_levels(plan: SupernodalPlan, values: torch.Tensor, mesh=None,
+                   axis: str = None) -> SupernodalFactor:
+    """The bucket loop of both factorizations. With a ``mesh``, a bucket
+    whose front count divides by the mesh size is split on its batch
+    dimension and its panels, status and read updates all-gathered."""
+    nd, rank = 1, 0
+    if mesh is not None:
+        from ..parallel.partition import gather_rows
+
+        nd = mesh.size() if axis is None else mesh.size(
+            mesh.mesh_dim_names.index(axis))
+        rank = mesh.get_local_rank()
     tables = plan.tables(values.device)
     panels: Dict[Tuple[int, int], torch.Tensor] = {}
     updates: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -311,14 +317,54 @@ def supernodal_factor(plan: SupernodalPlan, values: torch.Tensor
                     F.index_add_(0, dst, updates[lc, bc].reshape(-1)[src])
                 for key in plan.last_reads.get((l, bi), ()):
                     del updates[key]
-                panels[l, bi], update, info = _factor_bucket(
-                    F, B, bk.nsp, bk.mup)
+                if mesh is not None and B % nd == 0:
+                    mine = B // nd
+                    F = F.view(B, mp * mp)[rank * mine:(rank + 1) * mine]
+                    panel, update, info = _factor_bucket(
+                        F.reshape(-1), mine, bk.nsp, bk.mup)
+                    panel = gather_rows(panel, mesh)
+                    info = gather_rows(info, mesh)
+                    if (l, bi) in read:
+                        update = gather_rows(update, mesh)
+                else:
+                    panel, update, info = _factor_bucket(
+                        F, B, bk.nsp, bk.mup)
+                panels[l, bi] = panel
                 if (l, bi) in read:
                     updates[l, bi] = update
                 infos.append(info)
     return SupernodalFactor(plan=plan, panels=panels, dtype=values.dtype,
                             info=torch.cat(infos) if infos
                             else values.new_zeros(0, dtype=torch.int32))
+
+
+def supernodal_factor(plan: SupernodalPlan, values: torch.Tensor
+                      ) -> SupernodalFactor:
+    """Numeric factorization: a batched partial Cholesky per level bucket,
+    on ``values``' device. ``values`` is the (postordered) matrix's CSR
+    value array; only its lower-triangle entries are read (through the
+    plan's ``a_src``). A bucket's Schur update lives until its last
+    extend-add."""
+    return _factor_levels(plan, values)
+
+
+def supernodal_factor_sharded(plan: SupernodalPlan, values: torch.Tensor,
+                              mesh, axis: str = None) -> SupernodalFactor:
+    """Numeric factorization spread over the ranks of a row mesh
+    (:func:`~spalinalg_tpu_torch.parallel.make_row_mesh`); every rank
+    passes the same ``values``.
+
+    A bucket whose front count ``B`` divides by the mesh size is split on
+    its batch dimension: each rank factors ``B / P`` fronts, and the
+    panels and Schur updates (and the fronts' status) are all-gathered
+    before the next bucket, so every child's update is whole for the
+    extend-add. Smaller buckets (the top of the tree, where the work is
+    sequential) are factored on every rank. The returned factor is whole
+    on every rank, so :func:`supernodal_solve` works unchanged. Updates
+    are freed after their last extend-add, as in
+    :func:`supernodal_factor`; an update no bucket reads is not gathered.
+    """
+    return _factor_levels(plan, values, mesh, axis)
 
 
 def supernodal_solve(fac: SupernodalFactor, b, perm=None) -> torch.Tensor:

@@ -139,7 +139,12 @@ def test_port_never_imports_jax():
             "spalinalg_tpu_torch.linalg.eigen, "
             "spalinalg_tpu_torch.ops.reduce_api, "
             "spalinalg_tpu_torch.ops.indexing, "
-            "spalinalg_tpu_torch.ops.reduction, chip_smoke; "
+            "spalinalg_tpu_torch.ops.reduction, "
+            "spalinalg_tpu_torch.config, spalinalg_tpu_torch.parallel, "
+            "spalinalg_tpu_torch.parallel.multihost, "
+            "spalinalg_tpu_torch.parallel.partition, "
+            "spalinalg_tpu_torch.parallel.spmv, "
+            "spalinalg_tpu_torch.parallel.bsr, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'spalinalg_tpu' or "
             "m.startswith('spalinalg_tpu.')]; "
@@ -319,6 +324,8 @@ def test_no_plain_torch_off_the_cpu():
     "spalinalg_tpu_torch.linalg.qr",
     "spalinalg_tpu_torch.linalg.funm",
     "spalinalg_tpu_torch.linalg.eigen",
+    "spalinalg_tpu_torch.config",
+    "spalinalg_tpu_torch.parallel.partition",
 ])
 def test_port_doctests(module):
     result = doctest.testmod(importlib.import_module(module))
@@ -557,6 +564,42 @@ def test_linalg_all_matches_jax():
     import spalinalg_tpu_torch.linalg as tla
 
     assert sorted(tla.__all__) == sorted(jla.__all__)
+
+
+def test_parallel_all_matches_jax():
+    """The port's distributed tier exports the JAX package's 13 names."""
+    import spalinalg_tpu.parallel as jpar
+    import spalinalg_tpu_torch.parallel as tpar
+
+    assert sorted(tpar.__all__) == sorted(jpar.__all__)
+    assert len(tpar.__all__) == 13
+    assert all(callable(getattr(tpar, name)) for name in tpar.__all__)
+
+
+def test_config_is_exported():
+    from spalinalg_tpu_torch import config
+
+    assert "Config" in tsp.__all__ and "default_config" in tsp.__all__
+    assert tsp.Config is config.Config
+    assert tsp.default_config() is config.current_config()
+
+
+def test_make_row_mesh_needs_the_card_or_a_cpu_request():
+    """Outside any scope and with no ``device``, ``make_row_mesh`` asks for
+    the card: on this CPU-only machine it raises, and initialises no
+    process group on the way."""
+    import torch.distributed as dist
+
+    from spalinalg_tpu_torch.parallel import make_row_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the unscoped mesh would succeed")
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        contextvars.Context().run(make_row_mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_row_mesh(device="cuda")
+    assert not dist.is_initialized()
 
 
 def test_linalg_tier_no_build_on_cpu(monkeypatch):
