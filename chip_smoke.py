@@ -191,6 +191,31 @@ pass; each prints its seconds):
     ``heartbeat`` latency. Every count is exact; multi-rank correctness
     (halo slabs, uneven shards) is the 4-rank gloo tests'
     (``tests/test_torch_parallel.py``).
+21. IO and utils (``spalinalg_tpu_torch.io``, ``.utils``; run after
+    phase 15, before the solver tier, and its DistCsr checkpoint inside
+    phase 20's group): config[3]'s
+    512**2 Laplacian written as ``.mtx`` and ``.mtx.gz`` and read back
+    (seconds, equal triplets), then CSR on the card -> ``csr @ x`` (one
+    B1c launch, held against the plain SpMV) -> ``cholesky`` -> solve;
+    ``compress_host`` on csr_random's float64 triplets (n = 2**21,
+    67,108,864 entries): the native sort and merge against the NumPy path
+    on the same triplets, once each, equal arrays; on that CSR
+    ``checked_structure`` (ms), ``checked_call`` refusing a copy with one
+    out-of-range ``colind`` before any launch, ``determinism_audit`` of
+    B1c, ``trace_to`` around three ``annotate``-d SpMVs (the trace names
+    the region and the ``csr_spmv`` kernel), a ``to_sparse_csr`` ->
+    ``from_sparse_coo`` round trip on the card, ``heartbeat()`` with no
+    process group; checkpoints of config[3] as COO, DOK, CSR, CSC, BSR(8)
+    and DIA in both dtypes (seconds, bytes; the loaded matrix's product,
+    one launch of B1c / B1a, B6 / B4 or B8 / B7, bitwise the original's
+    and held against its plain version) and of a ``DistCsr`` of phase
+    16's 128**3 Laplacian on phase 20's group; the on-disk Cholesky plan
+    cache: a cold ``cholesky`` of config[3] writes its plan, and after
+    ``_SYMBOLIC.clear()`` the next loads it (host seconds of both, the
+    file's bytes, bitwise equal factors and solves). The script points
+    ``SPALINALG_PLAN_CACHE`` at a fresh temporary directory before phase
+    1 and removes it at the end; phase 21's plans go to directories of
+    their own, so phases 17-18 still measure cold host plans.
 
 Each main path (config[0]; a forward and backward SpMV per dtype; config[1]
 forward and backward for each matrix and for ``csc @ X``; config[2]
@@ -211,7 +236,8 @@ of each variant; banded8 has BSR rows of its own, the banded matrix CSR
 SpMM rows, and SDDMM at k = 1 rows beside its k = 64 ones; the CSR and BSR
 SpMV rows also the launches of phase 16's solvers, and the CSR SpMV,
 SpMM and SpGEMM rows those of phases 18-19; the CSR SpMV and SpMM,
-SpGEMM and BSR SpMV rows those of phase 20 as ``dist_launches``) and the
+SpGEMM and BSR SpMV rows those of phase 20 as ``dist_launches``; the
+CSR, BSR and DIA SpMV rows those of phase 21 as ``io_launches``) and the
 card's ``nvidia-smi`` name and power limit; the last line is the ``{"ok": true,
 "device": ...}`` record.
 """
@@ -220,8 +246,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -230,8 +259,15 @@ import torch
 
 from spalinalg_tpu_torch import (BsrMatrix, CooMatrix, CscMatrix, CsrMatrix,
                                  DiaMatrix, diags, kron)
+from spalinalg_tpu_torch.convert import engine
 from spalinalg_tpu_torch.convert.engine import major_ids, transpose_structure
+from spalinalg_tpu_torch.errors import StructureError
 from spalinalg_tpu_torch.formats.dia import _diag_span
+from spalinalg_tpu_torch.io import (from_sparse_coo, load_npz,
+                                   read_matrix_market, save_npz,
+                                   to_sparse_csr, write_matrix_market)
+from spalinalg_tpu_torch.io.checkpoint import shard_path
+from spalinalg_tpu_torch.native import lib as native_lib
 from spalinalg_tpu_torch.ops import spgemm as spgemm_mod
 from spalinalg_tpu_torch.ops.kernels import _build
 from spalinalg_tpu_torch.ops.kernels import bsr_spmm as bsr_spmm_mod
@@ -274,7 +310,12 @@ from spalinalg_tpu_torch.parallel import (dist_bsr_spmv, dist_dot, dist_spmm,
                                           unshard_vector)
 from spalinalg_tpu_torch.parallel.partition import gather_rows, mesh_device
 from spalinalg_tpu_torch.tools import probe_widegather as probe
-from spalinalg_tpu_torch.utils import metrics
+from spalinalg_tpu_torch.utils import (annotate, checked_call,
+                                       checked_structure, determinism_audit,
+                                       metrics, trace_to)
+
+# the module (``spalinalg_tpu_torch.linalg.cholesky`` names the function)
+chol_mod = sys.modules["spalinalg_tpu_torch.linalg.cholesky"]
 
 KERNELS = {
     "csr_spmv": ("spalinalg_tpu_torch/csrc/csr_spmv.cu", spmv_mod.LAUNCHES),
@@ -446,6 +487,7 @@ EXPM_RTOL = 1e-10
 DIST_K = 3163    # phase 20, config[4]: the 5-point Laplacian of DIST_K**2
 DIST_KMM = 64    # its dist_spmm's k (10,004,569 x 64 float64: 5.1 GB)
 DIST_GEMM_N = 2**16   # phase 20: DistCsr * DistCsr on the power-law matrix
+TRACE_PAD = 256  # phase 21: tiny kernels before the traced SpMVs
 
 
 def nvidia_smi_card() -> str:
@@ -501,18 +543,26 @@ def config0(device):
     return coo, csr, x
 
 
-def big_matrix(np_dtype, device):
-    """csr_random at n = 2**21: 32 uniform random columns per row, one in
-    each of 32 equal column strata (so no duplicates, and nnz is exactly
-    2**26), with triplets generated in row order."""
-    rng = np.random.default_rng(1)
+def csr_random_triplets(np_dtype, rng):
+    """csr_random's triplets at n = 2**21: 32 uniform random columns per
+    row, one in each of 32 equal column strata (so no duplicates, and nnz
+    is exactly 2**26), generated in row order."""
     strata = N_BIG // ROW_NNZ
     rows = np.repeat(np.arange(N_BIG, dtype=np.int64), ROW_NNZ)
     cols = (np.arange(ROW_NNZ, dtype=np.int64) * strata)[None, :] \
         + rng.integers(0, strata, size=(N_BIG, ROW_NNZ))
     vals = rng.normal(size=rows.size).astype(np_dtype)
+    return rows, cols.reshape(-1), vals
+
+
+def big_matrix(np_dtype, device):
+    """csr_random at n = 2**21 (``csr_random_triplets``) through
+    ``CooMatrix`` and ``CsrMatrix.from_coo``: float32 triplets take the
+    NumPy compress, float64 ones the native one (phase 21)."""
+    rng = np.random.default_rng(1)
+    rows, cols, vals = csr_random_triplets(np_dtype, rng)
     t0 = time.perf_counter()
-    coo = CooMatrix.with_triplets(N_BIG, N_BIG, rows, cols.reshape(-1), vals)
+    coo = CooMatrix.with_triplets(N_BIG, N_BIG, rows, cols, vals)
     del rows, cols, vals
     csr = CsrMatrix.from_coo(coo, device=device)
     torch.cuda.synchronize()
@@ -3401,12 +3451,13 @@ def plain_spmm_within(A, X, Y, tol: float, what: str) -> float:
     return worst
 
 
-def dist_run(what: str, fn, want, dist_launches):
+def counted_run(what: str, fn, want, counts):
     """Run ``fn`` once between a reset and a read of the launch counts;
-    fail unless they are exactly ``want``; add them to the kernel line's
-    ``dist_launches``. Returns ``(result, seconds)``."""
+    fail unless they are exactly ``want``; add them to ``counts`` (the
+    kernel line's ``dist_launches`` or ``io_launches``). Returns
+    ``(result, seconds)``."""
     out, sec, got = solver_run(fn)
-    expect_counts(what, got, want, dist_launches)
+    expect_counts(what, got, want, counts)
     return out, sec
 
 
@@ -3443,9 +3494,9 @@ def dist_config4(mesh, device, card: str, dist_launches) -> None:
         single_ms = None
         for comm, d in dists.items():
             xl = shard_vector(x, d)
-            y, sec = dist_run(f"dist_spmv {comm} {name}",
-                              lambda: dist_spmv(d, xl),
-                              {"csr_spmv": {name: 1}}, dist_launches)
+            y, sec = counted_run(f"dist_spmv {comm} {name}",
+                                 lambda: dist_spmv(d, xl),
+                                 {"csr_spmv": {name: 1}}, dist_launches)
             y = unshard_vector(y, d)
             err = (y - y_p).abs()
             within(err, scale, tol, f"config[4] dist_spmv {comm} {name} "
@@ -3477,9 +3528,9 @@ def dist_config4(mesh, device, card: str, dist_launches) -> None:
             raise AssertionError("one rank: the local rows are all rows")
         Y1 = A @ Xl
         for comm, d in dists.items():
-            Y, sec = dist_run(f"dist_spmm {comm} {name}",
-                              lambda: dist_spmm(d, Xl),
-                              {"csr_spmm": {name: 1}}, dist_launches)
+            Y, sec = counted_run(f"dist_spmm {comm} {name}",
+                                 lambda: dist_spmm(d, Xl),
+                                 {"csr_spmm": {name: 1}}, dist_launches)
             # one rank: its rows are the global rows (unshard_vector would
             # copy 5 GB to say so)
             worst = plain_spmm_within(
@@ -3516,10 +3567,10 @@ def dist_cg(mesh, device, card: str, dist_launches) -> None:
     cg(d, bl, maxiter=2, precondition="jacobi")
     ref, ref_s, _ = solver_run(
         lambda: cg(A, b, tol=tol, precondition="jacobi"))
-    res, sec = dist_run("DistCsr CG", lambda: cg(d, bl, tol=tol,
-                                                 precondition="jacobi"),
-                        {"csr_spmv": {"float64": ref.iterations + 1}},
-                        dist_launches)
+    res, sec = counted_run("DistCsr CG", lambda: cg(d, bl, tol=tol,
+                                                    precondition="jacobi"),
+                           {"csr_spmv": {"float64": ref.iterations + 1}},
+                           dist_launches)
     if res.iterations != ref.iterations:
         raise AssertionError(f"DistCsr CG: {res.iterations} iterations, "
                              f"cg on the CsrMatrix {ref.iterations}")
@@ -3566,9 +3617,9 @@ def dist_bsr(mesh, device, card: str, dist_launches) -> None:
                             device=device)
             xl = shard_bsr_vector(x, d)
             y1 = bsr @ x
-            y, sec = dist_run(f"dist_bsr_spmv {shape} {name}",
-                              lambda: dist_bsr_spmv(d, xl),
-                              {"bsr_spmv": {name: 1}}, dist_launches)
+            y, sec = counted_run(f"dist_bsr_spmv {shape} {name}",
+                                 lambda: dist_bsr_spmv(d, xl),
+                                 {"bsr_spmv": {name: 1}}, dist_launches)
             y = unshard_vector(y, d)
             ip, ix, data = bsr.indptr, bsr.indices, bsr.data
             err = (y - bsr_spmv_plain(ip, ix, data, x)).abs()
@@ -3599,8 +3650,8 @@ def dist_spgemm(mesh, device, card: str, dist_launches) -> None:
     values within tol, one B3 launch."""
     for name, a in power_law(device, DIST_GEMM_N).items():
         da = partition_csr(a, mesh)
-        c, sec = dist_run(f"DistCsr * DistCsr {name}", lambda: da * da,
-                          {"spgemm": {name: 1}}, dist_launches)
+        c, sec = counted_run(f"DistCsr * DistCsr {name}", lambda: da * da,
+                             {"spgemm": {name: 1}}, dist_launches)
         whole = c.to_csr()
         held = hold_spgemm(f"DistCsr * DistCsr {name}", a, a, whole)
         print(f"phase 20: DistCsr * DistCsr power-law n={DIST_GEMM_N} "
@@ -3644,8 +3695,10 @@ def dist_supernodal(mesh, device, card: str) -> None:
     free_memory()
 
 
-def dist_phase(device, card: str, dist_launches) -> None:
-    """Phase 20: the distributed tier on a one-rank NCCL group."""
+def dist_phase(device, card: str, dist_launches, tmpdir: str,
+               io_launches) -> None:
+    """Phase 20: the distributed tier on a one-rank NCCL group; phase 21's
+    DistCsr checkpoint on the same group."""
     import torch.distributed as tdist
 
     mesh = make_row_mesh(device=device)
@@ -3667,18 +3720,413 @@ def dist_phase(device, card: str, dist_launches) -> None:
         dist_supernodal(mesh, device, card)
         print(f"phase 20: heartbeat {multihost.heartbeat() * 1e3:.3f} ms | "
               f"{card}")
+        with phase("phase 21 DistCsr checkpoint"):
+            dist_checkpoint(mesh, device, card, tmpdir, io_launches)
     finally:
         tdist.destroy_process_group()
 
 
+# ---- phase 21: IO and utils -------------------------------------------
+
+
+def timed(fn):
+    """``(fn(), seconds to the card's completion)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def plan_cache_at(path: str):
+    """``SPALINALG_PLAN_CACHE`` at ``path`` for a block."""
+    saved = os.environ["SPALINALG_PLAN_CACHE"]
+    os.environ["SPALINALG_PLAN_CACHE"] = path
+    try:
+        yield
+    finally:
+        os.environ["SPALINALG_PLAN_CACHE"] = saved
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic kernels (``index_add_`` without atomics) for
+    a block; where an op has none, it warns, silenced here."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def hold_product(what: str, mat, x, y) -> float:
+    """``y`` (a product of ``mat``'s kernel) against the plain version of
+    that kernel on ``mat``'s arrays, entry by entry within ``TOL·|A||x|``;
+    returns the max |err|. CSC runs the CSR kernel on its CSR form."""
+    if isinstance(mat, BsrMatrix):
+        def plain(vals, v):
+            return bsr_spmv_plain(mat.indptr, mat.indices, vals, v)
+        vals = mat.data
+    elif isinstance(mat, DiaMatrix):
+        def plain(vals, v):
+            return dia_spmv_plain(mat.offsets, vals, v, mat.nrows, mat.ncols)
+        vals = mat.data
+    else:
+        csr = mat.to_csr() if isinstance(mat, CscMatrix) else mat
+
+        def plain(vals, v):
+            return csr_spmv_plain(csr.rowptr, csr.colind, vals, v, csr.nrows)
+        vals = csr.values
+    err = (y - plain(vals, x)).abs()
+    within(err, plain(vals.abs(), x.abs()),
+           TOL[str(x.dtype).removeprefix("torch.")], what)
+    return float(err.max())
+
+
+def matrix_market_phase(device, card: str, tmpdir: str, io_launches) -> None:
+    """config[3]'s 512**2 Laplacian written as .mtx and .mtx.gz and read
+    back, then CSR on the card -> csr @ x (B1c, held against the plain
+    SpMV) -> cholesky -> solve."""
+    L = stencil_csr(CHOL_K, 2, device)
+    want = L.to_coo().to_arrays()
+    for name in ("config3.mtx", "config3.mtx.gz"):
+        path = os.path.join(tmpdir, name)
+        _, write_s = timed(lambda: write_matrix_market(path, L))
+        back, read_s = timed(lambda: read_matrix_market(path))
+        if not all(np.array_equal(g, w) for g, w in zip(back.to_arrays(),
+                                                        want)):
+            raise AssertionError(f"{name}: the triplets read back differ "
+                                 "from the matrix written")
+        print(f"phase 21: Matrix Market {name} config[3] {CHOL_K}^2 "
+              f"({back.nnz} entries, {os.path.getsize(path)} bytes): write "
+              f"{write_s:.3f} s, read {read_s:.3f} s, triplets equal | {card}")
+    A = CsrMatrix.from_coo(back, device=device)
+    if not (torch.equal(A.rowptr, L.rowptr) and torch.equal(A.colind, L.colind)
+            and torch.equal(A.values, L.values)):
+        raise AssertionError("the .mtx round trip changed the CSR arrays")
+    x = card_vector(A.nrows, np.float64, 23, device)
+    y, _ = counted_run("Matrix Market csr @ x", lambda: A @ x,
+                       {"csr_spmv": {"float64": 1}}, io_launches)
+    err = hold_product("Matrix Market csr @ x", A, x, y)
+    b = card_vector(A.nrows, np.float64, 24, device)
+
+    def factor_and_solve():
+        fac = cholesky(A)
+        return fac, cholesky_solve(fac, b)
+
+    (fac, xs), sec, got = solver_run(factor_and_solve)
+    expect_counts("Matrix Market cholesky + solve", got, {}, io_launches)
+    rel = true_residual(A, xs, b) / float(torch.linalg.vector_norm(b))
+    if not rel <= CHOL_RTOL["float64"]:
+        raise AssertionError(f"Matrix Market cholesky: ||A·x - b|| / ||b|| "
+                             f"{rel:.3e}")
+    print(f"phase 21: .mtx.gz -> CsrMatrix.from_coo (arrays equal to the "
+          f"original's) -> csr @ x: 1 B1c launch == plain within "
+          f"{TOL['float64']}·|A||x| (max |err| {err:.3e}); cholesky "
+          f"({fac.path}) + solve {sec:.3f} s, no kernel launch, ||A·x - b|| "
+          f"/ ||b|| = {rel:.3e} | {card}")
+    del L, A, back, fac, x, y, b, xs
+    free_memory()
+
+
+def compress_phase(device, card: str) -> CsrMatrix:
+    """The float64 triplets of csr_random (n = 2**21, 67,108,864 entries)
+    through ``compress_host``: the native sort and merge, then the NumPy
+    path on the same triplets, once each; equal arrays. Returns the CSR
+    on the card."""
+    rows, cols, vals = csr_random_triplets(np.float64, np.random.default_rng(1))
+    native_calls = []
+    native_compress = native_lib.compress
+
+    def counting(*args, **kwargs):
+        native_calls.append(1)
+        return native_compress(*args, **kwargs)
+
+    native_lib.compress = counting
+    try:
+        nat, nat_s = timed(lambda: engine.compress_host(
+            rows, cols, vals, N_BIG, dedup=True, drop_zeros=True))
+    finally:
+        native_lib.compress = native_compress
+    gate = engine.NATIVE_ABOVE
+    engine.NATIVE_ABOVE = np.iinfo(np.int64).max
+    try:
+        npy, npy_s = timed(lambda: engine.compress_host(
+            rows, cols, vals, N_BIG, dedup=True, drop_zeros=True))
+    finally:
+        engine.NATIVE_ABOVE = gate
+    if native_calls != [1]:
+        raise AssertionError(f"compress_host made {len(native_calls)} native "
+                             "calls, expected 1")
+    if not (all(np.array_equal(a, b) for a, b in zip(nat, npy))
+            and np.array_equal(np.signbit(nat[2]), np.signbit(npy[2]))):
+        raise AssertionError("native and NumPy compress differ")
+    print(f"phase 21: compress_host float64 csr_random n={N_BIG} "
+          f"{rows.size} triplets: native {nat_s:.2f} s, NumPy {npy_s:.2f} s "
+          f"(x{npy_s / nat_s:.1f}), arrays equal (sign bits too); before "
+          f"the native path (PERF.md §5), COO build + from_coo all in "
+          f"NumPy: 53.95 s float32, 61.69 s float64 | {card}")
+    del rows, cols, vals, npy
+    big = CsrMatrix._from_host(N_BIG, N_BIG, *nat, device)
+    torch.cuda.synchronize()
+    return big
+
+
+def checkpoint_phase(device, card: str, tmpdir: str, io_launches) -> None:
+    """config[3]'s matrix saved and loaded as COO, DOK, CSR, CSC, BSR(8)
+    and DIA in both dtypes: the loaded matrix's product (one launch of
+    B1c / B1a, B6 / B4, B8 / B7) bitwise the original's, and held against
+    its plain version."""
+    L = stencil_csr(CHOL_K, 2, device)
+    kernel = {"bsr": "bsr_spmv", "dia": "dia_spmv"}
+    ids = {("csr_spmv", "float64"): "B1c", ("csr_spmv", "float32"): "B1a",
+           ("bsr_spmv", "float64"): "B6", ("bsr_spmv", "float32"): "B4",
+           ("dia_spmv", "float64"): "B8", ("dia_spmv", "float32"): "B7"}
+    for name in ("float64", "float32"):
+        np_dtype, dtype = DTYPES[name]
+        A = L if name == "float64" else L.astype(dtype)
+        x = card_vector(A.nrows, np_dtype, 25, device)
+        mats = {"coo": A.to_coo(), "dok": A.to_dok(), "csr": A,
+                "csc": A.to_csc(), "bsr": A.to_bsr(BAND_BS),
+                "dia": DiaMatrix.from_csr(A)}
+        for fmt, mat in mats.items():
+            path = os.path.join(tmpdir, f"{fmt}_{name}.npz")
+            _, save_s = timed(lambda: save_npz(path, mat))
+            back, load_s = timed(lambda: load_npz(path, device=device))
+            if fmt in ("coo", "dok"):             # host formats: via CSR
+                build = (CsrMatrix.from_coo if fmt == "coo"
+                         else CsrMatrix.from_dok)
+                orig_op, back_op = (build(mat, device=device),
+                                    build(back, device=device))
+            else:
+                orig_op, back_op = mat, back
+            kname = kernel.get(fmt, "csr_spmv")
+            y, _ = counted_run(f"checkpoint {fmt} {name}", lambda: back_op @ x,
+                               {kname: {name: 1}}, io_launches)
+            if not torch.equal(y, orig_op @ x):
+                raise AssertionError(f"checkpoint {fmt} {name}: the loaded "
+                                     "matrix's product differs from the "
+                                     "original's")
+            err = hold_product(f"checkpoint {fmt} {name}", back_op, x, y)
+            print(f"phase 21: checkpoint {fmt} {name}: save {save_s:.3f} s, "
+                  f"{os.path.getsize(path)} bytes, load {load_s:.3f} s; product "
+                  f"({ids[kname, name]}, 1 launch) bitwise the original's, == plain (max |err| "
+                  f"{err:.3e}) | {card}")
+        del mats, A, x
+    del L
+    free_memory()
+
+
+def plan_cache_phase(device, card: str, tmpdir: str) -> None:
+    """Under a fresh plan cache: cholesky of config[3] builds the plan and
+    writes it; after ``_SYMBOLIC.clear()`` cholesky loads it from disk.
+    Host times, the file's size, bitwise equal factors and solves."""
+    plan_dir = os.path.join(tmpdir, "plans_cold")
+    with plan_cache_at(plan_dir):
+        L = stencil_csr(CHOL_K, 2, device)
+        b = card_vector(L.nrows, np.float64, 26, device)
+        runs = []
+        for _ in range(2):
+            chol_mod._SYMBOLIC.clear()
+            rec = metrics.enable()
+            rec.records.clear()
+            try:
+                fac, sec = timed(lambda: cholesky(L))
+                host = [(r.path, r.seconds) for r in rec.records
+                        if r.op.startswith("chol_")]
+            finally:
+                metrics.disable()
+                rec.records.clear()
+            runs.append((fac, sec, host, cholesky_solve(fac, b)))
+        (fac1, cold_s, host1, x1), (fac2, warm_s, host2, x2) = runs
+        if [p for p, _ in host1] != ["chol_ordering:host", "chol_symbolic:host",
+                                     "chol_plan:host"]:
+            raise AssertionError(f"first cholesky: host phases {host1}")
+        if [p for p, _ in host2] != ["chol_plan:disk"]:
+            raise AssertionError(f"second cholesky: host phases {host2}, "
+                                 "expected one chol_plan:disk")
+        if not np.array_equal(fac1.perm, fac2.perm):
+            raise AssertionError("the disk plan's ordering differs")
+        # The factor's extend-add sums through index_add_ atomics, so two
+        # factors on the card differ in the last bits (phase 17); the two
+        # plans are held against each other with deterministic kernels.
+        gap = max(float((fac2.snf.panels[k] - p).abs().max()
+                        / p.abs().max().clamp_min(1e-300))
+                  for k, p in fac1.snf.panels.items())
+        values = permute_csr(L, fac1.perm).values
+        with deterministic():
+            f1, f2 = (supernodal_factor(f.snf.plan, values)
+                      for f in (fac1, fac2))
+            y1, y2 = (supernodal_solve(f, b, perm=fac1.perm)
+                      for f in (f1, f2))
+        same = (f1.panels.keys() == f2.panels.keys() and all(
+            torch.equal(f2.panels[k], p) for k, p in f1.panels.items())
+            and torch.equal(y1, y2))
+        if not same:
+            raise AssertionError("the disk plan's factor or solve differs")
+        rel = true_residual(L, x2, b) / float(torch.linalg.vector_norm(b))
+        if not rel <= CHOL_RTOL["float64"]:
+            raise AssertionError(f"disk plan: ||A·x - b|| / ||b|| {rel:.3e}")
+        times = sorted(refactor_s(L) for _ in range(REFACTORS))
+        refactor = times[len(times) // 2]
+        files = os.listdir(os.path.join(plan_dir, "torch"))
+        size = sum(os.path.getsize(os.path.join(plan_dir, "torch", f))
+                   for f in files)
+        print(f"phase 21: plan cache config[3] {CHOL_K}^2 float64: cold "
+              f"host plan {sum(t for _, t in host1):.3f} s (ordering, "
+              f"symbolic, plan: {', '.join(f'{t:.3f}' for _, t in host1)}), "
+              f"cholesky {cold_s:.3f} s; after _SYMBOLIC.clear() the plan "
+              f"from disk {host2[0][1]:.3f} s, cholesky {warm_s:.3f} s; "
+              f"re-factor (plan in memory) {refactor:.3f} s; {len(files)} "
+              f"file, {size} bytes; the same ordering; with deterministic "
+              f"kernels both plans' factors and solves bitwise equal "
+              f"(without: {gap:.3e} relative, index_add_ atomics); "
+              f"||A·x - b|| / ||b|| = {rel:.3e} | {card}")
+        del L, b, runs, fac1, fac2, x1, x2, f1, f2, y1, y2, values
+    free_memory()
+
+
+def utils_phase(big, card: str, tmpdir: str, io_launches) -> None:
+    """On the 2**21 CSR: checked_structure; checked_call refusing a copy
+    with one out-of-range colind before any launch; determinism_audit of
+    B1c; trace_to around three annotated SpMVs; a to_sparse_csr /
+    from_sparse_coo round trip; heartbeat() with no process group."""
+    import torch.distributed as tdist
+
+    x = card_vector(N_BIG, np.float64, 27, big.device)
+    check = checked_structure(big)
+    check()                                                  # warm-up
+    err, check_s = timed(check)
+    if err.get() is not None:
+        raise AssertionError(f"checked_structure: {err.get()}")
+    colind = big.colind.clone()
+    colind[12345] = N_BIG
+    bad = CsrMatrix._from_parts(N_BIG, N_BIG, big.rowptr, colind, big.values)
+    (bad_err, out), _, got = solver_run(
+        lambda: checked_call(lambda a, v: a @ v, bad, x))
+    expect_counts("checked_call on a bad colind", got, {}, io_launches)
+    if out is not None or bad_err.get() != "minor index out of range":
+        raise AssertionError(f"checked_call: {bad_err.get()!r}, out {out}")
+    try:
+        bad_err.throw()
+        raise AssertionError("the check's throw() did not raise")
+    except StructureError:
+        pass
+    del bad, colind
+    same, _ = counted_run("determinism_audit", lambda: determinism_audit(
+        lambda v: big @ v, x), {"csr_spmv": {"float64": 3}}, io_launches)
+    if not same:
+        raise AssertionError("determinism_audit of B1c: results differ")
+    logdir = os.path.join(tmpdir, "trace")
+    pad = torch.zeros(1, device=big.device)
+
+    def traced():
+        with trace_to(logdir):
+            # Later in a process, a torch.profiler session loses its first
+            # kernel records (PERF.md §7): tiny kernels go first.
+            for _ in range(TRACE_PAD):
+                pad.add_(1)
+            with annotate("spalinalg_io_phase"):
+                for _ in range(3):
+                    big @ x
+            torch.cuda.synchronize()
+
+    counted_run("trace_to", traced, {"csr_spmv": {"float64": 3}}, io_launches)
+    (trace,) = os.listdir(logdir)
+    with open(os.path.join(logdir, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    records = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    kernels = sorted({n for n in records if "csr_spmv" in n})
+    if "spalinalg_io_phase" not in names or not kernels:
+        raise AssertionError(f"trace {trace} lacks the region or the "
+                             f"csr_spmv kernel ({kernels})")
+    (rt, rt_s), _, got = solver_run(lambda: timed(lambda: from_sparse_coo(
+        to_sparse_csr(big).to_sparse_coo())))
+    expect_counts("to_sparse_csr / from_sparse_coo", got, {}, io_launches)
+    if not (rt.device == big.device and torch.equal(rt.rowptr, big.rowptr)
+            and torch.equal(rt.colind, big.colind)
+            and torch.equal(rt.values, big.values)):
+        raise AssertionError("the torch.sparse round trip changed the CSR")
+    if tdist.is_initialized():
+        raise AssertionError("a process group is still up")
+    beat = multihost.heartbeat()
+    print(f"phase 21: n={N_BIG} nnz={big.nnz} float64: checked_structure "
+          f"{check_s * 1e3:.2f} ms, sound; a copy with colind[12345] = "
+          f"{N_BIG}: checked_call -> {bad_err.get()!r}, no launch; "
+          f"determinism_audit of B1c (3 launches) True; trace_to "
+          f"{os.path.getsize(os.path.join(logdir, trace))} bytes names "
+          f"'spalinalg_io_phase' and {', '.join(kernels)} (3 launches; "
+          f"{len(records)} kernel records of {TRACE_PAD + 3} launched); "
+          f"to_sparse_csr -> to_sparse_coo -> from_sparse_coo on "
+          f"{rt.device} {rt_s:.3f} s, arrays equal; heartbeat() with no "
+          f"process group {beat * 1e3:.3f} ms | {card}")
+    del rt, x
+    free_memory()
+
+
+def dist_checkpoint(mesh, device, card: str, tmpdir: str,
+                    io_launches) -> None:
+    """A DistCsr of phase 16's 128**3 Laplacian saved shard by shard and
+    loaded on the same one-rank group: its dist_spmv (one B1c launch)
+    bitwise the original's and held against the plain SpMV of the whole
+    matrix."""
+    A = stencil_csr(KRYLOV_K, 3, device)
+    d = partition_csr(A, mesh)
+    path = os.path.join(tmpdir, "dist_lap3d.npz")
+    _, save_s = timed(lambda: save_npz(path, d))
+    back, load_s = timed(lambda: load_npz(path, mesh=mesh))
+    x = card_vector(A.nrows, np.float64, 28, device)
+    xl = shard_vector(x, d)
+    y, _ = counted_run("DistCsr checkpoint dist_spmv",
+                       lambda: dist_spmv(back, xl),
+                       {"csr_spmv": {"float64": 1}}, io_launches)
+    if not torch.equal(y, dist_spmv(d, xl)):
+        raise AssertionError("DistCsr checkpoint: the loaded shard's product "
+                             "differs from the original's")
+    err = hold_product("DistCsr checkpoint", A, x, unshard_vector(y, d))
+    print(f"phase 21: DistCsr checkpoint {KRYLOV_K}^3 float64 on "
+          f"{mesh.size()} rank(s) (comm {back.comm}): save {save_s:.3f} s, "
+          f"{os.path.getsize(shard_path(path, d.rank))} bytes, load {load_s:.3f} s;"
+          f" dist_spmv (1 B1c launch) bitwise the original's, == plain "
+          f"(max |err| {err:.3e}) | {card}")
+    del A, d, back, x, xl, y
+    free_memory()
+
+
+def io_phase(device, card: str, tmpdir: str, io_launches):
+    """Phase 21 on one card (the DistCsr checkpoint runs in phase 20's
+    group: ``dist_checkpoint``). Its Cholesky plans go to directories of
+    their own, so phase 17 still builds its plan cold."""
+    with phase("phase 21 Matrix Market"), plan_cache_at(
+            os.path.join(tmpdir, "plans_io")):
+        matrix_market_phase(device, card, tmpdir, io_launches)
+    with phase("phase 21 native compress"):
+        big = compress_phase(device, card)
+    with phase("phase 21 checks, profiling, interop, heartbeat"):
+        utils_phase(big, card, tmpdir, io_launches)
+    del big
+    free_memory()
+    with phase("phase 21 checkpoints"):
+        checkpoint_phase(device, card, tmpdir, io_launches)
+    with phase("phase 21 plan cache"):
+        plan_cache_phase(device, card, tmpdir)
+
+
 def kernel_line(launches, report, seen, solver_launches,
-                dist_launches) -> list:
+                dist_launches, io_launches) -> list:
     """One row per kernel and dtype (its launches over every main path),
     and the rows of EXTRA_ROWS (the launches of their own matrix's main
     path); each row of a kernel with variants names the variants its
     launches ran; the rows of the kernels the solvers of phases 16, 18
-    and 19 ran carry those launches as ``solver_launches``, and those the
-    distributed tier of phase 20 ran as ``dist_launches``."""
+    and 19 ran carry those launches as ``solver_launches``, those the
+    distributed tier of phase 20 ran as ``dist_launches``, and those of
+    phase 21 (IO and utils) as ``io_launches``."""
     def variants(kname, name, shapes=None):
         out = {}
         for (k, shape, n), per in seen.items():
@@ -3700,6 +4148,8 @@ def kernel_line(launches, report, seen, solver_launches,
                 row["solver_launches"] = solver_launches[kname, name]
             if (kname, name) in dist_launches:
                 row["dist_launches"] = dist_launches[kname, name]
+            if (kname, name) in io_launches:
+                row["io_launches"] = io_launches[kname, name]
             rows.append(row)
     for (kname, suffix), shape in EXTRA_ROWS.items():
         for name in ("float32", "float64"):
@@ -3721,6 +4171,17 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # A fresh temporary directory, removed at the end: the on-disk plan
+    # cache (so phases 17-18 measure cold host plans) and phase 21's files.
+    tmpdir = tempfile.mkdtemp(prefix="spalinalg_smoke_")
+    os.environ["SPALINALG_PLAN_CACHE"] = os.path.join(tmpdir, "plans")
+    try:
+        return run(t_start, tmpdir)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
+def run(t_start: float, tmpdir: str) -> int:
     card = nvidia_smi_card()
     device = torch.device("cuda", 0)
     print(f"phase 0: nvidia-smi: {card}")
@@ -3885,6 +4346,13 @@ def main() -> int:
     del probe_out
     free_memory()
 
+    # ---- IO and utils (phase 21): here, so its heartbeat runs before
+    # phase 20 makes a process group; its DistCsr checkpoint runs in
+    # phase 20's group.
+    io_launches = {}
+    with phase("phase 21"):
+        io_phase(device, card, tmpdir, io_launches)
+
     # ---- the solver tier: Krylov solvers (phase 16), config[3] (17) ----
     solver_launches = {}
     with phase("phase 16"):
@@ -3899,11 +4367,11 @@ def main() -> int:
     # ---- the distributed tier on a one-rank NCCL group (phase 20) -------
     dist_launches = {}
     with phase("phase 20"):
-        dist_phase(device, card, dist_launches)
+        dist_phase(device, card, dist_launches, tmpdir, io_launches)
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
     kernels = kernel_line(launches, report, seen, solver_launches,
-                          dist_launches)
+                          dist_launches, io_launches)
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError("a kernel was not launched on the main path")
     print(json.dumps({"kernels": kernels}))

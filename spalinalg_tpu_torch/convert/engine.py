@@ -5,9 +5,11 @@ One sort/segment pipeline serves every format change:
     lexsort by (major, minor)  ->  [duplicate merge]  ->  [zero drop]
                                ->  ptr from the sorted majors
 
-- **Host path** (NumPy, :func:`compress_host`): exact output sizes, used
-  by the constructors from the host builders (COO, DOK). It is the JAX
-  package's NumPy path, so both packages build the same structure and the
+- **Host path** (:func:`compress_host`): exact output sizes, used by the
+  constructors from the host builders (COO, DOK). Float64 triplets with
+  more than 4096 entries go to the native library's C++ sort and merge
+  (``spal_compress``), every other input to NumPy, under the JAX
+  package's own gate, so both packages build the same structure and the
   same values bit for bit.
 - **Device path** (torch, on whatever device the tensors live):
   :func:`transpose_structure` re-keys a compressed structure by its minor
@@ -49,8 +51,12 @@ __all__ = [
 
 
 # ======================================================================
-# Host path (exact sizes; NumPy)
+# Host path (exact sizes; NumPy or the native library)
 # ======================================================================
+
+# Float64 inputs longer than this take the native sort and merge
+# (spalinalg_tpu/convert/engine.py:80-87).
+NATIVE_ABOVE = 4096
 
 
 def compress_host(
@@ -69,10 +75,22 @@ def compress_host(
     sorted order (the reference's last-seen-pointer merge,
     `csr/conv/coo.rs:37-58`); with ``drop_zeros`` exact numeric zeros are
     removed (`csr/conv/coo.rs:61-74`).
+
+    Float64 values with more than 4096 entries take the native library
+    (``native.compress``), as in the JAX package; a failed build raises
+    ``NativeBuildError``. The two paths give the same arrays except for
+    the sign of a zero: the native merge keeps a lone ``-0.0``, while
+    ``np.add.at`` into zeros gives ``+0.0``, in both packages alike.
     """
     major = np.asarray(major, dtype=np.int64)
     minor = np.asarray(minor, dtype=np.int64)
     values = np.asarray(values)
+
+    if values.dtype == np.float64 and major.size > NATIVE_ABOVE:
+        from ..native import lib as native
+
+        return native.compress(major, minor, values, n_major, dedup=dedup,
+                               drop_zeros=drop_zeros)
 
     order = np.lexsort((minor, major))
     major, minor, values = major[order], minor[order], values[order]

@@ -44,6 +44,7 @@ import torch
 from ..errors import ShapeError
 from ..utils.metrics import instrument
 from ..utils.plancache import StructureCache
+from ..utils.plandisk import load_or_build
 from .banded import (BandCholeskyFactor, _cholesky_nan, band_cholesky_factor,
                      band_cholesky_solve)
 from .ordering import bandwidth as _bandwidth, rcm_ordering
@@ -136,7 +137,10 @@ class _Symbolic:
 
 def _supernodal_symbolic(csr, reorder: bool) -> _Symbolic:
     """Ordering, symbolic analysis and plan of ``csr``'s structure, built
-    on the host once per structure and kept while the structure lives."""
+    on the host once per structure and kept while the structure lives;
+    the host plan (``perm``, the value gather and the
+    ``SupernodalPlan`` with its ``SupernodalSymbolic``) is also kept on
+    disk across processes (:mod:`..utils.plandisk`)."""
     from .supernodal import build_supernodal_plan
     from .symbolic import amd_ordering, chol_symbolic, etree, postorder
 
@@ -144,7 +148,15 @@ def _supernodal_symbolic(csr, reorder: bool) -> _Symbolic:
 
     def build():
         ptr0, ind0, _ = csr._host_arrays()
+        perm, src, plan = load_or_build(
+            "snchol", (ptr0, ind0), (n, int(bool(reorder))),
+            lambda: host_plan(ptr0, ind0),
+            on_load=lambda load: instrument("chol_plan", load, path="disk",
+                                            device=_HOST))
+        return _Symbolic(perm=perm, plan=plan,
+                         value_src=torch.as_tensor(src, device=csr.device))
 
+    def host_plan(ptr0, ind0):
         def ordering():
             p1 = (amd_ordering(csr) if reorder
                   else np.arange(n, dtype=np.int64))
@@ -163,8 +175,7 @@ def _supernodal_symbolic(csr, reorder: bool) -> _Symbolic:
         plan = instrument("chol_plan",
                           lambda: build_supernodal_plan(sym, ptr, ind),
                           path="host", device=_HOST)
-        return _Symbolic(perm=perm, plan=plan,
-                         value_src=torch.as_tensor(src, device=csr.device))
+        return perm, src, plan
 
     return _SYMBOLIC.get((csr.rowptr, csr.colind), build, n, bool(reorder))
 

@@ -3,15 +3,22 @@
 ``spalinalg_tpu_torch/native/src/host_kernels.cpp`` is plain C++ with a C
 interface and no tie to any framework: the port's copy of the functions it
 needs from the JAX package's ``host_kernels.cpp``, each copied with its
-first caller. It is compiled with ``g++ -O3 -fPIC -std=c++17 -shared``
-(and ``-mfma`` on x86-64), without ``-march=native``, so the library runs
-on any x86-64 host with FMA (since 2013). The
-build happens at first use, into ``build/native/`` at the repository root,
-named by a hash of the source and flags; nothing is written beside the
-source. A failed build raises :class:`NativeBuildError`: callers that need
-the library do not drop to NumPy.
+first caller. It is compiled with the JAX package's flags, ``g++ -O3
+-march=native -fPIC -std=c++17 -shared``: the same source, flags and
+compiler give the same bits in both packages on every host. (A build
+with ``-mfma`` in place of ``-march=native`` does not: on a host with
+AVX-512 its IC(0) sweep differed from the JAX library's in the last bit.)
+The build
+happens at first use, into ``build/native/`` at the repository root, named
+by a hash of the source, the flags and the host's resolved native target
+(``g++ -march=native -Q --help=target``), so a ``build/`` directory
+carried to another CPU rebuilds instead of running instructions that host
+lacks; nothing is written beside the source. A failed build raises
+:class:`NativeBuildError`: callers that need the library do not drop to
+NumPy.
 
-Bound: ``spal_spgemm_symbolic`` (the SpGEMM symbolic phase); ``spal_rcm``,
+Bound: ``spal_compress`` (COO -> compressed sort and merge);
+``spal_spgemm_symbolic`` (the SpGEMM symbolic phase); ``spal_rcm``,
 ``spal_level_schedule``, ``spal_etree``, ``spal_chol_symbolic`` and
 ``spal_amd`` (orderings and the Cholesky symbolic phase); ``spal_ilu0`` and
 ``spal_ic0`` (the incomplete factorizations' numeric sweeps).
@@ -23,7 +30,6 @@ import ctypes
 import functools
 import hashlib
 import os
-import platform
 import shutil
 import subprocess
 from pathlib import Path
@@ -31,16 +37,14 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["NativeBuildError", "SOURCE", "library_path", "load_library",
-           "spgemm_symbolic", "rcm", "level_schedule", "etree",
+           "compress", "spgemm_symbolic", "rcm", "level_schedule", "etree",
            "chol_symbolic", "amd", "ilu0_values", "ic0_values"]
 
 SOURCE = Path(__file__).resolve().parent / "src" / "host_kernels.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-# x86-64 needs -mfma to fuse a*b + c, as the JAX package's -march=native
-# build does on any FMA host: the incomplete factorizations then give
-# the same bits in both packages (other architectures fuse by default).
-FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared") + (
-    ("-mfma",) if platform.machine() in ("x86_64", "AMD64") else ())
+# The JAX package's flags (spalinalg_tpu/native/lib.py): the same code
+# generation, hence the same bits, on every host.
+FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 
 _I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _F64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
@@ -50,20 +54,39 @@ class NativeBuildError(RuntimeError):
     """The C++ compiler or the source is missing, or the build failed."""
 
 
+def _compiler() -> str:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise NativeBuildError("g++ not found on PATH; the native host "
+                               "library is built at first use")
+    return cxx
+
+
+@functools.cache
+def native_target() -> str:
+    """What ``-march=native`` resolves to on this host: g++'s list of the
+    target options it enables (the CPU model and its instruction sets)."""
+    proc = subprocess.run([_compiler(), "-march=native", "-Q",
+                           "--help=target"], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise NativeBuildError(f"g++ -march=native -Q --help=target exited "
+                               f"with {proc.returncode}: {proc.stderr}")
+    return proc.stdout
+
+
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
+    """Where the library for the current source, flags and host target
+    lives."""
     if not SOURCE.is_file():
         raise NativeBuildError(f"native source {SOURCE} not found")
     h = hashlib.sha256(" ".join(FLAGS).encode())
+    h.update(native_target().encode())
     h.update(SOURCE.read_bytes())
     return BUILD_DIR / f"libspal_host_{h.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> None:
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise NativeBuildError("g++ not found on PATH; the native host "
-                               "library is built at first use")
+    cxx = _compiler()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Per-process temporary name: concurrent first uses do not collide.
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -84,6 +107,11 @@ def load_library() -> ctypes.CDLL:
     if not path.exists():
         _build(path)
     lib = ctypes.CDLL(str(path))
+    lib.spal_compress.restype = ctypes.c_int64
+    lib.spal_compress.argtypes = [
+        _I64, _I64, _F64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, _I64, _I64, _F64,
+    ]
     lib.spal_spgemm_symbolic.restype = ctypes.c_int64
     lib.spal_spgemm_symbolic.argtypes = [
         _I64, _I64, ctypes.c_int64, _I64, _I64, ctypes.c_int64,
@@ -103,6 +131,29 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_int64
         getattr(lib, name).argtypes = [_I64, _I64, _F64, ctypes.c_int64]
     return lib
+
+
+def compress(major, minor, values, n_major, *, dedup, drop_zeros):
+    """COO triplets in float64 -> ``(ptr, minor, values)``: a stable sort by
+    (major, minor), duplicates summed left to right in that order when
+    ``dedup``, exact zeros dropped when ``drop_zeros``. ``ptr`` has
+    ``n_major + 1`` int64 entries; ``minor`` and ``values`` are exact-size
+    copies."""
+    lib = load_library()
+    major = np.ascontiguousarray(major, dtype=np.int64)
+    minor = np.ascontiguousarray(minor, dtype=np.int64)
+    values = np.ascontiguousarray(values, dtype=np.float64)
+    nnz = major.size
+    if minor.size != nnz or values.size != nnz:
+        raise ValueError("compress: triplet arrays differ in length")
+    if nnz and (major.min() < 0 or major.max() >= n_major):
+        raise ValueError(f"compress: major index out of [0, {n_major})")
+    ptr = np.zeros(n_major + 1, dtype=np.int64)
+    out_minor = np.empty(max(nnz, 1), dtype=np.int64)
+    out_values = np.empty(max(nnz, 1), dtype=np.float64)
+    w = lib.spal_compress(major, minor, values, nnz, n_major, int(dedup),
+                          int(drop_zeros), ptr, out_minor, out_values)
+    return ptr, out_minor[:w].copy(), out_values[:w].copy()
 
 
 def spgemm_symbolic(aptr, acol, nrows_a, bptr, bcol, ncols_b):

@@ -12,10 +12,66 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <numeric>
 #include <queue>
 #include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------
+// compress: sort COO triplets by (major, minor), optionally merging
+// duplicates (summing values) and dropping exact zeros. Mirrors
+// convert/engine.compress_host. Returns the output nnz; fills ptr
+// (n_major+1), out_minor, out_values (caller-allocated, size nnz_in).
+// ---------------------------------------------------------------------
+int64_t spal_compress(
+    const int64_t* major, const int64_t* minor, const double* values,
+    int64_t nnz, int64_t n_major,
+    int32_t dedup, int32_t drop_zeros,
+    int64_t* ptr, int64_t* out_minor, double* out_values) {
+  std::vector<int64_t> order(nnz);
+  std::iota(order.begin(), order.end(), 0);
+  std::stable_sort(order.begin(), order.end(),
+                   [major, minor](int64_t a, int64_t b) {
+                     if (major[a] != major[b]) return major[a] < major[b];
+                     return minor[a] < minor[b];
+                   });
+
+  // Pass 1: write sorted triplets; pass 2 merges/drops in place.
+  int64_t out = nnz;
+  std::vector<int64_t> maj(nnz);
+  for (int64_t k = 0; k < nnz; ++k) {
+    int64_t e = order[k];
+    maj[k] = major[e];
+    out_minor[k] = minor[e];
+    out_values[k] = values[e];
+  }
+
+  int64_t w = 0;
+  for (int64_t k = 0; k < out;) {
+    int64_t m = maj[k], c = out_minor[k];
+    double v = out_values[k];
+    int64_t j = k + 1;
+    if (dedup) {
+      while (j < out && maj[j] == m && out_minor[j] == c) {
+        v += out_values[j];
+        ++j;
+      }
+    }
+    if (!(drop_zeros && v == 0.0)) {
+      maj[w] = m;
+      out_minor[w] = c;
+      out_values[w] = v;
+      ++w;
+    }
+    k = j;
+  }
+
+  std::memset(ptr, 0, sizeof(int64_t) * (n_major + 1));
+  for (int64_t k = 0; k < w; ++k) ptr[maj[k] + 1]++;
+  for (int64_t i = 0; i < n_major; ++i) ptr[i + 1] += ptr[i];
+  return w;
+}
 
 // ---------------------------------------------------------------------
 // SpGEMM symbolic phase: expand product terms of C = A·B (both CSR),

@@ -9,8 +9,11 @@ hand). Failure handling is minimal and explicit:
   timeout: a missing peer surfaces as a ``RuntimeError`` at the
   rendezvous instead of a hang;
 - :func:`heartbeat` is an ``all_reduce`` of ones over the group: it checks
-  that the gang is alive and measures the collective's latency;
-- recovery is a restart from a checkpoint. No elasticity.
+  that the gang is alive and measures the collective's latency. With no
+  process group it is the one-rank case: a sync of this process's device;
+- recovery is a restart from a checkpoint: ``io.save_npz`` of a
+  ``DistCsr`` writes this rank's shard, ``io.load_npz(path, mesh=mesh)``
+  reads it back on the same world size. No elasticity.
 
 The backend follows the device: NCCL for the card, gloo where the caller
 asks for the CPU (``device="cpu"`` or a ``default_device("cpu")`` scope).
@@ -73,11 +76,19 @@ def _group_device() -> torch.device:
 def heartbeat(timeout_s: float = 60.0) -> float:
     """Liveness barrier over every rank of the default group; returns the
     collective's latency in seconds (an ``all_reduce`` of ones, read
-    back). A wrong sum or a slow answer raises ``RuntimeError``."""
-    n = dist.get_world_size()
-    one = torch.ones(1, device=_group_device())
+    back). A wrong sum or a slow answer raises ``RuntimeError``.
+
+    With no process group, as in a plain single process, it times a no-op
+    sync on the device this process places data on
+    (:func:`~spalinalg_tpu_torch.device.resolve_device`): a one read back
+    from it, as the JAX ``heartbeat`` of one process does."""
+    grouped = dist.is_initialized()
+    n = dist.get_world_size() if grouped else 1
+    one = torch.ones(1, device=_group_device() if grouped
+                     else resolve_device())
     t0 = time.perf_counter()
-    dist.all_reduce(one)
+    if grouped:
+        dist.all_reduce(one)
     val = float(one[0])
     dt = time.perf_counter() - t0
     if val != n:

@@ -377,21 +377,37 @@ def _partition(ptr: np.ndarray, minor: torch.Tensor, values: torch.Tensor,
     rowptr = torch.from_numpy(rp.astype(np.int32)).to(dev)
     colind = _padded(minor[e0:e1], local_nse, dev)
     vals = _padded(values[e0:e1], local_nse, dev)
+    return shard_from_parts(nrows, ncols, rowptr, colind, vals, mesh, axis,
+                            comm, int(halo))
 
+
+def shard_from_parts(nrows: int, ncols: int, rowptr: torch.Tensor,
+                     colind: torch.Tensor, values: torch.Tensor,
+                     mesh: DeviceMesh, axis: str, comm: str,
+                     halo_width: int) -> DistCsr:
+    """This rank's :class:`DistCsr` from its shard's arrays (``rowptr`` of
+    ``rows_per_shard + 1``, padded ``colind`` with global column ids and
+    ``values``, all on the mesh's device), as :func:`partition_csr` made
+    them or a checkpoint holds them: builds the local block."""
+    P = mesh.size()
+    p = mesh.get_local_rank()
+    rows_per = rowptr.shape[0] - 1
+    cols_per = -(-ncols // P)
     if comm == "halo":
-        offset = p * cols_per - halo
+        offset = p * cols_per - halo_width
         lcol = colind
         if offset:
+            n_ent = int(rowptr[-1])
             lcol = colind - offset
-            lcol[e1 - e0:] = 0                  # padding slots stay in range
-        local = CsrMatrix._from_parts(rows_per, cols_per + 2 * halo, rowptr,
-                                      lcol, vals)
+            lcol[n_ent:] = 0                    # padding slots stay in range
+        local = CsrMatrix._from_parts(rows_per, cols_per + 2 * halo_width,
+                                      rowptr, lcol, values)
     else:
         local = CsrMatrix._from_parts(rows_per, P * cols_per, rowptr, colind,
-                                      vals)
+                                      values)
     return DistCsr(nrows=nrows, ncols=ncols, rows_per_shard=rows_per,
-                   rowptr=rowptr, colind=colind, values=vals, mesh=mesh,
-                   axis=axis, comm=comm, halo_width=int(halo), local=local)
+                   rowptr=rowptr, colind=colind, values=values, mesh=mesh,
+                   axis=axis, comm=comm, halo_width=halo_width, local=local)
 
 
 def partition_csr(csr, mesh: DeviceMesh, *, axis: Optional[str] = None,

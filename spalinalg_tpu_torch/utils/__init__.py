@@ -1,6 +1,14 @@
-"""Aux subsystems: the metrics recorder and the structure plan cache."""
+"""Aux subsystems: metrics and roofline, profiling hooks, structure checks,
+and the plan caches (in memory and on disk)."""
 
-from .metrics import MetricsRecorder, OpMetrics, recorder
+from .checks import checked_call, checked_structure, determinism_audit
+from .metrics import (HBM_GBPS, MetricsRecorder, OpMetrics, recorder,
+                      roofline_model)
 from .plancache import StructureCache
+from .profiling import annotate, device_sync, trace_to
 
-__all__ = ["MetricsRecorder", "OpMetrics", "recorder", "StructureCache"]
+__all__ = [
+    "checked_structure", "checked_call", "determinism_audit",
+    "MetricsRecorder", "OpMetrics", "recorder", "roofline_model", "HBM_GBPS",
+    "annotate", "trace_to", "device_sync", "StructureCache",
+]

@@ -11,7 +11,15 @@ and ``dia_spmv``, each ``:cuda`` or ``:plain``; ``bsr_spmv`` and
 (``bsr_spmv:cuda:vector`` / ``:scalar``, ``bsr_spmm:cuda:tiled`` /
 ``:register``);
 ``dia_spmm:torch`` (plain torch on any device: the JAX package has no
-kernel for a 2-D operand either); and ``spgemm_symbolic:native|numpy``.
+kernel for a 2-D operand either); ``spgemm_symbolic:native|numpy``; the
+supernodal Cholesky's host phases (``chol_ordering:host``,
+``chol_symbolic:host``, ``chol_plan:host``, or ``chol_plan:disk`` where
+the plan came from the on-disk cache).
+
+:func:`roofline_model` gives the bytes a core op must move and the rate
+the card's memory allows: ``HBM_GBPS`` holds the published HBM3
+bandwidth of the H100 SXM; pass ``hbm_gbps`` to use a copy bandwidth
+measured on the card instead.
 
 Examples
 --------
@@ -29,13 +37,18 @@ from __future__ import annotations
 
 import json
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
 __all__ = ["OpMetrics", "MetricsRecorder", "recorder", "enable", "disable",
-           "instrument"]
+           "instrument", "roofline_model", "HBM_GBPS"]
+
+# Published device-memory bandwidth per card (GB/s): "NVIDIA H100 80GB
+# HBM3" (SXM5), 3.35 TB/s.
+HBM_GBPS = {"h100": 3350.0}
 
 
 @dataclass
@@ -78,6 +91,22 @@ class MetricsRecorder:
         self.records.append(m)
         if self.jsonl_stream is not None:
             self.jsonl_stream.write(json.dumps(m.to_dict()) + "\n")
+
+    @contextmanager
+    def measure(self, op: str, *, nnz: int = 0, flops: int = 0,
+                bytes: int = 0, sync=None):
+        """Time a block and record it as ``op``. ``sync``, if given, runs
+        before the clock stops; where the process has used the card, the
+        clock stops only after ``torch.cuda.synchronize()`` too, so the
+        block's launches are counted to their end."""
+        t0 = time.perf_counter()
+        yield
+        if sync is not None:
+            sync()
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self.record(OpMetrics(op=op, seconds=time.perf_counter() - t0,
+                              nnz=nnz, flops=flops, bytes=bytes))
 
     def summary(self) -> Dict[str, Dict]:
         out: Dict[str, Dict] = {}
@@ -130,3 +159,36 @@ def instrument(op: str, fn, *, path: Union[str, Callable[[], str]],
                          path=f"{op}:{path}", nnz=nnz, flops=flops,
                          bytes=bytes))
     return out
+
+
+def roofline_model(op: str, nnz: int, *, dtype_bytes: int = 4,
+                   index_bytes: int = 4, rhs_cols: int = 1,
+                   generation: str = "h100",
+                   hbm_gbps: Optional[float] = None) -> Dict[str, float]:
+    """Minimal-traffic roofline of the core ops (the bytes that must move),
+    by the JAX package's formulas (``spalinalg_tpu/utils/metrics.py:
+    150-174``).
+
+    SpMV: a value, an index and one operand element per nnz. SpMM
+    amortises the index over ``rhs_cols`` operand elements. SpGEMM
+    numeric: two value gathers and an index pair per term. The rate is
+    ``hbm_gbps`` where given (a copy bandwidth measured on the card), else
+    ``HBM_GBPS[generation]``.
+    """
+    if op == "spmv":
+        bytes_per = dtype_bytes * 2 + index_bytes
+    elif op == "spmm":
+        bytes_per = dtype_bytes * (1 + 2 * rhs_cols) + index_bytes
+    elif op == "spgemm":
+        bytes_per = dtype_bytes * 3 + 2 * index_bytes
+    else:
+        bytes_per = dtype_bytes * 2 + index_bytes
+    if hbm_gbps is None:
+        hbm_gbps = HBM_GBPS[generation]
+    hbm = float(hbm_gbps) * 1e9
+    return {
+        "bytes_per_nnz": float(bytes_per),
+        "hbm_gbps": hbm / 1e9,
+        "peak_nnz_per_s": hbm / bytes_per,
+        "total_bytes": float(bytes_per * nnz),
+    }

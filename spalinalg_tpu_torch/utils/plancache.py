@@ -66,3 +66,8 @@ class StructureCache:
             for t in tensors:
                 weakref.finalize(t, self._data.pop, key, None)
         return plan
+
+    def clear(self) -> None:
+        """Drop every entry (the next ``get`` of each structure builds
+        anew)."""
+        self._data.clear()

@@ -33,6 +33,14 @@ def _cpu_scope():
         yield
 
 
+@pytest.fixture(autouse=True)
+def _plan_cache(tmp_path, monkeypatch):
+    """A fresh on-disk plan cache a test: a plan written by an earlier
+    test or process would turn a cold factor warm and take its
+    ``chol_*`` host phases off the metrics recorder."""
+    monkeypatch.setenv("SPALINALG_PLAN_CACHE", str(tmp_path / "plans"))
+
+
 def lap2d(k):
     T = sps.diags([-1.0, 4.0, -1.0], [-1, 0, 1], shape=(k, k))
     D = sps.diags([-1.0, -1.0], [-1, 1], shape=(k, k))

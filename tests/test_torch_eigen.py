@@ -36,6 +36,13 @@ def _cpu_scope():
         yield
 
 
+@pytest.fixture(autouse=True)
+def _plan_cache(tmp_path, monkeypatch):
+    """The on-disk Cholesky plans these tests build go to the test's own
+    directory, not the user's cache."""
+    monkeypatch.setenv("SPALINALG_PLAN_CACHE", str(tmp_path / "plans"))
+
+
 def both(A, dtype=np.float64):
     A = sps.csr_matrix(A).astype(dtype)
     A.sort_indices()

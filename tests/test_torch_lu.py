@@ -44,6 +44,13 @@ def _cpu_scope():
         yield
 
 
+@pytest.fixture(autouse=True)
+def _plan_cache(tmp_path, monkeypatch):
+    """The on-disk Cholesky plans these tests build go to the test's own
+    directory, not the user's cache."""
+    monkeypatch.setenv("SPALINALG_PLAN_CACHE", str(tmp_path / "plans"))
+
+
 def convdiff2d(k, c=0.4):
     """2-D convection-diffusion: the unsymmetric 5-point stencil of
     ``tests/test_supernodal_lu.py``."""

@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import scipy.sparse as sps
 
+from spalinalg_tpu.convert import engine as jengine
 from spalinalg_tpu.native import lib as jnative
 from spalinalg_tpu_torch import CsrMatrix
+from spalinalg_tpu_torch.convert import engine as tengine
 from spalinalg_tpu_torch.native import lib as tnative
 
 ordering = importlib.import_module("spalinalg_tpu_torch.linalg.ordering")
@@ -70,6 +72,98 @@ def _both_libraries():
     tnative.load_library()
 
 
+@pytest.fixture(autouse=True)
+def _plan_cache(tmp_path, monkeypatch):
+    """A fresh on-disk plan cache a test: a plan written by an earlier
+    test or process would turn a cold factor warm and take its
+    ``chol_*`` host phases off the metrics recorder."""
+    monkeypatch.setenv("SPALINALG_PLAN_CACHE", str(tmp_path / "plans"))
+
+
+def triplets(n, seed):
+    """``n`` float64 triplets on a 300 x 300 grid: duplicates (some
+    cancelling), explicit zeros, a lone ``-0.0`` and a duplicate pair of
+    ``-0.0``."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 300, size=n)
+    cols = rng.integers(0, 300, size=n)
+    vals = rng.normal(size=n)
+    vals[rng.random(n) < 0.05] = 0.0
+    k = n // 10
+    rows[-k:], cols[-k:], vals[-k:] = rows[:k], cols[:k], -vals[:k]
+    # slots off the grid's random cells: a lone -0.0 and a pair of them
+    rows[k:k + 3] = [299, 298, 298]
+    cols[k:k + 3] = [299, 297, 297]
+    vals[k:k + 3] = -0.0
+    keep = ~(((rows == 299) & (cols == 299)) | ((rows == 298)
+                                                 & (cols == 297)))
+    keep[k:k + 3] = True
+    return rows[keep], cols[keep], vals[keep]
+
+
+def assert_bitwise(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(np.signbit(got[2]), np.signbit(want[2]))
+
+
+@pytest.mark.parametrize("drop_zeros", [False, True])
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("n", [4000, 100_000])
+def test_compress_host_matches_jax(n, dedup, drop_zeros):
+    """Bitwise, sign of zero included: 4000 entries take NumPy in both
+    packages, 100,000 the native sort and merge in both."""
+    rows, cols, vals = triplets(n, 31)
+    got = tengine.compress_host(rows, cols, vals, 300, dedup=dedup,
+                                drop_zeros=drop_zeros)
+    want = jengine.compress_host(rows, cols, vals, 300, dedup=dedup,
+                                 drop_zeros=drop_zeros)
+    assert_bitwise(got, want)
+    if dedup and not drop_zeros:
+        # the lone -0.0 (last row): the native merge keeps its sign,
+        # np.add.at into zeros does not
+        assert got[2][-1] == 0 and np.signbit(got[2][-1]) == (n > 4096)
+
+
+@pytest.mark.parametrize("drop_zeros", [False, True])
+@pytest.mark.parametrize("dedup", [False, True])
+def test_compress_native_and_numpy_paths_agree(dedup, drop_zeros,
+                                               monkeypatch):
+    """At 100,000 entries the native path against the NumPy path
+    directly: equal arrays; the values' bits differ only where a group
+    of ``-0.0`` entries alone is merged (``dedup`` without
+    ``drop_zeros``): the lone one and the pair."""
+    rows, cols, vals = triplets(100_000, 32)
+    nat = tengine.compress_host(rows, cols, vals, 300, dedup=dedup,
+                                drop_zeros=drop_zeros)
+    monkeypatch.setattr(tengine, "NATIVE_ABOVE", np.iinfo(np.int64).max)
+    py = tengine.compress_host(rows, cols, vals, 300, dedup=dedup,
+                               drop_zeros=drop_zeros)
+    for g, w in zip(nat, py):
+        np.testing.assert_array_equal(g, w)
+    flips = np.flatnonzero(np.signbit(nat[2]) != np.signbit(py[2]))
+    if dedup and not drop_zeros:
+        negzero = np.flatnonzero((nat[2] == 0) & np.signbit(nat[2]))
+        assert flips.tolist() == negzero.tolist() and flips.size == 2
+    else:
+        assert flips.size == 0
+
+
+def test_compress_float32_stays_on_numpy(monkeypatch):
+    """Only float64 values take the native path (the JAX gate)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("native compress called")
+
+    monkeypatch.setattr(tnative, "compress", refuse)
+    rows, cols, vals = triplets(100_000, 33)
+    got = tengine.compress_host(rows, cols, vals.astype(np.float32), 300,
+                                dedup=True, drop_zeros=True)
+    want = jengine.compress_host(rows, cols, vals.astype(np.float32), 300,
+                                 dedup=True, drop_zeros=True)
+    assert_bitwise(got, want)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_orderings_and_trees(name):
     ptr, ind, _, n = arrays(CASES[name]())
@@ -113,6 +207,19 @@ def test_incomplete_factorizations(name):
         jv, jbad = jnative.ic0_values(*args)
         assert tbad == jbad == -1
         np.testing.assert_array_equal(tv, jv)
+
+
+def test_library_is_built_with_the_jax_flags(monkeypatch):
+    """The JAX package's flags, and a library name that changes with the
+    host's resolved ``-march=native`` target (a ``build/`` carried to
+    another CPU rebuilds)."""
+    assert tnative.FLAGS == ("-O3", "-march=native", "-fPIC", "-std=c++17",
+                             "-shared")
+    assert "-march=" in tnative.native_target()
+    here = tnative.library_path()
+    monkeypatch.setattr(tnative, "native_target", lambda: "another cpu")
+    assert tnative.library_path() != here
+    assert tnative.library_path().parent == here.parent
 
 
 def test_failures_name_the_same_row():

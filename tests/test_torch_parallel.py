@@ -22,6 +22,9 @@ mesh on the same inputs, and each test compares one case:
   ``lobpcg`` eigenvalues within 1e-8; ``svds`` refused;
 - ``expm_multiply`` on a ``DistCsr``;
 - ``supernodal_factor_sharded``: its solve within 1e-10;
+- a ``DistCsr`` checkpoint, shard by shard (``save_npz`` / ``load_npz``
+  with ``mesh``): the same shards and products back, and a checkpoint of
+  4 ranks refused on one;
 - ``initialize`` (the gang itself; a no-op at one process),
   ``heartbeat``, ``global_device_summary``;
 - the three JAX faults the port repairs, each against the dense product.
@@ -31,6 +34,7 @@ s), after which the children are killed and the tests fail.
 """
 
 import multiprocessing
+import os
 import queue
 import time
 import traceback
@@ -156,9 +160,9 @@ def _shard_arrays(d):
             "halo_width": d.halo_width, "rows_per_shard": d.rows_per_shard}
 
 
-def _cases(mesh):
+def _cases(mesh, workdir):
     """``{name: fn}``: each fn runs on every rank and returns NumPy
-    results (or raises)."""
+    results (or raises); files go under ``workdir``."""
     import spalinalg_tpu_torch as tsp
     import spalinalg_tpu_torch.linalg as tla
     import spalinalg_tpu_torch.linalg.supernodal as sn
@@ -360,6 +364,34 @@ def _cases(mesh):
         return {"heartbeat": multihost.heartbeat(),
                 "summary": multihost.global_device_summary()}
 
+    @case("checkpoint")
+    def _():
+        """Each rank saves its shard to its own file and loads it back,
+        in both comm modes."""
+        from spalinalg_tpu_torch.io import load_npz, save_npz
+        from spalinalg_tpu_torch.io.checkpoint import shard_path
+
+        out = {}
+        for mname, comm in (("banded", "halo"), ("nondiv", None)):
+            d = partition_csr(port_csr(MATS[mname]()), mesh, comm=comm)
+            path = os.path.join(workdir, f"ckpt_{mname}.npz")
+            save_npz(path, d)
+            back = load_npz(path, mesh=mesh)
+            x = shard_vector(vec(d.ncols, 91), d)
+            out[mname] = {
+                "file": os.path.exists(shard_path(path, d.rank)),
+                "orig": _shard_arrays(d), "back": _shard_arrays(back),
+                "local": [_np(t) for t in (back.local.rowptr,
+                                           back.local.colind,
+                                           back.local.values)],
+                "local_orig": [_np(t) for t in (d.local.rowptr,
+                                                d.local.colind,
+                                                d.local.values)],
+                "local_shape": [back.local.shape, d.local.shape],
+                "y": _np(dist_spmv(back, x)), "y_orig": _np(dist_spmv(d, x)),
+                "path": path}
+        return out
+
     @case("fault1")
     def _():
         S = fault1_csr()
@@ -401,6 +433,9 @@ def _cases(mesh):
 def _worker(rank, init_file, results):
     """One rank of the gang: join, run every case, send the results."""
     out = {}
+    workdir = os.path.dirname(init_file)
+    # the Cholesky plans of this gang go to its own directory
+    os.environ["SPALINALG_PLAN_CACHE"] = os.path.join(workdir, "plans")
     try:
         torch.set_num_threads(1)
         import spalinalg_tpu_torch as tsp
@@ -410,7 +445,7 @@ def _worker(rank, init_file, results):
                              timeout_s=PG_TIMEOUT_S, device="cpu")
         with tsp.default_device("cpu"):
             mesh = make_row_mesh(P)
-            for name, fn in _cases(mesh).items():
+            for name, fn in _cases(mesh, workdir).items():
                 try:
                     out[name] = fn()
                 except Exception:
@@ -830,6 +865,49 @@ def test_multihost(gang, rank):
     assert out["summary"] == {"process_index": rank, "process_count": P,
                               "local_devices": ["cpu"],
                               "global_device_count": P}
+
+
+@pytest.mark.parametrize("mname", ["banded", "nondiv"])
+@pytest.mark.parametrize("rank", range(P))
+def test_dist_checkpoint_round_trip(gang, rank, mname):
+    """A ``DistCsr`` saved shard by shard (one file a rank) loads back to
+    the same shard arrays, local block and products (bitwise)."""
+    out = result(gang, "checkpoint", rank)[mname]
+    assert out["file"]
+    for key in ("rowptr", "colind", "values", "brow"):
+        np.testing.assert_array_equal(out["back"][key], out["orig"][key])
+    assert (out["back"]["comm"], out["back"]["halo_width"]) == (
+        out["orig"]["comm"], out["orig"]["halo_width"])
+    assert out["back"]["comm"] == ("halo" if mname == "banded"
+                                   else "allgather")
+    for got, want in zip(out["local"], out["local_orig"]):
+        np.testing.assert_array_equal(got, want)
+    assert out["local_shape"][0] == out["local_shape"][1]
+    np.testing.assert_array_equal(out["y"], out["y_orig"])
+
+
+def test_dist_checkpoint_refuses_another_world_size(gang):
+    """The gang's 4-rank checkpoint, loaded on a one-rank group, raises
+    (rank 0's file says it is rank 0 of 4)."""
+    import torch.distributed as dist
+
+    import spalinalg_tpu_torch as tsp
+    from spalinalg_tpu_torch.errors import SpalinalgError
+    from spalinalg_tpu_torch.io import load_npz
+    from spalinalg_tpu_torch.parallel import make_row_mesh
+
+    path = result(gang, "checkpoint", 0)["banded"]["path"]
+    assert not dist.is_initialized()
+    try:
+        with tsp.default_device("cpu"):
+            mesh = make_row_mesh()
+            with pytest.raises(SpalinalgError, match="written on 4 ranks"):
+                load_npz(path, mesh=mesh)
+            with pytest.raises(SpalinalgError, match="no shard file"):
+                load_npz(os.path.join(os.path.dirname(path), "none.npz"),
+                         mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_fault1_nonsquare_auto_halo(gang, jmesh):

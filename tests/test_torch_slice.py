@@ -14,11 +14,13 @@ otherwise, and its docstring examples hold.
 import contextvars
 import doctest
 import importlib
+import io
 import subprocess
 import sys
 
 import numpy as np
 import pytest
+import scipy.sparse as sps
 import torch
 
 import jax
@@ -26,6 +28,7 @@ import jax.numpy as jnp
 
 import spalinalg_tpu as jsp
 import spalinalg_tpu_torch as tsp
+from spalinalg_tpu_torch.device import resolve_device
 from spalinalg_tpu_torch.ops.kernels import _build
 from spalinalg_tpu_torch.ops.kernels.csr_spmm import csr_spmm
 from spalinalg_tpu_torch.ops.kernels.csr_spmv import csr_spmv
@@ -42,6 +45,14 @@ def _cpu_scope():
     otherwise; these tests run on the CPU."""
     with tsp.default_device("cpu"):
         yield
+
+
+@pytest.fixture(autouse=True)
+def _plan_cache(tmp_path, monkeypatch):
+    """A fresh on-disk plan cache a test: a plan written by an earlier
+    test or process would turn a cold factor warm and take its
+    ``chol_*`` host phases off the metrics recorder."""
+    monkeypatch.setenv("SPALINALG_PLAN_CACHE", str(tmp_path / "plans"))
 
 
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
@@ -144,7 +155,14 @@ def test_port_never_imports_jax():
             "spalinalg_tpu_torch.parallel.multihost, "
             "spalinalg_tpu_torch.parallel.partition, "
             "spalinalg_tpu_torch.parallel.spmv, "
-            "spalinalg_tpu_torch.parallel.bsr, chip_smoke; "
+            "spalinalg_tpu_torch.parallel.bsr, spalinalg_tpu_torch.io, "
+            "spalinalg_tpu_torch.io.matrix_market, "
+            "spalinalg_tpu_torch.io.checkpoint, "
+            "spalinalg_tpu_torch.io.scipy_interop, "
+            "spalinalg_tpu_torch.io.torch_interop, "
+            "spalinalg_tpu_torch.utils, spalinalg_tpu_torch.utils.checks, "
+            "spalinalg_tpu_torch.utils.profiling, "
+            "spalinalg_tpu_torch.utils.plandisk, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'spalinalg_tpu' or "
             "m.startswith('spalinalg_tpu.')]; "
@@ -326,6 +344,11 @@ def test_no_plain_torch_off_the_cpu():
     "spalinalg_tpu_torch.linalg.eigen",
     "spalinalg_tpu_torch.config",
     "spalinalg_tpu_torch.parallel.partition",
+    "spalinalg_tpu_torch.io.matrix_market",
+    "spalinalg_tpu_torch.io.checkpoint",
+    "spalinalg_tpu_torch.io.scipy_interop",
+    "spalinalg_tpu_torch.io.torch_interop",
+    "spalinalg_tpu_torch.utils.checks",
 ])
 def test_port_doctests(module):
     result = doctest.testmod(importlib.import_module(module))
@@ -415,7 +438,23 @@ ENTRY_POINTS = {
     "sprandom": lambda: tsp.sprandom(4, 4, 0.5, seed=0),
     "kron": lambda: tsp.kron(tsp.CooMatrix.with_entries(1, 1, [(0, 0, 2.0)]),
                              tsp.CooMatrix.with_entries(1, 1, [(0, 0, 3.0)])),
+    "load_npz": lambda: tsp.io.load_npz(_checkpoint()),
+    "from_scipy": lambda: tsp.io.from_scipy(sps.eye(3, format="csr")),
+    # results stay on the sparse tensor's device: made on the default one
+    "from_sparse_coo": lambda: tsp.io.from_sparse_coo(torch.sparse_coo_tensor(
+        torch.tensor([[0], [1]]), torch.tensor([1.0]), (2, 2),
+        device=resolve_device())),
+    "to_sparse_coo": lambda: tsp.io.to_sparse_coo(
+        tsp.CooMatrix.with_entries(2, 2, [(0, 1, 1.0)])),
 }
+
+
+def _checkpoint():
+    """A CSR checkpoint, in memory (``np.load`` reads a file object)."""
+    buf = io.BytesIO()
+    tsp.io.save_npz(buf, tsp.CsrMatrix.eye(3, device="cpu"))
+    buf.seek(0)
+    return buf
 
 
 @pytest.mark.parametrize("entry", list(ENTRY_POINTS))
@@ -574,6 +613,28 @@ def test_parallel_all_matches_jax():
     assert sorted(tpar.__all__) == sorted(jpar.__all__)
     assert len(tpar.__all__) == 13
     assert all(callable(getattr(tpar, name)) for name in tpar.__all__)
+
+
+def test_io_and_utils_all_match_jax():
+    """The port's io and utils tiers export every name of the JAX
+    package's; the three BCOO/BCSR bridges map to their torch.sparse
+    counterparts, and the io tier keeps its carry functions."""
+    import spalinalg_tpu.io as jio
+    import spalinalg_tpu.utils as jutils
+    import spalinalg_tpu_torch.io as tio
+    import spalinalg_tpu_torch.utils as tutils
+
+    torch_names = {"from_bcoo": "from_sparse_coo", "to_bcoo": "to_sparse_coo",
+                   "to_bcsr": "to_sparse_csr"}
+    carry = {"csr_from_arrays", "csc_from_arrays", "bsr_from_arrays",
+             "dia_from_arrays", "device_coo_from_arrays", "to_arrays"}
+    assert sorted(tio.__all__) == sorted(
+        {torch_names.get(n, n) for n in jio.__all__} | carry)
+    assert set(jutils.__all__) <= set(tutils.__all__)
+    assert sorted(set(tutils.__all__) - set(jutils.__all__)) == [
+        "StructureCache"]
+    for mod in (tio, tutils):
+        assert all(getattr(mod, name) is not None for name in mod.__all__)
 
 
 def test_config_is_exported():
