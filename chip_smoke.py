@@ -284,8 +284,11 @@ from spalinalg_tpu_torch.ops.kernels.bsr_spmv import (_block_outer, bsr_spmv,
 from spalinalg_tpu_torch.ops.kernels.csr_sddmm import (csr_sddmm,
                                                        csr_sddmm_plain)
 from spalinalg_tpu_torch.ops.kernels.csr_spmm import csr_spmm, csr_spmm_plain
-from spalinalg_tpu_torch.ops.kernels.csr_spmv import (BUDGET, csr_spmv,
+from spalinalg_tpu_torch.ops.kernels.csr_spmv import (BUDGET, STAGE_BUDGET,
+                                                      csr_spmv,
                                                       csr_spmv_plain,
+                                                      csr_tile_plan,
+                                                      stage_bytes,
                                                       transpose_plan)
 from spalinalg_tpu_torch.ops.kernels.dia_spmv import (_shifted_products,
                                                       dia_spmv,
@@ -382,31 +385,35 @@ MAIN_LAUNCHES = {
 }
 # Variants each main path must run. CSR paths, by kernel: config[0] and the
 # SpMV path (csr_random, forward and Aᵀ·g per dtype) the vector SpMV, whose
-# dvals at k = 1 is the scalar SDDMM; the SpMM path (k = 64, all three
-# matrices) the vector SpMM in float32, the register one in float64, and
-# the vector SDDMM. BSR paths, by matrix
+# dvals at k = 1 is the rowwalk SDDMM; the SpMM path (k = 64, forward and
+# Aᵀ·G per matrix and dtype) on csr_random and csc @ X the vector SpMM in
+# float32 and the register one in float64, on the banded matrix the staged
+# one in both; its dvals the vector SDDMM on csr_random and csc @ X, the
+# staged one on the banded matrix. BSR paths, by matrix
 # (forward and Aᵀ·g in each dtype): the vector SpMV on both; the tiled SpMM
 # on tri128, the staged SpMM on banded8's 8 x 8 blocks.
 MAIN_VARIANTS = {
     "config[0]": {"csr_spmv": {"vector": 1}},
-    "SpMV": {"csr_spmv": {"vector": 4}, "csr_sddmm": {"scalar": 2}},
-    "SpMM": {"csr_spmm": {"vector": 6, "register": 6},
-             "csr_sddmm": {"vector": 6}},
+    "SpMV": {"csr_spmv": {"vector": 4}, "csr_sddmm": {"rowwalk": 2}},
+    "SpMM": {"csr_spmm": {"vector": 4, "register": 4, "staged": 4},
+             "csr_sddmm": {"vector": 4, "staged": 2}},
     "BSR bsr @ x": {"tri128": {"vector": 6}, "banded8": {"vector": 4}},
     "BSR bsr @ X": {"tri128": {"tiled": 6}, "banded8": {"staged": 4}},
 }
 # Rows of the kernel line beside the rows that carry each dtype's launch
-# count: banded8 for BSR; the banded matrix for CSR SpMM; SDDMM at k = 1 on
-# the SpMV matrix (the main rows: k = 64 on csr_random). Each gets the
-# launches of its own matrix's main path.
+# count: banded8 for BSR; the banded matrix for CSR SpMM and SDDMM; SDDMM
+# at k = 1 on the SpMV matrix (the main rows: k = 64 on csr_random). Each
+# gets the launches of its own matrix's main path.
 # Keyed by (kernel, row suffix), in float32 and float64; the value names
 # the row's matrix in the record of variants a main path ran.
 EXTRA_ROWS = {("bsr_spmv", "banded8"): "banded8",
               ("bsr_spmm", "banded8"): "banded8",
               ("csr_spmm", "banded"): "banded",
+              ("csr_sddmm", "banded"): "banded",
               ("csr_sddmm", "k1"): "spmv"}
 CSR_KERNELS = ("csr_spmv", "csr_spmm", "csr_sddmm")
 TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
+CTA_SHARED = 232448   # bytes of shared memory a CTA may hold on an H100
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}
 N_BIG = 2**21
@@ -910,13 +917,25 @@ def edge_structures(device) -> None:
 SPMM_EDGE_KS = (1, 3, 4, 32, 64, 100)
 
 
+def spmm_variant_rule(name: str, k: int, shift: bool, plan) -> str:
+    """The SpMM variant the dispatch must take: staged where the widest
+    window fits STAGE_BUDGET and X is aligned, else vector for float32
+    rows of whole 16-byte vectors, else register."""
+    itemsize = 8 if name == "float64" else 4
+    if not shift and plan.max_window * k * itemsize <= STAGE_BUDGET:
+        return "staged"
+    return ("vector" if name == "float32" and k % 4 == 0 and not shift
+            else "register")
+
+
 def spmm_edge_structures(device) -> None:
     """SpMM kernel against plain version: row lengths from empty to 40 on
     average, every seventh row empty, padding slots past ``rowptr[-1]``
     holding values, k in SPMM_EDGE_KS with X on and off a 16-byte boundary
-    (both sides of the float32 vector variant's bound); the ``perm`` path bitwise
-    against the materialised gather; a matrix with no stored slots, and
-    k = 0, which launch nothing."""
+    (both sides of the float32 vector variant's bound and of the staged
+    variant's budget); the ``perm`` path bitwise against the materialised
+    gather; a matrix with no stored slots, and k = 0, which launch
+    nothing."""
     rng = np.random.default_rng(4)
     n, m = 3000, 2500
     for name, (np_dtype, torch_dtype) in DTYPES.items():
@@ -940,8 +959,8 @@ def spmm_edge_structures(device) -> None:
                     Y = csr_spmm(rowptr, colind, values, X, n)
                     variant = ran_variant(spmm_mod.VARIANT_LAUNCHES, before,
                                           what)
-                    want = ("vector" if name == "float32" and k % 4 == 0
-                            and not shift else "register")
+                    want = spmm_variant_rule(
+                        name, k, shift, csr_tile_plan(rowptr, colind))
                     if variant != want:
                         raise AssertionError(f"{what}: ran {variant}, "
                                              f"expected {want}")
@@ -972,11 +991,26 @@ def spmm_edge_structures(device) -> None:
     torch.cuda.synchronize()
 
 
+def sddmm_variant_rule(k: int, itemsize: int, shift: bool, plan) -> str:
+    """The SDDMM variant the dispatch must take: staged where a CTA's
+    staged bytes fit STAGE_BUDGET and G is aligned, else vector for rows
+    of whole 16-byte vectors, else rowwalk at k = 1, else scalar."""
+    if not shift and (plan.max_window + plan.rows) * k * itemsize \
+            + 4 * plan.max_slots <= STAGE_BUDGET:
+        return "staged"
+    if k * itemsize % 16 == 0 and not shift:
+        return "vector"
+    return "rowwalk" if k == 1 else "scalar"
+
+
 def sddmm_edge_structures(device) -> None:
     """SDDMM kernel against plain version: row lengths from empty to 40 on
-    average, every seventh row empty, padding slots (major == nrows) that
-    must give exactly 0, k in SPMM_EDGE_KS with G and X on and off a
-    16-byte boundary (both variants); bitwise repeats; no slots."""
+    average, every seventh row empty, padding slots (past rowptr[nrows])
+    that must give exactly 0, k in SPMM_EDGE_KS with G and X on and off a
+    16-byte boundary; the dispatched variant and each of the others named
+    on purpose (scalar and vector read the per-slot row ids, staged and
+    rowwalk rowptr; vector only on whole 16-byte rows, rowwalk only at
+    k = 1); bitwise repeats; no slots."""
     rng = np.random.default_rng(8)
     n, m = 3000, 2500
     for name, (np_dtype, torch_dtype) in DTYPES.items():
@@ -986,8 +1020,10 @@ def sddmm_edge_structures(device) -> None:
             lens[::7] = 0
             ptr, cols = edge_rowptr(lens, 37, rng, m)
             colind = on_card(cols, device=device)
-            major = major_ids(on_card(ptr, device=device), cols.size)
+            rowptr = on_card(ptr, device=device)
+            major = major_ids(rowptr, cols.size)
             pad = major == n
+            plan = csr_tile_plan(rowptr, colind, sddmm_mod.SDDMM_TILE_ROWS)
             for k in SPMM_EDGE_KS:
                 Gh = rng.normal(size=(n, k)).astype(np_dtype)
                 Xh = rng.normal(size=(m, k)).astype(np_dtype)
@@ -997,11 +1033,10 @@ def sddmm_edge_structures(device) -> None:
                     what = (f"{name} SDDMM edge structure, mean {mean}, k {k}"
                             + (", G off 16 bytes" if shift else ""))
                     before = dict(sddmm_mod.VARIANT_LAUNCHES)
-                    out = csr_sddmm(major, colind, G, X, n)
+                    out = csr_sddmm(rowptr, colind, G, X, n)
                     variant = ran_variant(sddmm_mod.VARIANT_LAUNCHES, before,
                                           what)
-                    want = ("vector" if k * itemsize % 16 == 0 and not shift
-                            else "scalar")
+                    want = sddmm_variant_rule(k, itemsize, shift, plan)
                     if variant != want:
                         raise AssertionError(f"{what}: ran {variant}, "
                                              f"expected {want}")
@@ -1012,16 +1047,60 @@ def sddmm_edge_structures(device) -> None:
                     if not bool((out[pad] == 0).all()):
                         raise AssertionError(f"{what}: a padding slot is "
                                              "not 0")
-                    if not torch.equal(out, csr_sddmm(major, colind, G, X,
+                    if not torch.equal(out, csr_sddmm(rowptr, colind, G, X,
                                                       n)):
                         raise AssertionError(f"{what}: not bitwise repeatable")
+                    for other in ("scalar", "vector", "rowwalk", "staged"):
+                        takes = {"scalar": True,
+                                 "vector": (k * itemsize % 16 == 0
+                                            and not shift),
+                                 "rowwalk": k == 1,
+                                 "staged": not shift and sddmm_shared(
+                                     plan, k, itemsize) <= CTA_SHARED}[other]
+                        if other != want:
+                            sddmm_named(rowptr, colind, G, X, n, major, other,
+                                        takes, ref, scale, pad, TOL[name],
+                                        what)
         before = dict(sddmm_mod.LAUNCHES)
-        none = csr_sddmm(major[:0], colind[:0],
+        none = csr_sddmm(torch.zeros(n + 1, dtype=torch.int32, device=device),
+                         colind[:0],
                          torch.ones(n, 4, dtype=torch_dtype, device=device),
                          torch.ones(m, 4, dtype=torch_dtype, device=device), n)
         if none.shape != (0,) or sddmm_mod.LAUNCHES != before:
             raise AssertionError(f"{name}: SDDMM with no slots launched")
     torch.cuda.synchronize()
+
+
+def sddmm_shared(plan, k: int, itemsize: int) -> int:
+    """Shared memory the staged SDDMM asks for: the window of X, the
+    tile's rows of G and its column ids, each copied from the 16-byte
+    boundary below it in whole 16-byte pieces (``csr_sddmm.cu``)."""
+    def run(nbytes):
+        return (nbytes + 31) // 16 * 16
+    return (run(plan.max_window * k * itemsize) + run(plan.rows * k * itemsize)
+            + run(4 * plan.max_slots))
+
+
+def sddmm_named(rowptr, colind, G, X, n, major, variant, takes, ref, scale,
+                pad, tol, what) -> None:
+    """The SDDMM variant ``variant`` named on purpose: within ``tol`` of the
+    plain version with padding slots 0 and bitwise repeatable where the
+    kernel takes the operands (``takes``), else refused (no fallback)."""
+    what = f"{what}, {variant} named"
+    try:
+        out = csr_sddmm(rowptr, colind, G, X, n, major=major, variant=variant)
+    except RuntimeError:
+        if takes:
+            raise
+        return
+    if not takes:
+        raise AssertionError(f"{what}: the kernel took operands it refuses")
+    within((out - ref).abs(), scale, tol, what)
+    if not bool((out[pad] == 0).all()):
+        raise AssertionError(f"{what}: a padding slot is not 0")
+    if not torch.equal(out, csr_sddmm(rowptr, colind, G, X, n, major=major,
+                                      variant=variant)):
+        raise AssertionError(f"{what}: not bitwise repeatable")
 
 
 def spgemm_edge_structures(device) -> None:
@@ -1220,7 +1299,7 @@ def check_spmv(big, main_out, report) -> None:
                                         N_BIG)):
             raise AssertionError(f"{name}: Aᵀ·g through perm differs from "
                                  "the kernel on the gathered values")
-        sd = csr_sddmm(t.major, colind, g, x, N_BIG)
+        sd = csr_sddmm(rowptr, colind, g, x, N_BIG)
         sd_err = (sd - csr_sddmm_plain(t.major, colind, g, x, N_BIG)).abs()
         within(sd_err, (g[rows] * x[cols]).abs(), tol, f"{name} SDDMM k=1")
         if not torch.equal(sd, dvals.to(sd.dtype)):
@@ -1244,7 +1323,9 @@ def check_spmv(big, main_out, report) -> None:
     sddmm_edge_structures(big["float32"][0].device)
     print("phase 3: SDDMM edge structures (padding slots, k in "
           f"{', '.join(map(str, SPMM_EDGE_KS))}, G off 16 bytes, no slots): "
-          "kernel == plain in float32 and float64, both variants")
+          "kernel == plain in float32 and float64, the dispatched variant "
+          "and every other one named (or refused where it does not take "
+          "the operands)")
     check_metrics_paths(big["float32"][0].device)
     print("phase 3: from_dense CSR and CSC on the card: csr @ x and csc @ x "
           "match NumPy, nnz_device is the entry count, and the metrics path "
@@ -1306,14 +1387,14 @@ def time_sddmm(rowptr, colind, G, X, nrows: int, what: str, card: str):
     t = transpose_plan(rowptr, colind, nrows, X.shape[0])
     k = 1 if G.ndim == 1 else G.shape[1]
     k_ms, p_ms, (p1, k1, k2, p2) = turns(
-        lambda: csr_sddmm(t.major, colind, G, X, nrows),
+        lambda: csr_sddmm(rowptr, colind, G, X, nrows, major=t.major),
         lambda: csr_sddmm_plain(t.major, colind, G, X, nrows),
         TIMED_LAUNCHES, PLAIN_SPMM_LAUNCHES, spin=True)
     free_memory()
     nse, itemsize = colind.numel(), G.element_size()
     # compulsory bytes: rowptr, the column ids, the output, G and X once
-    # (the kernel's per-slot row ids are its design's cost, not the
-    # function's: 4·nse bytes more)
+    # (the scalar and vector variants' per-slot row ids are their design's
+    # cost, not the function's: 4·nse bytes more)
     nbytes = ((4 + itemsize) * nse + 4 * (nrows + 1)
               + itemsize * k * (nrows + X.shape[0]))
     values = torch.ones(nse, dtype=G.dtype, device=G.device)
@@ -1478,7 +1559,7 @@ def check_spmm(mats, rhs, main_out, report) -> None:
                                         N_MM)):
             raise AssertionError(f"{what}: Aᵀ·G through perm differs from "
                                  "the kernel on the gathered values")
-        sd = csr_sddmm(t.major, colind, G, X, N_MM)
+        sd = csr_sddmm(rowptr, colind, G, X, N_MM)
         sd_err = (sd - csr_sddmm_plain(t.major, colind, G, X, N_MM)).abs()
         within(sd_err, dvals_scale, tol, f"{what} SDDMM k={K_MM}")
         if not torch.equal(sd, dvals):
@@ -1498,6 +1579,8 @@ def check_spmm(mats, rhs, main_out, report) -> None:
             report["csr_sddmm", name] = {"max_abs_err": float(sd_err.max())}
         else:
             report["csr_spmm", f"{name}_{mname}"] = {"max_abs_err": max_err}
+            report["csr_sddmm", f"{name}_{mname}"] = {
+                "max_abs_err": float(sd_err.max())}
         del sd_err
         print(f"phase 6: {what} n={N_MM} nnz={mat.nnz} k={K_MM}: kernel == "
               f"plain within {tol}*(|A||X|) entry by entry (max |err| "
@@ -1510,7 +1593,234 @@ def check_spmm(mats, rhs, main_out, report) -> None:
     print("phase 6: SpMM edge structures (empty rows, padding with values, k "
           f"in {', '.join(map(str, SPMM_EDGE_KS))}, X off 16 bytes, the perm "
           "path; no entries; k = 0): kernel == plain in float32 and "
-          "float64, both variants")
+          "float64, each variant the dispatch takes")
+
+
+# Phase 22: k of the staged CSR kernels' edge structures.
+STAGED_KS = (1, 3, 32, 64, 100)
+
+
+def budget_structure(rows_per_tile: int, width: int, ntiles: int, rng):
+    """Host CSR arrays ``(rowptr, colind, nrows, ncols)`` whose every tile
+    of ``rows_per_tile`` rows reads exactly ``width`` columns: the tile's
+    first row holds its window's two ends, every row four columns of the
+    window."""
+    ptr, cols = [0], []
+    for t in range(ntiles):
+        base = t * rows_per_tile
+        for i in range(rows_per_tile):
+            inner = rng.choice(np.arange(base + 1, base + width - 1),
+                               2 if i == 0 else 4, replace=False)
+            row = ([base, base + width - 1] if i == 0 else []) + list(inner)
+            cols += sorted(row)
+            ptr.append(len(cols))
+    return (np.asarray(ptr, np.int32), np.asarray(cols, np.int32),
+            ntiles * rows_per_tile, (ntiles - 1) * rows_per_tile + width)
+
+
+def staged_spmm_case(rowptr, colind, values, X, n, tol, what, perm=None,
+                     empty=None) -> float:
+    """The staged SpMM named on purpose: bitwise the register variant on
+    the same operands, within ``tol·(|A||X|)`` of the plain version, empty
+    rows 0. Returns the max |err|."""
+    Y = csr_spmm(rowptr, colind, values, X, n, perm=perm, variant="staged")
+    if not torch.equal(Y, csr_spmm(rowptr, colind, values, X, n, perm=perm,
+                                   variant="register")):
+        raise AssertionError(f"{what}: the staged and register variants "
+                             "differ")
+    v = values if perm is None else values[perm]
+    err = (Y - csr_spmm_plain(rowptr, colind, v, X, n)).abs()
+    within(err, csr_spmm_plain(rowptr, colind, v.abs(), X.abs(), n), tol,
+           what)
+    if empty is not None and not bool((Y[empty] == 0).all()):
+        raise AssertionError(f"{what}: an empty row is not 0")
+    return float(err.max())
+
+
+def staged_sddmm_case(rowptr, colind, G, X, n, tol, what) -> float:
+    """The staged SDDMM named on purpose: within ``tol·(|G||X|)`` of the
+    plain version, padding slots 0, bitwise repeatable. Returns the max
+    |err|."""
+    major = major_ids(rowptr, colind.numel())
+    out = csr_sddmm(rowptr, colind, G, X, n, variant="staged")
+    err = (out - csr_sddmm_plain(major, colind, G, X, n)).abs()
+    within(err, csr_sddmm_plain(major, colind, G.abs(), X.abs(), n), tol,
+           what)
+    if not bool((out[major == n] == 0).all()):
+        raise AssertionError(f"{what}: a padding slot is not 0")
+    if not torch.equal(out, csr_sddmm(rowptr, colind, G, X, n,
+                                      variant="staged")):
+        raise AssertionError(f"{what}: not bitwise repeatable")
+    return float(err.max())
+
+
+def refused(fn, what: str) -> None:
+    try:
+        fn()
+    except RuntimeError:
+        return
+    raise AssertionError(f"{what}: the staged variant took it")
+
+
+def dispatched(counts, fn, what: str) -> str:
+    before = dict(counts)
+    fn()
+    return ran_variant(counts, before, what)
+
+
+def check_staged_csr(mats, rhs, device) -> None:
+    """Phase 22: the staged CSR SpMM and SDDMM, named on purpose. On the
+    banded matrix's forward and Aᵀ·G (through ``perm``) operands the
+    staged SpMM is bitwise the register variant and within tolerance of
+    the plain version, the staged SDDMM within tolerance; on structures
+    whose windows sit just under and just over STAGE_BUDGET the dispatch
+    takes staged and leaves it, and the named variant still runs; on a
+    near-banded structure with empty tiles, a last partial tile, a lone
+    wide row, padding slots, ``perm``, X or G off 16 bytes and k in
+    STAGED_KS (k = 3 puts the windows' first rows inside a 16-byte piece;
+    k = 32, 64 and 100 take the SpMM's split rows, k = 1 and 3 its
+    register loop) each runs or, past the shared memory a CTA may hold or
+    off 16 bytes, is refused."""
+    for name in DTYPES:
+        mat = mats["banded", name]
+        X, G = rhs[name]
+        rowptr, colind, values = mat.rowptr, mat.colind, mat.values
+        t = transpose_plan(rowptr, colind, N_MM, N_MM)
+        err = staged_spmm_case(rowptr, colind, values, X, N_MM, TOL[name],
+                               f"banded {name} SpMM")
+        err_t = staged_spmm_case(t.ptr, t.minor, values, G, N_MM, TOL[name],
+                                 f"banded {name} Aᵀ·G", perm=t.perm)
+        err_s = staged_sddmm_case(rowptr, colind, G, X, N_MM, TOL[name],
+                                  f"banded {name} SDDMM")
+        free_memory()
+        print(f"phase 22: banded {name} k={K_MM}: staged SpMM forward and "
+              f"Aᵀ·G through perm bitwise == register, == plain within "
+              f"{TOL[name]}*(|A||X|) (max |err| {err:.3e} / {err_t:.3e}); "
+              f"staged SDDMM == plain within {TOL[name]}*(|G||X|) (max |err| "
+              f"{err_s:.3e})")
+    rng = np.random.default_rng(22)
+    # just under and just over the budget at k = 64
+    for name, (np_dtype, torch_dtype) in DTYPES.items():
+        itemsize = np.dtype(np_dtype).itemsize
+        row_bytes = K_MM * itemsize
+        sd_rows = sddmm_mod.SDDMM_TILE_ROWS
+        for side, extra in (("under", 0), ("over", 1)):
+            width = STAGE_BUDGET // row_bytes + extra
+            ptr, cols, n, m = budget_structure(64, width, 6, rng)
+            rowptr, colind = on_card(ptr, device=device), on_card(
+                cols, device=device)
+            values = on_card(rng.normal(size=cols.size).astype(np_dtype),
+                             device=device)
+            X = on_card(rng.normal(size=(m, K_MM)).astype(np_dtype),
+                        device=device)
+            what = f"{name} SpMM window just {side} the budget"
+            if csr_tile_plan(rowptr, colind).max_window * row_bytes \
+                    != STAGE_BUDGET + extra * row_bytes:
+                raise AssertionError(f"{what}: the structure's window is off")
+            got = dispatched(spmm_mod.VARIANT_LAUNCHES, lambda: csr_spmm(
+                rowptr, colind, values, X, n), what)
+            want = "staged" if side == "under" else (
+                "vector" if name == "float32" else "register")
+            if got != want:
+                raise AssertionError(f"{what}: ran {got}, expected {want}")
+            staged_spmm_case(rowptr, colind, values, X, n, TOL[name], what)
+            # the SDDMM's budget also holds a tile's rows of G and its ids
+            width = (STAGE_BUDGET - 4 * 4 * sd_rows) // row_bytes - sd_rows \
+                + extra
+            ptr, cols, n, m = budget_structure(sd_rows, width, 6, rng)
+            rowptr, colind = on_card(ptr, device=device), on_card(
+                cols, device=device)
+            G = on_card(rng.normal(size=(n, K_MM)).astype(np_dtype),
+                        device=device)
+            X = on_card(rng.normal(size=(m, K_MM)).astype(np_dtype),
+                        device=device)
+            what = f"{name} SDDMM staged bytes just {side} the budget"
+            plan = csr_tile_plan(rowptr, colind, sd_rows)
+            if stage_bytes(plan, K_MM, itemsize, with_rows=True) \
+                    != STAGE_BUDGET + extra * row_bytes:
+                raise AssertionError(f"{what}: the structure's bytes are off")
+            got = dispatched(sddmm_mod.VARIANT_LAUNCHES, lambda: csr_sddmm(
+                rowptr, colind, G, X, n), what)
+            want = "staged" if side == "under" else "vector"
+            if got != want:
+                raise AssertionError(f"{what}: ran {got}, expected {want}")
+            staged_sddmm_case(rowptr, colind, G, X, n, TOL[name], what)
+    # a near-banded structure: rows 128..255 empty (whole tiles), a last
+    # partial tile, row 300 of 150 entries over 600 columns, 9 padding
+    # slots past rowptr[-1]
+    n, m = 64 * 12 + 17, 900
+    want_lens = rng.poisson(6, n)
+    want_lens[128:256] = 0
+    row_cols = []
+    for r in range(n):
+        if r == 300:
+            c = rng.choice(600, 150, replace=False)
+        else:
+            lo, hi = max(0, r - 24), min(m, r + 25)
+            c = rng.choice(np.arange(lo, hi), min(want_lens[r], hi - lo),
+                           replace=False)
+        row_cols.append(np.sort(c))
+    lens = np.array([c.size for c in row_cols])
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    cols = np.concatenate(row_cols + [rng.integers(0, m, 9)]).astype(np.int32)
+    rowptr, colind = on_card(ptr, device=device), on_card(cols, device=device)
+    empty = on_card(lens == 0, device=device)
+    perm = on_card(rng.permutation(cols.size).astype(np.int32), device=device)
+    plan = csr_tile_plan(rowptr, colind)
+    plan_sd = csr_tile_plan(rowptr, colind, sddmm_mod.SDDMM_TILE_ROWS)
+    ran = {"staged": 0, "refused": 0}
+    for name, (np_dtype, torch_dtype) in DTYPES.items():
+        itemsize = np.dtype(np_dtype).itemsize
+        values = on_card(rng.normal(size=cols.size).astype(np_dtype),
+                         device=device)
+        for k in STAGED_KS:
+            Xh = rng.normal(size=(m, k)).astype(np_dtype)
+            Gh = rng.normal(size=(n, k)).astype(np_dtype)
+            for shift in (False, True):
+                X = on_card(Xh, shift=shift, device=device)
+                what = (f"{name} near-banded SpMM k {k}"
+                        + (", X off 16 bytes" if shift else ""))
+                if not shift and (plan.max_window * k * itemsize + 32
+                                  <= CTA_SHARED):
+                    staged_spmm_case(rowptr, colind, values, X, n, TOL[name],
+                                     what, empty=empty)
+                    staged_spmm_case(rowptr, colind, values, X, n, TOL[name],
+                                     f"{what}, perm", perm=perm, empty=empty)
+                    ran["staged"] += 1
+                else:
+                    refused(lambda: csr_spmm(rowptr, colind, values, X, n,
+                                             variant="staged"), what)
+                    ran["refused"] += 1
+                for g_shift, x_shift in ((False, False), (True, False),
+                                         (False, True)):
+                    if shift and (g_shift or x_shift):
+                        continue
+                    G = on_card(Gh, shift=g_shift, device=device)
+                    Xs = on_card(Xh, shift=x_shift, device=device)
+                    what = (f"{name} near-banded SDDMM k {k}"
+                            + (", G off 16 bytes" if g_shift else "")
+                            + (", X off 16 bytes" if x_shift else ""))
+                    if not (g_shift or x_shift) and sddmm_shared(
+                            plan_sd, k, itemsize) <= CTA_SHARED:
+                        staged_sddmm_case(rowptr, colind, G, Xs, n, TOL[name],
+                                          what)
+                        ran["staged"] += 1
+                    else:
+                        refused(lambda: csr_sddmm(rowptr, colind, G, Xs, n,
+                                                  variant="staged"), what)
+                        ran["refused"] += 1
+    if ran["refused"] == 0 or ran["staged"] == 0:
+        raise AssertionError(f"phase 22: the edge cases ran {ran}")
+    torch.cuda.synchronize()
+    print(f"phase 22: windows just under / over STAGE_BUDGET "
+          f"({STAGE_BUDGET} bytes) at k={K_MM}: the dispatch takes staged / "
+          f"leaves it, the named staged SpMM bitwise == register, the "
+          f"staged SDDMM == plain; near-banded structure (empty tiles, a "
+          f"last partial tile, a lone row of 150 entries over 600 columns, "
+          f"padding slots, perm) at k in {', '.join(map(str, STAGED_KS))}: "
+          f"{ran['staged']} staged cases == register bitwise (SpMM) / == "
+          f"plain (SDDMM), {ran['refused']} refused (X or G off 16 bytes, "
+          f"or past {CTA_SHARED} bytes of shared memory)")
 
 
 def check_spgemm(gemm, plan, main_out, report) -> None:
@@ -1595,10 +1905,9 @@ def time_spmm_spgemm(mats, rhs, gemm, plan, report, card: str) -> None:
                   f"hit would take {gather_ms:.4f} ms at {HBM_TBPS} TB/s "
                   f"(compulsory-byte bound "
                   f"{report['csr_spmm', row]['bound_ms']:.4f} ms)")
-            G = rhs[name][1]
-            report["csr_sddmm", name].update(time_sddmm(
-                rowptr, colind, G, X, N_MM, f"{name} csr_random n={N_MM}",
-                card))
+        G = rhs[name][1]
+        report["csr_sddmm", row].update(time_sddmm(
+            rowptr, colind, G, X, N_MM, f"{name} {mname} n={N_MM}", card))
     n_terms = plan.a_idx.numel()
     args = (plan.gid, plan.a_idx, plan.b_idx)
     for name, (a, _) in gemm.items():
@@ -1626,22 +1935,23 @@ def time_spmm_spgemm(mats, rhs, gemm, plan, report, card: str) -> None:
 def profile_spmm_spgemm(mats, rhs, gemm, card: str) -> None:
     for name in DTYPES:
         X, G = rhs[name]
-        mat = mats["random", name]
-        values = mat.values.detach().clone().requires_grad_(True)
-        Xg = X.detach().clone().requires_grad_(True)
-        m = mat.with_values(values)
-        step = lambda: (m @ Xg).backward(G)  # noqa: E731
-        time_ms(step, 2)
-        print(f"phase 9: {name} csr_random SpMM k={K_MM} forward + backward "
-              f"{time_ms(step, 3):.4f} ms/step | {card}")
-        print_profile(f"phase 9: {name} SpMM fwd+bwd", step, 3)
+        for mname, label in (("random", "csr_random"), ("banded", "banded")):
+            mat = mats[mname, name]
+            values = mat.values.detach().clone().requires_grad_(True)
+            Xg = X.detach().clone().requires_grad_(True)
+            m = mat.with_values(values)
+            step = lambda: (m @ Xg).backward(G)  # noqa: E731
+            time_ms(step, 2)
+            print(f"phase 9: {name} {label} SpMM k={K_MM} forward + backward "
+                  f"{time_ms(step, 3):.4f} ms/step | {card}")
+            print_profile(f"phase 9: {name} {label} SpMM fwd+bwd", step, 3)
+            del values, Xg, m
         a, _ = gemm[name]
         gstep = lambda: a * a  # noqa: E731
         time_ms(gstep, 2)
         print(f"phase 9: {name} A·A (plan cached) {time_ms(gstep, 5):.4f} "
               f"ms/product | {card}")
         print_profile(f"phase 9: {name} SpGEMM", gstep, 5)
-        del values, Xg, m
         free_memory()
 
 
@@ -4275,6 +4585,8 @@ def run(t_start: float, tmpdir: str) -> int:
     free_memory()
     with phase("phase 6"):
         check_spmm(mats, rhs, main_out, report)
+    with phase("phase 22"):
+        check_staged_csr(mats, rhs, device)
     with phase("phase 7"):
         check_spgemm(gemm, plan, main_out, report)
         spgemm_dense_checks(csr0, device)

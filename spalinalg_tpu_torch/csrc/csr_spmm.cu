@@ -52,17 +52,57 @@
 // splits into 32 / G sub-groups that take different entries of the row at
 // once. Sub-group sums meet in a fixed __shfl_down_sync tree.
 //
-// Both: no atomics, and the summation order depends only on the structure
+// staged (X starts on a 16-byte boundary; a tile plan built once per
+// structure, the wrapper's csr_tile_plan; the wrapper's csr_spmm_variant
+// takes it where the widest window fits STAGE_BUDGET). On a banded matrix
+// the register variant gathers a whole row of X from L2 for every stored
+// entry: 33 entries a row x 512 B (double, k = 64) x 2^19 rows, 8.9 GB of
+// L2-to-SM traffic a product, though each row of X is needed by only 33
+// neighbouring rows. Here a CTA of 256 threads owns a tile of kTileRows =
+// 64 consecutive rows, whose entries read only the rows [c0, c0 + w) of X
+// (the plan's window: 96 rows on the banded matrix, 48 KB at k = 64 in
+// double). It copies that range, one contiguous run of w * k elements,
+// into dynamic shared memory with 16-byte cp.async pieces (from the
+// 16-byte boundary below it), waits, and then runs the tile's rows with
+// the rows of X read from shared memory, so the 33-fold reuse of a row of
+// X comes from shared memory instead of L2. Two row loops, each giving
+// the register kernel's bits:
+// - where a row of X is a whole number of 16-byte vectors and k >= 17
+//   (the register kernel's G = 32, which sums each element of Y over its
+//   row's entries in order, one after another): a group of L = 8 or 16
+//   lanes owns a row, 32 / L rows a warp at once, and a lane owns NV
+//   16-byte vectors of a column block (double2 or float4). A lane of each
+//   group loads one entry's column id and value of a batch of L, and one
+//   shuffle round hands the groups an entry each: at k = 64 in double a
+//   round's three shuffles serve two entries instead of one, and a lane
+//   reads its row of X with two 16-byte shared-memory loads. Shuffles and
+//   shared-memory loads share a path of one wavefront a clock an SM,
+//   which bounds this loop: 4 wavefronts of X an entry (512 B) and 1.5 of
+//   shuffles at k = 64 in double;
+// - otherwise the register kernel's own loop (a warp a row, the same
+//   lanes, rounds and tree), with a batch that stops at the row's end.
+// An empty tile copies nothing and writes its rows' zeros. Shared memory a
+// CTA: the widest window's w * k elements and 32 bytes of alignment slack;
+// the entry point refuses a launch that would need more than a CTA may
+// hold (232,448 bytes) or an X off a 16-byte boundary. Slots past
+// rowptr[nrows] are in no tile. PERF.md has its times beside the other
+// variants' (spalinalg_tpu_torch/tools/bench_csr.py --variants).
+//
+// All: no atomics, and the summation order depends only on the structure
 // and k, so a result is bitwise the same from run to run. Slots past
 // rowptr[nrows] are never read; an empty row gives 0. Offsets into X and Y
 // are 64-bit, since ncols * k passes 2^31 well inside the card's memory.
 // Registers (ptxas -v, nvcc 12.9, sm_90a): the vector kernel at k = 64
 // (float, S = 16) 64 with 8 bytes of spill stores; its other instances
 // 40-80, spilling 0-20 bytes; the register kernel at k = 64 38 (double)
-// and 32 (float), no spills; its other instances 32-62, 0-4 bytes.
+// and 32 (float), no spills; its other instances 32-62, 0-4 bytes; the
+// staged kernel's split rows at k = 64 55 (double, L = 16, NV = 2) and 46
+// (float, NV = 1), its other instances 43-76, its register-loop instances
+// 30-48, no spills but 16 bytes at G = 16 in double.
 //
 // C interface: one entry point per type, with the variant as an int (0
-// register, 1 vector). Each launches on the given stream, allocates
+// register, 1 vector, 2 staged; staged also takes the tile plan, its tile
+// count and its widest window). Each launches on the given stream, allocates
 // nothing, does not synchronise, and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the variant does not take.
 // nrows == 0 or k == 0 launches nothing.
@@ -78,7 +118,10 @@ constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = kThreads / kWarp;
 constexpr int kRegister = 0;
 constexpr int kVector = 1;
+constexpr int kStaged = 2;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTileRows = 64;            // TILE_ROWS in ops/kernels/csr_spmv.py
+constexpr long long kMaxShared = 232448; // what a CTA may hold on an H100
 
 // The value of slot p: values[p], or values[perm[p]] (PERM), chosen at
 // compile time: a run-time test in the register kernel's load slowed the
@@ -151,6 +194,229 @@ csr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colind,
       for (int t = 0; t < NT; ++t) {
         if (cb + c0 + t * G < k) {
           yr[t * G] = acc[t];
+        }
+      }
+    }
+  }
+}
+
+// 16 bytes from global to shared memory.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+// Copy the elements [first, first + count) of src (16-byte aligned) into
+// smem with 16-byte pieces from the 16-byte boundary at or below them, wait
+// for every thread's pieces, and return where element `first` landed.
+// Takes every thread of the CTA.
+template <typename T>
+__device__ const T* stage_run(unsigned char* smem, const T* src,
+                              long long first, long long count) {
+  const long long b0 = first * static_cast<long long>(sizeof(T));
+  const long long a0 = b0 & ~15LL;
+  const long long pieces =
+      count > 0 ? (b0 + count * static_cast<long long>(sizeof(T)) - a0 + 15) >> 4
+                : 0;
+  const unsigned char* from = reinterpret_cast<const unsigned char*>(src) + a0;
+  for (long long i = threadIdx.x; i < pieces; i += blockDim.x) {
+    cp_async16(smem + 16 * i, from + 16 * i);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  return reinterpret_cast<const T*>(smem + (b0 - a0));
+}
+
+// The register kernel's row loop over a tile whose window of X sits in
+// shared memory: the same lanes, the same rounds and the same tree, so the
+// same bits. plan holds (first slot, end slot, c0, w) a tile.
+template <typename T, int G, int NT, bool PERM>
+__global__ void __launch_bounds__(kThreads)
+csr_spmm_staged(const int* __restrict__ rowptr, const int* __restrict__ colind,
+                const T* __restrict__ values, const int* __restrict__ perm,
+                const T* __restrict__ X, T* __restrict__ Y,
+                const int4* __restrict__ plan, long long nrows, long long k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int S = kWarp / G;
+  const int4 tile = plan[blockIdx.x];
+  const long long c0 = tile.z;
+  const T* xs = stage_run(smem, X, c0 * k, static_cast<long long>(tile.w) * k);
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int sub = lane / G;
+  const int cl = lane % G;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kTileRows;
+  const long long r1 = r0 + kTileRows < nrows ? r0 + kTileRows : nrows;
+  for (long long row = r0 + warp; row < r1; row += kRowsPerBlock) {
+    const long long start = rowptr[row];
+    const long long end = rowptr[row + 1];
+    for (long long cb = 0; cb < k; cb += G * NT) {
+      T acc[NT];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        acc[t] = T(0);
+      }
+      for (long long p0 = start; p0 < end; p0 += kWarp) {
+        int col = 0;
+        T v = T(0);
+        if (p0 + lane < end) {
+          col = colind[p0 + lane];
+          v = PERM ? __ldg(values + perm[p0 + lane]) : values[p0 + lane];
+        }
+        const long long n = end - p0;  // entries left, uniform in the warp
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          if (i * S >= n) {
+            break;  // no sub-group has an entry in this or a later round
+          }
+          const int j = i * S + sub;
+          const int cj = __shfl_sync(kFull, col, j);
+          const T vj = __shfl_sync(kFull, v, j);
+          if (j < n) {
+            const T* xr = xs + (cj - c0) * k + cb + cl;
+#pragma unroll
+            for (int t = 0; t < NT; ++t) {
+              if (cb + cl + t * G < k) {
+                acc[t] += vj * xr[t * G];
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int off = kWarp / 2; off >= G; off >>= 1) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          acc[t] += __shfl_down_sync(kFull, acc[t], off);
+        }
+      }
+      if (sub == 0) {
+        T* yr = Y + row * k + cb + cl;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          if (cb + cl + t * G < k) {
+            yr[t * G] = acc[t];
+          }
+        }
+      }
+    }
+  }
+}
+
+// 16 bytes of X or Y and the multiply-add of one value into them, for the
+// staged variant's split rows: each element as the register kernel adds
+// it (acc += v * x), so the same bits.
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  using V = float4;
+  static constexpr int kWidth = 4;
+  static __device__ __forceinline__ void mac(V& acc, float v, const V& x) {
+    acc.x += v * x.x;
+    acc.y += v * x.y;
+    acc.z += v * x.z;
+    acc.w += v * x.w;
+  }
+};
+
+template <>
+struct Vec16<double> {
+  using V = double2;
+  static constexpr int kWidth = 2;
+  static __device__ __forceinline__ void mac(V& acc, double v, const V& x) {
+    acc.x += v * x.x;
+    acc.y += v * x.y;
+  }
+};
+
+// The staged variant where a row of X is a whole number of 16-byte
+// vectors and k >= 17 (the register kernel's G = 32: each element of Y is
+// its row's entries summed in order, one after another). A group of L
+// lanes owns a row, 32 / L rows a warp at once, and a lane owns NV
+// 16-byte vectors of a column block of L * NV vectors: a lane of each
+// group loads one entry's column id and value of a batch of L, and one
+// shuffle round hands an entry to every group, so a round's shuffles
+// serve 32 / L entries and each lane reads its columns of X with 16-byte
+// shared-memory loads. The adds per element are the register kernel's.
+template <typename T, int L, int NV, bool PERM>
+__global__ void __launch_bounds__(kThreads)
+csr_spmm_staged_rows(const int* __restrict__ rowptr,
+                     const int* __restrict__ colind,
+                     const T* __restrict__ values,
+                     const int* __restrict__ perm, const T* __restrict__ X,
+                     T* __restrict__ Y, const int4* __restrict__ plan,
+                     long long nrows, long long k) {
+  using Op = Vec16<T>;
+  using V = typename Op::V;
+  constexpr int RW = kWarp / L;  // rows a warp at once
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int4 tile = plan[blockIdx.x];
+  const long long c0 = tile.z;
+  // k * sizeof(T) is a multiple of 16: the window starts on a 16-byte
+  // boundary of shared memory.
+  const V* xs = reinterpret_cast<const V*>(
+      stage_run(smem, X, c0 * k, static_cast<long long>(tile.w) * k));
+  const long long nvec = k / Op::kWidth;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int group = lane & ~(L - 1);  // the group's first lane
+  const int gl = lane & (L - 1);
+  const long long r0 = static_cast<long long>(blockIdx.x) * kTileRows;
+  const long long r1 = r0 + kTileRows < nrows ? r0 + kTileRows : nrows;
+  for (long long base = r0 + static_cast<long long>(warp) * RW; base < r1;
+       base += static_cast<long long>(kRowsPerBlock) * RW) {
+    const long long row = base + lane / L;
+    long long start = 0, n = 0;
+    if (row < r1) {
+      start = rowptr[row];
+      n = rowptr[row + 1] - start;
+    }
+    long long most = n;  // the longest row of the warp's
+#pragma unroll
+    for (int off = L; off < kWarp; off <<= 1) {
+      const long long other = __shfl_xor_sync(kFull, most, off);
+      most = other > most ? other : most;
+    }
+    for (long long vb = 0; vb < nvec; vb += L * NV) {
+      V acc[NV];
+#pragma unroll
+      for (int t = 0; t < NV; ++t) {
+        acc[t] = V{};
+      }
+      for (long long q = 0; q < most; q += L) {
+        int col = 0;
+        T v = T(0);
+        if (q + gl < n) {
+          col = colind[start + q + gl];
+          v = PERM ? __ldg(values + perm[start + q + gl])
+                   : values[start + q + gl];
+        }
+        const long long m = most - q < L ? most - q : L;  // uniform
+        for (int i = 0; i < m; ++i) {
+          const int cj = __shfl_sync(kFull, col, group | i);
+          const T vj = __shfl_sync(kFull, v, group | i);
+          if (q + i < n) {
+            const V* xr = xs + (cj - c0) * nvec + vb + gl;
+#pragma unroll
+            for (int t = 0; t < NV; ++t) {
+              if (vb + gl + t * L < nvec) {
+                Op::mac(acc[t], vj, xr[t * L]);
+              }
+            }
+          }
+        }
+      }
+      if (row < r1) {
+        V* yr = reinterpret_cast<V*>(Y + row * k) + vb + gl;
+#pragma unroll
+        for (int t = 0; t < NV; ++t) {
+          if (vb + gl + t * L < nvec) {
+            yr[t * L] = acc[t];
+          }
         }
       }
     }
@@ -314,10 +580,88 @@ int launch_g(const void* rowptr, const void* colind, const void* values,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int G, int NT, bool PERM>
+int launch_st(const void* rowptr, const void* colind, const void* values,
+              const void* perm, const void* X, void* Y, const void* plan,
+              long long ntiles, long long shared, long long nrows,
+              long long k, cudaStream_t stream) {
+  const cudaError_t raised = cudaFuncSetAttribute(
+      csr_spmm_staged<T, G, NT, PERM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+  if (raised != cudaSuccess) {
+    return static_cast<int>(raised);
+  }
+  csr_spmm_staged<T, G, NT, PERM><<<static_cast<unsigned>(ntiles), kThreads,
+                                    static_cast<size_t>(shared), stream>>>(
+      static_cast<const int*>(rowptr), static_cast<const int*>(colind),
+      static_cast<const T*>(values), static_cast<const int*>(perm),
+      static_cast<const T*>(X), static_cast<T*>(Y),
+      static_cast<const int4*>(plan), nrows, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int L, int NV, bool PERM>
+int launch_rows(const void* rowptr, const void* colind, const void* values,
+                const void* perm, const void* X, void* Y, const void* plan,
+                long long ntiles, long long shared, long long nrows,
+                long long k, cudaStream_t stream) {
+  const cudaError_t raised = cudaFuncSetAttribute(
+      csr_spmm_staged_rows<T, L, NV, PERM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+  if (raised != cudaSuccess) {
+    return static_cast<int>(raised);
+  }
+  csr_spmm_staged_rows<T, L, NV, PERM><<<static_cast<unsigned>(ntiles),
+                                         kThreads,
+                                         static_cast<size_t>(shared),
+                                         stream>>>(
+      static_cast<const int*>(rowptr), static_cast<const int*>(colind),
+      static_cast<const T*>(values), static_cast<const int*>(perm),
+      static_cast<const T*>(X), static_cast<T*>(Y),
+      static_cast<const int4*>(plan), nrows, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The staged variant: refuses an X off 16 bytes, a plan that does not
+// cover the rows, or a window that needs more shared memory than a CTA
+// may hold.
+template <typename T, bool PERM>
+int launch_staged(const void* rowptr, const void* colind, const void* values,
+                  const void* perm, const void* X, void* Y, long long nrows,
+                  long long k, const void* plan, long long ntiles,
+                  long long max_window, cudaStream_t s) {
+  const long long shared =
+      max_window * k * static_cast<long long>(sizeof(T)) + 32;
+  if (!aligned16(X) || plan == nullptr || max_window < 0 ||
+      ntiles != (nrows + kTileRows - 1) / kTileRows || shared > kMaxShared) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (k >= 17 && (k * static_cast<long long>(sizeof(T))) % 16 == 0) {
+    // whole 16-byte rows: L lanes a row, NV vectors a lane
+    const long long nvec = k / Vec16<T>::kWidth;
+    if (nvec <= 8) return launch_rows<T, 8, 1, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
+    if (nvec <= 16) return launch_rows<T, 16, 1, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
+    if (nvec <= 32) return launch_rows<T, 16, 2, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
+    return launch_rows<T, 16, 4, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
+  }
+  if (k == 1) return launch_st<T, 1, 1, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
+  if (k == 2) return launch_st<T, 2, 1, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
+  if (k <= 4) return launch_st<T, 4, 1, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
+  if (k <= 8) return launch_st<T, 8, 1, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
+  if (k <= 16) return launch_st<T, 16, 1, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
+  if (k <= 32) return launch_st<T, 32, 1, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
+  return launch_st<T, 32, 2, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
+}
+
 template <typename T, bool PERM>
 int launch_variant(const void* rowptr, const void* colind, const void* values,
                    const void* perm, const void* X, void* Y, long long nrows,
-                   long long k, int variant, cudaStream_t s) {
+                   long long k, int variant, const void* plan,
+                   long long ntiles, long long max_window, cudaStream_t s) {
+  if (variant == kStaged) {
+    return launch_staged<T, PERM>(rowptr, colind, values, perm, X, Y, nrows,
+                                  k, plan, ntiles, max_window, s);
+  }
   if (variant == kVector) {
     if constexpr (sizeof(T) != sizeof(float)) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -350,7 +694,8 @@ int launch_variant(const void* rowptr, const void* colind, const void* values,
 template <typename T>
 int launch(const void* rowptr, const void* colind, const void* values,
            const void* perm, const void* X, void* Y, long long nrows,
-           long long k, int variant, void* stream) {
+           long long k, int variant, const void* plan, long long ntiles,
+           long long max_window, void* stream) {
   if (nrows < 0 || k < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -360,10 +705,10 @@ int launch(const void* rowptr, const void* colind, const void* values,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (perm != nullptr) {
     return launch_variant<T, true>(rowptr, colind, values, perm, X, Y, nrows,
-                                   k, variant, s);
+                                   k, variant, plan, ntiles, max_window, s);
   }
   return launch_variant<T, false>(rowptr, colind, values, perm, X, Y, nrows,
-                                  k, variant, s);
+                                  k, variant, plan, ntiles, max_window, s);
 }
 
 }  // namespace
@@ -371,15 +716,19 @@ int launch(const void* rowptr, const void* colind, const void* values,
 extern "C" int spal_csr_spmm_f32(const void* rowptr, const void* colind,
                                  const void* values, const void* perm,
                                  const void* X, void* Y, long long nrows,
-                                 long long k, int variant, void* stream) {
+                                 long long k, int variant, const void* plan,
+                                 long long ntiles, long long max_window,
+                                 void* stream) {
   return launch<float>(rowptr, colind, values, perm, X, Y, nrows, k, variant,
-                       stream);
+                       plan, ntiles, max_window, stream);
 }
 
 extern "C" int spal_csr_spmm_f64(const void* rowptr, const void* colind,
                                  const void* values, const void* perm,
                                  const void* X, void* Y, long long nrows,
-                                 long long k, int variant, void* stream) {
+                                 long long k, int variant, const void* plan,
+                                 long long ntiles, long long max_window,
+                                 void* stream) {
   return launch<double>(rowptr, colind, values, perm, X, Y, nrows, k, variant,
-                        stream);
+                        plan, ntiles, max_window, stream);
 }

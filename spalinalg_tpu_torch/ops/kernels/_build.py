@@ -35,12 +35,16 @@ _ENTRIES = {
     **{f"spal_csr_spmv_{t}": [_P] * 6 + [ctypes.c_longlong, ctypes.c_int,
                                          ctypes.c_int, _P]
        + [ctypes.c_longlong] * 3 + [_P, _P] for t in ("f32", "f64")},
-    # (rowptr, colind, values, perm, X, Y, nrows, k, variant, stream)
+    # (rowptr, colind, values, perm, X, Y, nrows, k, variant, plan, ntiles,
+    #  max_window, stream)
     **{f"spal_csr_spmm_{t}": [_P] * 6 + [ctypes.c_longlong] * 2
-       + [ctypes.c_int, _P] for t in ("f32", "f64")},
-    # (major, colind, G, X, out, nse, nrows, k, variant, stream)
-    **{f"spal_csr_sddmm_{t}": [_P] * 5 + [ctypes.c_longlong] * 3
-       + [ctypes.c_int, _P] for t in ("f32", "f64")},
+       + [ctypes.c_int, _P] + [ctypes.c_longlong] * 2 + [_P]
+       for t in ("f32", "f64")},
+    # (major, rowptr, colind, G, X, out, nse, nrows, k, variant, plan, n_a,
+    #  n_b, n_c, stream)
+    **{f"spal_csr_sddmm_{t}": [_P] * 6 + [ctypes.c_longlong] * 3
+       + [ctypes.c_int, _P] + [ctypes.c_longlong] * 3 + [_P]
+       for t in ("f32", "f64")},
     # (tptr, a_idx, b_idx, a, b, out, n_out, stream)
     "spal_spgemm_numeric_f32": [_P] * 6 + [ctypes.c_longlong, _P],
     "spal_spgemm_numeric_f64": [_P] * 6 + [ctypes.c_longlong, _P],

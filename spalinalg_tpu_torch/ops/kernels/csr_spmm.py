@@ -10,12 +10,17 @@ Pallas kernels on the JAX package's SpMM path:
 
 One warp per row reads ``rowptr``/``colind``/``values`` directly and
 gathers rows of ``X``, for float32 and float64 and any number of columns.
-It has two variants, chosen by :func:`csr_spmm_variant` and passed to the
-kernel by name: ``vector`` (16-byte row gathers, 8 entries' rows in flight
-a warp at k = 64) for float32 where ``k`` is a multiple of 4 and ``X``
-starts on a 16-byte boundary, ``register`` (the first design, one element
-a lane) otherwise, float64 included. Each launch adds one to ``LAUNCHES`` (by dtype) and to
-``VARIANT_LAUNCHES``; the metrics path names the variant, for example
+It has three variants, chosen by :func:`csr_spmm_variant` and passed to the
+kernel by name: ``staged`` (a CTA copies the rows of ``X`` its tile of rows
+reads, the window of :func:`~.csr_spmv.csr_tile_plan`, into shared memory
+and runs its rows on them; it gives the register variant's bits) where the
+widest window fits :data:`~.csr_spmv.STAGE_BUDGET` and ``X`` starts on a
+16-byte boundary (a banded matrix); ``vector`` (16-byte row gathers, 8
+entries' rows in flight a warp at k = 64) for float32 where ``k`` is a
+multiple of 4 and ``X`` starts on a 16-byte boundary; ``register`` (the
+first design, one element a lane) otherwise. ``csr_spmm(..., variant=...)``
+names one on purpose. Each launch adds one to ``LAUNCHES`` (by dtype) and
+to ``VARIANT_LAUNCHES``; the metrics path names the variant, for example
 ``csr_spmm:cuda:vector``.
 
 :func:`csr_spmm` is the wrapper. For CUDA tensors it launches the kernel or
@@ -38,7 +43,8 @@ from torch.autograd.function import once_differentiable
 from ...dtypes import INDEX_DTYPE, acc_dtype
 from ...errors import DTypeError, ShapeError
 from .csr_sddmm import csr_sddmm
-from .csr_spmv import aligned16, csr_spmv_plain, transpose_plan
+from .csr_spmv import (aligned16, csr_spmv_plain, csr_tile_plan, staged_fits,
+                       transpose_plan)
 
 __all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "CsrSpmm", "csr_spmm",
            "csr_spmm_plain", "csr_spmm_variant", "kernel_path"]
@@ -46,9 +52,9 @@ __all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "CsrSpmm", "csr_spmm",
 # Kernel launches per instantiation and per variant: plain integers,
 # advanced only where the wrapper launches the kernel.
 LAUNCHES = {"float32": 0, "float64": 0}
-VARIANT_LAUNCHES = {"register": 0, "vector": 0}
+VARIANT_LAUNCHES = {"register": 0, "vector": 0, "staged": 0}
 
-_VARIANT_CODE = {"register": 0, "vector": 1}
+_VARIANT_CODE = {"register": 0, "vector": 1, "staged": 2}
 
 _ENTRY = {torch.float32: ("spal_csr_spmm_f32", "float32"),
           torch.float64: ("spal_csr_spmm_f64", "float64")}
@@ -56,14 +62,19 @@ _ENTRY = {torch.float32: ("spal_csr_spmm_f32", "float32"),
 csr_spmm_plain = csr_spmv_plain
 
 
-def csr_spmm_variant(X) -> str:
+def csr_spmm_variant(X, plan=None) -> str:
     """The variant of ``csrc/csr_spmm.cu`` for the operand ``X`` of shape
     ``(ncols, k)`` as the kernel takes it (accumulation type, contiguous;
-    the output is a fresh, aligned tensor): ``"vector"`` for float32 when
-    a row of ``X`` is a whole number of 16-byte vectors (``k % 4 == 0``)
-    and ``X`` starts on a 16-byte boundary, else ``"register"`` (float64
-    always: its vector form ran slower on the H100, PERF.md). Shapes,
-    dtypes and addresses alone decide.
+    the output is a fresh, aligned tensor) and the structure's tile plan
+    (:func:`~.csr_spmv.csr_tile_plan`, or None): ``"staged"`` when the
+    plan's widest window fits :data:`~.csr_spmv.STAGE_BUDGET` at ``k``
+    columns and ``X`` starts on a 16-byte boundary (on the banded matrix it
+    ran faster than ``register`` in float64 and ``vector`` in float32 on
+    the H100, PERF.md); else ``"vector"`` for float32 when a row of ``X`` is
+    a whole number of 16-byte vectors (``k % 4 == 0``) and ``X`` starts on
+    a 16-byte boundary; else ``"register"`` (float64 off the staged
+    variant: its vector form ran slower on the H100, PERF.md). The plan,
+    shapes, dtypes and addresses alone decide.
 
     >>> csr_spmm_variant(torch.zeros(5, 64))
     'vector'
@@ -74,29 +85,38 @@ def csr_spmm_variant(X) -> str:
     >>> csr_spmm_variant(torch.zeros(5, 64, dtype=torch.float64))
     'register'
     """
+    if (plan is not None and aligned16(X)
+            and staged_fits(plan, X.shape[1], X.element_size())):
+        return "staged"
     if X.dtype == torch.float32 and X.shape[1] % 4 == 0 and aligned16(X):
         return "vector"
     return "register"
 
 
-def kernel_path(values, X) -> str:
+def kernel_path(rowptr, colind, values, X) -> str:
     """The metrics path of ``csr_spmm``: ``"plain"`` off the card, else
-    ``"cuda:"`` and the variant of :func:`csr_spmm_variant`.
+    ``"cuda:"`` and the variant of :func:`csr_spmm_variant` (with the
+    structure's cached tile plan).
 
-    >>> kernel_path(torch.zeros(2), torch.zeros(2, 4))
+    >>> kernel_path(torch.zeros(2, dtype=torch.int32),
+    ...             torch.zeros(1, dtype=torch.int32), torch.zeros(1),
+    ...             torch.zeros(2, 4))
     'plain'
     """
     if X.device.type != "cuda":
         return "plain"
     acc = acc_dtype(values.dtype, X.dtype)
-    return f"cuda:{csr_spmm_variant(X.to(acc).contiguous())}"
+    plan = csr_tile_plan(rowptr, colind)
+    return f"cuda:{csr_spmm_variant(X.to(acc).contiguous(), plan)}"
 
 
-def csr_spmm(rowptr, colind, values, X, nrows: int, perm=None
-             ) -> torch.Tensor:
+def csr_spmm(rowptr, colind, values, X, nrows: int, perm=None,
+             variant=None) -> torch.Tensor:
     """``Y = A @ X`` for CSR ``A`` and dense ``X`` of shape ``(ncols, k)``:
     the kernel on CUDA tensors, the plain version on CPU tensors. With
-    ``perm`` the value of slot ``p`` is ``values[perm[p]]``.
+    ``perm`` the value of slot ``p`` is ``values[perm[p]]``. ``variant``
+    names a kernel variant instead of :func:`csr_spmm_variant`'s choice;
+    the kernel refuses operands it does not take (no fallback).
 
     ``values`` and ``X`` are promoted to the accumulation dtype and made
     contiguous. Devices, index dtypes and shapes are checked; anything the
@@ -122,6 +142,9 @@ def csr_spmm(rowptr, colind, values, X, nrows: int, perm=None
             f"csr_spmm shapes: rowptr {tuple(rowptr.shape)}, colind "
             f"{tuple(colind.shape)}, values {tuple(values.shape)}, X "
             f"{tuple(X.shape)}, nrows {nrows}")
+    if variant is not None and variant not in _VARIANT_CODE:
+        raise ValueError(f"unknown csr_spmm variant {variant!r}; the "
+                         f"variants are {sorted(_VARIANT_CODE)}")
     device = X.device
     if device.type == "cpu":
         if perm is not None:
@@ -138,12 +161,20 @@ def csr_spmm(rowptr, colind, values, X, nrows: int, perm=None
     rowptr, colind = rowptr.contiguous(), colind.contiguous()
     if perm is not None:
         perm = perm.contiguous()
-    variant = csr_spmm_variant(X)
+    plan = None
+    if variant in (None, "staged"):
+        plan = csr_tile_plan(rowptr, colind)
+    if variant is None:
+        variant = csr_spmm_variant(X, plan)
+    staged = variant == "staged"
     Y = torch.empty((nrows, k), dtype=acc, device=device)
     with torch.cuda.device(device):
         launch(name, rowptr.data_ptr(), colind.data_ptr(), values.data_ptr(),
                None if perm is None else perm.data_ptr(), X.data_ptr(),
                Y.data_ptr(), nrows, k, _VARIANT_CODE[variant],
+               plan.tiles.data_ptr() if staged else None,
+               plan.ntiles if staged else 0,
+               plan.max_window if staged else 0,
                torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES[key] += 1
     VARIANT_LAUNCHES[variant] += 1
@@ -177,8 +208,8 @@ class CsrSpmm(torch.autograd.Function):
         dvals = dX = None
         if ctx.needs_input_grad[0]:
             # Padding slots have the sentinel row nrows: 0.
-            dvals = csr_sddmm(t.major, colind, G, X.to(acc), nrows
-                              ).to(values.dtype)
+            dvals = csr_sddmm(rowptr, colind, G, X.to(acc), nrows,
+                              major=t.major).to(values.dtype)
         if ctx.needs_input_grad[1]:
             dX = csr_spmm(t.ptr, t.minor, values, G, ncols, perm=t.perm
                           ).to(X.dtype)

@@ -50,10 +50,11 @@ from ...errors import DTypeError, ShapeError
 from ...utils.plancache import StructureCache
 from .csr_sddmm import csr_sddmm
 
-__all__ = ["BUDGET", "LAUNCHES", "VARIANT_LAUNCHES", "CsrSpmv", "SpmvPlan",
-           "aligned16", "csr_spmv", "csr_spmv_plain", "csr_spmv_plan",
-           "csr_spmv_variant", "kernel_path", "lanes_for", "path_for",
-           "transpose_plan"]
+__all__ = ["BUDGET", "LAUNCHES", "STAGE_BUDGET", "TILE_ROWS",
+           "VARIANT_LAUNCHES", "CsrSpmv", "SpmvPlan", "TilePlan", "aligned16",
+           "build_tile_plan", "csr_spmv", "csr_spmv_plain", "csr_spmv_plan",
+           "csr_spmv_variant", "csr_tile_plan", "kernel_path", "lanes_for",
+           "path_for", "stage_bytes", "staged_fits", "transpose_plan"]
 
 # Kernel launches per instantiation and per variant: plain integers,
 # advanced only where the wrapper launches the kernels. "finish" counts
@@ -68,12 +69,27 @@ _VARIANT_CODE = {"scalar": 0, "vector": 1}
 # csrc/csr_spmv.cu.
 BUDGET = 256
 
+# Rows a tile of the staged CSR SpMM and SDDMM (kTileRows in csrc/csr_spmm.cu
+# and csrc/csr_sddmm.cu): a CTA's rows.
+TILE_ROWS = 64
+
+# Bytes of shared memory a staged CTA may take for its window of X before
+# the dispatch leaves the staged variants: 96 KiB keeps at least two CTAs
+# on each SM of an H100 (228 KB of shared memory an SM, 227 KB a CTA at
+# most). The kernels themselves take any window up to 227 KB.
+STAGE_BUDGET = 96 * 1024
+
+# Slots a pass of build_tile_plan: bounds its temporaries (three int64
+# arrays of this length).
+_TILE_CHUNK = 1 << 24
+
 _ENTRY = {torch.float32: ("spal_csr_spmv_f32", "float32"),
           torch.float64: ("spal_csr_spmv_f64", "float64")}
 
 # Live as long as each structure does (see utils/plancache.py).
 _TRANSPOSE_PLANS = StructureCache()
 _SPMV_PLANS = StructureCache()
+_TILE_PLANS = StructureCache()
 
 
 class SpmvPlan(NamedTuple):
@@ -101,6 +117,117 @@ class SpmvPlan(NamedTuple):
             [4 * self.nwin, self.npieces, self.npieces, self.nlong,
              self.nlong + 1])
         return (windows.view(self.nwin, 4), *rest)
+
+
+class TilePlan(NamedTuple):
+    """The column windows of a structure's row tiles (``csr_tile_plan``):
+    what the staged CSR SpMM and SDDMM stage in shared memory.
+
+    ``tiles`` is ``(ntiles, 4)`` int32, a row a tile of ``rows`` consecutive
+    rows (the last may be shorter): the tile's first slot and the slot past
+    its last (``rowptr`` at its first row and past its last row), the first
+    column ``c0`` its slots read and the window's width ``w``, so that
+    every column the tile reads lies in ``[c0, c0 + w)``; an empty tile has
+    ``c0 = w = 0``. ``max_window`` is the largest ``w``, ``max_slots`` the
+    most slots a tile holds.
+    """
+
+    tiles: torch.Tensor
+    rows: int
+    max_window: int
+    max_slots: int
+
+    @property
+    def ntiles(self) -> int:
+        return self.tiles.shape[0]
+
+
+def build_tile_plan(rowptr: torch.Tensor, colind: torch.Tensor,
+                    rows_per_tile: int = TILE_ROWS) -> TilePlan:
+    """The :class:`TilePlan` of a CSR structure, built on its device in plain
+    torch (a segment min and max of ``colind`` over each tile's slots) with
+    one read back (the widest window and the most slots). Slots past
+    ``rowptr[-1]`` (padding) belong to no tile.
+
+    >>> p = build_tile_plan(
+    ...     torch.tensor([0, 2, 2, 3, 3, 3], dtype=torch.int32),
+    ...     torch.tensor([4, 1, 7, 0], dtype=torch.int32), 2)
+    >>> p.tiles.tolist(), p.max_window, p.max_slots
+    ([[0, 2, 1, 4], [2, 3, 7, 1], [3, 3, 0, 0]], 4, 2)
+    """
+    if rows_per_tile < 1:
+        raise ValueError(
+            f"rows_per_tile must be positive, got {rows_per_tile}")
+    ptr = rowptr.to(torch.int64)
+    nrows = ptr.numel() - 1
+    ntiles = -(-nrows // rows_per_tile)
+    first_rows = torch.arange(ntiles + 1, dtype=torch.int64,
+                              device=ptr.device) * rows_per_tile
+    bounds = ptr[first_rows.clamp(max=nrows)]
+    # one slot past the tiles for the padding slots, dropped at the end
+    lo = torch.full((ntiles + 1,), torch.iinfo(torch.int64).max,
+                    dtype=torch.int64, device=ptr.device)
+    hi = torch.full((ntiles + 1,), -1, dtype=torch.int64, device=ptr.device)
+    nse = colind.numel()
+    for s in range(0, nse, _TILE_CHUNK):
+        slots = torch.arange(s, min(s + _TILE_CHUNK, nse), dtype=torch.int64,
+                             device=ptr.device)
+        # the last tile whose first slot is at or before the slot: an
+        # empty tile shares its first slot with the next one
+        tile = torch.searchsorted(bounds, slots, right=True) - 1
+        cols = colind[s:s + _TILE_CHUNK].to(torch.int64)
+        lo.scatter_reduce_(0, tile, cols, "amin")
+        hi.scatter_reduce_(0, tile, cols, "amax")
+    lo, hi = lo[:ntiles], hi[:ntiles]
+    width = (hi - lo + 1).clamp(min=0)
+    c0 = torch.where(width > 0, lo, 0)
+    tiles = torch.stack([bounds[:-1], bounds[1:], c0, width], dim=1)
+    max_window, max_slots = (torch.stack(
+        [width.max(), (bounds[1:] - bounds[:-1]).max()]).tolist()
+        if ntiles else (0, 0))
+    return TilePlan(tiles.to(INDEX_DTYPE).contiguous(), rows_per_tile,
+                    max_window, max_slots)
+
+
+def csr_tile_plan(rowptr: torch.Tensor, colind: torch.Tensor,
+                  rows_per_tile: int = TILE_ROWS) -> TilePlan:
+    """:func:`build_tile_plan` of the structure, built once per structure
+    (keyed on the identity and shape of ``rowptr`` and ``colind`` and on
+    ``rows_per_tile``) and dropped with it."""
+    return _TILE_PLANS.get(
+        (rowptr, colind),
+        lambda: build_tile_plan(rowptr, colind, rows_per_tile), rows_per_tile)
+
+
+def stage_bytes(plan: TilePlan, k: int, itemsize: int, *,
+                with_rows: bool = False) -> int:
+    """Bytes a staged CTA copies into shared memory at most, at ``k``
+    columns of ``itemsize`` bytes: the widest window of X (the staged
+    SpMM); ``with_rows`` adds a tile's rows of G and its column ids (the
+    staged SDDMM).
+
+    >>> plan = TilePlan(torch.zeros(1, 4, dtype=torch.int32), TILE_ROWS, 96,
+    ...                 2112)
+    >>> stage_bytes(plan, 64, 8), stage_bytes(plan, 64, 8, with_rows=True)
+    (49152, 90368)
+    """
+    nbytes = plan.max_window * k * itemsize
+    if with_rows:
+        nbytes += plan.rows * k * itemsize + 4 * plan.max_slots
+    return nbytes
+
+
+def staged_fits(plan: TilePlan, k: int, itemsize: int, *,
+                with_rows: bool = False) -> bool:
+    """Whether :func:`stage_bytes` fits :data:`STAGE_BUDGET`: the
+    dispatch's test for the staged CSR variants.
+
+    >>> plan = TilePlan(torch.zeros(1, 4, dtype=torch.int32), TILE_ROWS, 192,
+    ...                 64)
+    >>> staged_fits(plan, 64, 8), staged_fits(plan, 65, 8)
+    (True, False)
+    """
+    return stage_bytes(plan, k, itemsize, with_rows=with_rows) <= STAGE_BUDGET
 
 
 def path_for(device: torch.device) -> str:
@@ -335,8 +462,8 @@ class CsrSpmv(torch.autograd.Function):
         dvals = dx = None
         if ctx.needs_input_grad[0]:
             # Padding slots have the sentinel row nrows: 0.
-            dvals = csr_sddmm(t.major, colind, g, x.to(acc), nrows
-                              ).to(values.dtype)
+            dvals = csr_sddmm(rowptr, colind, g, x.to(acc), nrows,
+                              major=t.major).to(values.dtype)
         if ctx.needs_input_grad[1]:
             dx = csr_spmv(t.ptr, t.minor, values, g, ncols, perm=t.perm
                           ).to(x.dtype)

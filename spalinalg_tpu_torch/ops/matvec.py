@@ -112,9 +112,15 @@ def _spmm(op, mat, X):
         return CsrSpmm.apply(values, X, rowptr, colind, mat.nrows,
                              mat.ncols)
 
-    return instrument(op, run,
-                      path=lambda: spmm_kernel.kernel_path(mat.values, X),
-                      device=X.device,
+    def path():
+        from ..formats.compressed import CscMatrix
+
+        if isinstance(mat, CscMatrix):
+            t = transpose_plan(mat.colptr, mat.rowind, mat.ncols, mat.nrows)
+            return spmm_kernel.kernel_path(t.ptr, t.minor, mat.values, X)
+        return spmm_kernel.kernel_path(mat.rowptr, mat.colind, mat.values, X)
+
+    return instrument(op, run, path=path, device=X.device,
                       nnz=nnz, flops=2 * nnz * k,
                       bytes=(itm * (1 + 2 * k) + 4) * nnz)
 

@@ -18,6 +18,13 @@ prints one JSON line per product:
 - ``step``: a forward + backward step through autograd (``A @ x`` or
   ``A @ X`` with gradients to the values and the operand).
 
+``--variants`` times instead every variant of the package's CSR SpMM and
+SDDMM kernels, each named on purpose, at the same shapes (``op`` is
+``spmm_variant``, ``spmm_at_variant`` for Aᵀ·X through the transpose's
+``perm``, or ``sddmm_variant``; the staged SDDMM at each tile height it
+takes, ``tile_rows``), so that one run shows what the dispatch chose
+between. A variant the kernel refuses for the shape is left out.
+
 Launches are timed with CUDA events behind a queued spin of the card, so
 that the host enqueues all of them while the spin runs and the events time
 the card, not the host's launch rate.
@@ -34,6 +41,7 @@ working tree) compare on one card, in turns:
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -104,13 +112,18 @@ def ran(mods, fn):
                        if n != before.get(key, 0))
 
 
-def dvals_fn(kernels, t, colind, G, X, nrows: int):
+def dvals_fn(kernels, t, rowptr, colind, G, X, nrows: int):
     """The package's ``dvals`` as its backward computes it: the SDDMM
-    kernel where the package has one, else the plain expression the
-    backward used (``g[row]·x[col]`` for SpMV, chunked row dots for
-    SpMM)."""
+    kernel where the package has one (called as its version takes it:
+    with the row pointer and the cached row ids since the staged and
+    rowwalk variants, with the row ids alone before), else the plain
+    expression the backward used (``g[row]·x[col]`` for SpMV, chunked row
+    dots for SpMM)."""
     sddmm = getattr(kernels, "csr_sddmm", None)
     if sddmm is not None:
+        if "rowptr" in inspect.signature(sddmm.csr_sddmm).parameters:
+            return lambda: sddmm.csr_sddmm(rowptr, colind, G, X, nrows,
+                                           major=t.major)
         return lambda: sddmm.csr_sddmm(t.major, colind, G, X, nrows)
     if G.ndim == 1:
         g_ext = torch.cat([G, G.new_zeros(1)])
@@ -119,10 +132,55 @@ def dvals_fn(kernels, t, colind, G, X, nrows: int):
     return lambda: kernels.csr_spmm._row_dots(G_ext, X, t.major, colind)
 
 
+def sweep(emit, mods, shape, n, k, rowptr, colind, t, gen, device) -> None:
+    """Every variant of the CSR SpMM (forward and Aᵀ·X through ``perm``)
+    and SDDMM kernels, named on purpose, at one shape (``--variants``)."""
+    mm_mod, sd_mod = mods[1], mods[-1]
+    for name, dtype in DTYPES.items():
+        size = (n, max(k, 1))
+        values = torch.randn(colind.numel(), generator=gen, dtype=dtype,
+                             device=device)
+        X = torch.randn(size, generator=gen, dtype=dtype, device=device)
+        G = torch.randn(size, generator=gen, dtype=dtype, device=device)
+        common = {"shape": shape, "n": n, "nnz": colind.numel(), "k": k,
+                  "dtype": name}
+        for variant in mm_mod.VARIANT_LAUNCHES:
+            for op, args, perm in (
+                    ("spmm_variant", (rowptr, colind, values, X, n), None),
+                    ("spmm_at_variant", (t.ptr, t.minor, values, G, n),
+                     t.perm)):
+                fn = lambda: mm_mod.csr_spmm(*args, perm=perm,  # noqa: E731
+                                             variant=variant)
+                try:
+                    fn()
+                except RuntimeError:
+                    continue
+                emit(op=op, **common, variant=variant, ms=time_ms(fn))
+        heights = getattr(sd_mod, "SDDMM_TILE_ROWS", None)
+        for variant in sd_mod.VARIANT_LAUNCHES:
+            for rows in ((heights, 64) if variant == "staged" else (None,)):
+                if rows is not None:
+                    sd_mod.SDDMM_TILE_ROWS = rows
+                fn = lambda: sd_mod.csr_sddmm(  # noqa: E731
+                    rowptr, colind, G, X, n, major=t.major, variant=variant)
+                try:
+                    fn()
+                except RuntimeError:
+                    continue
+                emit(op="sddmm_variant", **common, variant=variant,
+                     tile_rows=rows, ms=time_ms(fn))
+        if heights is not None:
+            sd_mod.SDDMM_TILE_ROWS = heights
+        del values, X, G
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--label", default="",
                         help="a name for this run, copied into each line")
+    parser.add_argument("--variants", action="store_true",
+                        help="time every CSR SpMM and SDDMM variant by name")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench_csr: no CUDA device; it times kernels on a card",
@@ -156,6 +214,9 @@ def main() -> int:
 
     for shape, n, k, (rowptr, colind) in cases:
         t = mv_mod.transpose_plan(rowptr, colind, n, n)
+        if args.variants:
+            sweep(emit, mods, shape, n, k, rowptr, colind, t, gen, device)
+            continue
         for name, dtype in DTYPES.items():
             size = (n,) if k == 1 else (n, k)
             values = torch.randn(colind.numel(), generator=gen, dtype=dtype,
@@ -177,7 +238,7 @@ def main() -> int:
                  library_ms=time_ms(lambda: lib @ X), max_abs_err=err,
                  variant=variants[0] if variants else None)
             # dvals
-            fn = dvals_fn(kernels, t, colind, G, X, n)
+            fn = dvals_fn(kernels, t, rowptr, colind, G, X, n)
             _, variants = ran(mods, fn)
             lib_ms = time_ms(lambda: torch.sparse.sampled_addmm(
                 lib, G if k > 1 else G[:, None],

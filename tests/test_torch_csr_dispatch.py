@@ -111,7 +111,8 @@ def test_spmv_variant_refuses_other_dtypes():
 def test_spmm_and_sddmm_variants(dtype, k, shift):
     """vector when a row is a whole number of 16-byte vectors and the
     operand starts on a 16-byte boundary (SpMM: in float32 only);
-    register (SpMM) / scalar (SDDMM) otherwise."""
+    register (SpMM) / rowwalk at k = 1, else scalar (SDDMM) otherwise.
+    (With no tile plan the staged variants are not in play.)"""
     itemsize = torch.empty(0, dtype=DTYPES[dtype]).element_size()
     X = _view(7 * k, DTYPES[dtype], shift).view(7, k)
     G = _view(5 * k, DTYPES[dtype], False).view(5, k)
@@ -119,6 +120,7 @@ def test_spmm_and_sddmm_variants(dtype, k, shift):
     vector_spmm = dtype == "float32" and whole and not shift
     assert csr_spmm_variant(X) == ("vector" if vector_spmm else "register")
     assert csr_sddmm_variant(G, X) == ("vector" if whole and not shift
+                                       else "rowwalk" if k == 1
                                        else "scalar")
     assert csr_sddmm_variant(X, G) == csr_sddmm_variant(G, X)
 
@@ -281,9 +283,12 @@ def test_sddmm_plain_matches_jax_grad(dtype, k):
     major = major_ids(tmat.rowptr, tmat.nse)
     got = csr_sddmm_plain(major, tmat.colind, torch.from_numpy(G),
                           torch.from_numpy(X), n)
-    wrapped = csr_sddmm(major, tmat.colind, torch.from_numpy(G),
+    wrapped = csr_sddmm(tmat.rowptr, tmat.colind, torch.from_numpy(G),
                         torch.from_numpy(X), n)
+    given = csr_sddmm(tmat.rowptr, tmat.colind, torch.from_numpy(G),
+                      torch.from_numpy(X), n, major=major)
     assert got.dtype == DTYPES[dtype] and torch.equal(got, wrapped)
+    assert torch.equal(got, given)
     aG, aX = np.abs(G).reshape(n, -1), np.abs(X).reshape(m, -1)
     rows = np.minimum(major.numpy(), n - 1)
     scale = np.einsum("pc,pc->p", aG[rows], aX[tmat.colind.numpy()])
@@ -368,16 +373,26 @@ def test_perm_is_checked():
 
 
 def test_sddmm_is_checked_and_refuses_meta():
+    rowptr = torch.tensor([0, 1, 2], dtype=torch.int32)
     major = torch.tensor([0, 1], dtype=torch.int32)
     colind = torch.tensor([1, 0], dtype=torch.int32)
     with pytest.raises(tsp.ShapeError):
-        csr_sddmm(major, colind, torch.ones(3, 2), torch.ones(2, 2), 2)
+        csr_sddmm(rowptr, colind, torch.ones(3, 2), torch.ones(2, 2), 2)
     with pytest.raises(tsp.ShapeError):
-        csr_sddmm(major, colind, torch.ones(2, 2), torch.ones(2, 3), 2)
+        csr_sddmm(rowptr, colind, torch.ones(2, 2), torch.ones(2, 3), 2)
+    with pytest.raises(tsp.ShapeError):
+        csr_sddmm(rowptr, colind, torch.ones(2), torch.ones(2), 2,
+                  major=major[:1])
     with pytest.raises(tsp.DTypeError):
-        csr_sddmm(major.long(), colind, torch.ones(2), torch.ones(2), 2)
+        csr_sddmm(rowptr.long(), colind, torch.ones(2), torch.ones(2), 2)
+    with pytest.raises(tsp.DTypeError):
+        csr_sddmm(rowptr, colind, torch.ones(2), torch.ones(2), 2,
+                  major=major.long())
+    with pytest.raises(ValueError, match="unknown csr_sddmm variant"):
+        csr_sddmm(rowptr, colind, torch.ones(2), torch.ones(2), 2,
+                  variant="tiled")
     with pytest.raises(ValueError, match="no csr_sddmm kernel for device"):
-        csr_sddmm(major.to("meta"), colind.to("meta"),
+        csr_sddmm(rowptr.to("meta"), colind.to("meta"),
                   torch.ones(2, device="meta"), torch.ones(2, device="meta"),
                   2)
 
