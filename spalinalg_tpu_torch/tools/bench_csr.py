@@ -18,6 +18,19 @@ prints one JSON line per product:
 - ``step``: a forward + backward step through autograd (``A @ x`` or
   ``A @ X`` with gradients to the values and the operand).
 
+``--spgemm`` times instead SpGEMM ``A·A`` in float32 and float64 on
+config[2]'s power-law matrix of ``chip_smoke.py`` (zipf 1.8 row lengths
+capped at 512, uniform columns, seed 1, n = 2**19) and on the 5-point
+Laplacian of a 512 x 512 grid (``lap2d``: 25 terms a row of C, every row
+in the ``rowwise`` variant's thread bin). With the plan cached, ``spgemm``
+is a whole product ``a * a`` and ``spgemm_numeric`` the numeric kernel
+alone as the package dispatches it (and each variant by name where the
+package has variants, ``op`` ``spgemm_variant``). ``spgemm_first`` (the
+power-law matrix) is the first ``a * a`` on fresh copies of its structure:
+host seconds with the symbolic phase and the plan's upload, the card's
+peak bytes above those allocated before it, and the bytes still held once
+the product is dropped (the cached plan).
+
 ``--variants`` times instead every variant of the package's CSR SpMM and
 SDDMM kernels, each named on purpose, at the same shapes (``op`` is
 ``spmm_variant``, ``spmm_at_variant`` for Aᵀ·X through the transpose's
@@ -45,6 +58,7 @@ import inspect
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -54,6 +68,8 @@ N_SPMM = 2**19
 ROW_NNZ = 32
 BAND = 16
 K = 64
+N_GEMM = 2**19
+LAP_K = 512
 LAUNCHES = 20
 STEPS = 5
 SPIN_CYCLES = 50_000_000   # about 25 ms on an H100
@@ -175,12 +191,109 @@ def sweep(emit, mods, shape, n, k, rowptr, colind, t, gen, device) -> None:
         torch.cuda.empty_cache()
 
 
+def power_law(sp, device, n: int = N_GEMM):
+    """config[2]'s matrix (``chip_smoke.power_law``) in both dtypes."""
+    rng = np.random.default_rng(1)
+    deg = np.minimum(rng.zipf(1.8, size=n), 512)
+    rowptr = np.concatenate([[0], np.cumsum(deg)])
+    colind = rng.integers(0, n, size=int(rowptr[-1]))
+    colind = colind[np.lexsort((colind, np.repeat(np.arange(n), deg)))]
+    values = rng.normal(size=colind.size)
+    ptr = torch.from_numpy(rowptr.astype(np.int32)).to(device)
+    ind = torch.from_numpy(colind.astype(np.int32)).to(device)
+    return {name: sp.CsrMatrix._from_parts(
+                n, n, ptr, ind, torch.from_numpy(values).to(device, dtype))
+            for name, dtype in DTYPES.items()}
+
+
+def laplacian5(sp, device, k: int = LAP_K):
+    """The 5-point Laplacian of a k x k grid (``chip_smoke.laplacian5``)
+    in both dtypes."""
+    n = k * k
+    i = np.arange(n, dtype=np.int64)
+    r, c = i // k, i % k
+    ok = np.stack([r > 0, c > 0, np.ones(n, dtype=bool), c < k - 1,
+                   r < k - 1], axis=1)
+    rowptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(ok.sum(axis=1), out=rowptr[1:])
+    colind = (i[:, None] + np.array([-k, -1, 0, 1, k]))[ok]
+    values = np.broadcast_to(np.array([-1.0, -1.0, 4.0, -1.0, -1.0]),
+                             ok.shape)[ok]
+    ptr = torch.from_numpy(rowptr.astype(np.int32)).to(device)
+    ind = torch.from_numpy(colind.astype(np.int32)).to(device)
+    return {name: sp.CsrMatrix._from_parts(
+                n, n, ptr, ind, torch.from_numpy(values).to(device, dtype))
+            for name, dtype in DTYPES.items()}
+
+
+def first_product(sp, a) -> dict:
+    """The first ``a * a`` on fresh copies of ``a``'s structure, for which
+    no plan is cached: host seconds (symbolic phase included), the card's
+    peak bytes above those allocated before, and the bytes still held once
+    the product is dropped."""
+    fresh = sp.CsrMatrix._from_parts(a.nrows, a.ncols, a.rowptr.clone(),
+                                     a.colind.clone(), a.values)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    c = fresh * fresh
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated() - base
+    del c
+    held = torch.cuda.memory_allocated() - base
+    return {"seconds": seconds, "peak_bytes": peak, "held_bytes": held}
+
+
+def spgemm(emit, sp, device) -> None:
+    """``a * a`` and its numeric kernel (``--spgemm``), plan cached; the
+    power-law matrix's first product."""
+    from spalinalg_tpu_torch.ops import spgemm as sg
+    from spalinalg_tpu_torch.ops.kernels import spgemm_numeric as nm
+
+    variants = list(getattr(nm, "VARIANT_LAUNCHES", {}))
+    for shape, mats in (("power_law", power_law(sp, device)),
+                        ("lap2d", laplacian5(sp, device))):
+        for name, a in mats.items():
+            spgemm_case(emit, sp, sg, nm, variants, shape, name, a)
+        del mats
+        torch.cuda.empty_cache()
+
+
+def spgemm_case(emit, sp, sg, nm, variants, shape, name, a) -> None:
+    """One matrix and dtype of :func:`spgemm`."""
+    plan = sg._cached_plan(a, a)
+    v = a.values
+    common = {"shape": shape, "n": a.nrows, "nnz": a.nnz,
+              "terms": int(plan.a_idx.numel()), "dtype": name}
+    if variants:
+        kernel = lambda: nm.spgemm_numeric(plan, v, v)  # noqa: E731
+    else:
+        kernel = lambda: nm.spgemm_numeric(  # noqa: E731
+            plan.tptr, plan.gid, plan.a_idx, plan.b_idx, v, v,
+            plan.n_out)
+    emit(op="spgemm", **common, ms=time_ms(lambda: a * a, STEPS))
+    emit(op="spgemm_numeric", **common, ms=time_ms(kernel))
+    for variant in variants:
+        emit(op="spgemm_variant", **common, variant=variant,
+             ms=time_ms(lambda: nm.spgemm_numeric(plan, v, v,
+                                                  variant=variant)))
+    del plan
+    torch.cuda.empty_cache()
+    if shape == "power_law":
+        emit(op="spgemm_first", **common, **first_product(sp, a))
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--label", default="",
                         help="a name for this run, copied into each line")
     parser.add_argument("--variants", action="store_true",
                         help="time every CSR SpMM and SDDMM variant by name")
+    parser.add_argument("--spgemm", action="store_true",
+                        help="time SpGEMM A·A on the config[2] matrix")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench_csr: no CUDA device; it times kernels on a card",
@@ -212,6 +325,9 @@ def main() -> int:
         print(json.dumps({"label": args.label, **row,
                           "package": sp.__file__, "card": card}), flush=True)
 
+    if args.spgemm:
+        spgemm(emit, sp, device)
+        return 0
     for shape, n, k, (rowptr, colind) in cases:
         t = mv_mod.transpose_plan(rowptr, colind, n, n)
         if args.variants:

@@ -276,8 +276,12 @@ def test_no_plain_torch_off_the_cpu():
     with pytest.raises(ValueError, match="no csr_spmm kernel for device"):
         csr_spmm(ptr, ind, val, torch.ones(2, 3, dtype=torch.float64,
                                            device="meta"), 2)
+    plan = tsp.SpgemmPlan(nrows=2, ncols=2, a_idx=ind, b_idx=ind, gid=ind,
+                          rowptr=ptr, colind=ind, n_out=2, tptr=ptr,
+                          nnz_a=2, nnz_b=2, a_ptr=ptr, a_col=ind, b_ptr=ptr,
+                          b_col=ind)
     with pytest.raises(ValueError, match="no spgemm_numeric kernel for device"):
-        spgemm_numeric(ptr, ind, ind, ind, val, val, 2)
+        spgemm_numeric(plan, val, val)
     blocks = torch.ones(2, 1, 1, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="no bsr_spmv kernel for device"):
         bsr_spmv(ptr, ind, blocks, x)

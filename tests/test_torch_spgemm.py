@@ -36,7 +36,8 @@ from spalinalg_tpu.ops.kernels.pair_route import (build_pair_route_plan,
 from spalinalg_tpu_torch.io import csr_from_arrays
 from spalinalg_tpu_torch.native import lib as native
 from spalinalg_tpu_torch.ops import spgemm as tsg
-from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import spgemm_numeric
+from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import (spgemm_numeric,
+                                                           spgemm_rows)
 
 
 @pytest.fixture(autouse=True)
@@ -131,9 +132,19 @@ def test_plan_equals_jax(case, path):
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(),
                                       np.asarray(getattr(jplan, field)))
-    gid = tplan.gid.numpy()
-    np.testing.assert_array_equal(
-        tplan.tptr.numpy(), np.searchsorted(gid, np.arange(tplan.n_out + 1)))
+    # the structures it was planned on, as views of the operands' arrays
+    for got, mat in ((tplan.a_ptr, ta._ptr), (tplan.a_col, ta._minor),
+                     (tplan.b_ptr, tb._ptr), (tplan.b_col, tb._minor)):
+        assert got is not mat and got.data_ptr() == mat.data_ptr()
+        assert torch.equal(got, mat)
+    # the slot pointers, and the row plan's term counts: the slots' term
+    # ranges, row by row
+    tptr = np.searchsorted(tplan.gid.numpy(), np.arange(tplan.n_out + 1))
+    np.testing.assert_array_equal(tplan.tptr.numpy(), tptr)
+    rowptr = tplan.rowptr.numpy()
+    rows = spgemm_rows(tplan.a_ptr, tplan.a_col, tplan.b_ptr, tplan.rowptr, 8)
+    np.testing.assert_array_equal(rows.terms.numpy(),
+                                  tptr[rowptr[1:]] - tptr[rowptr[:-1]])
 
 
 def test_native_and_numpy_symbolic_agree():
@@ -249,21 +260,28 @@ def test_padding_slots_get_no_gradient():
 
 
 def test_numeric_wrapper_checks():
-    z = torch.zeros(1, dtype=torch.int32)
-    e = torch.zeros(0, dtype=torch.int32)
+    import dataclasses
+
     v = torch.ones(3, dtype=torch.float64)
-    out = spgemm_numeric(z, e, e, e, v, v, 0)
-    assert out.shape == (0,) and out.dtype == torch.float64
-    with pytest.raises(tsp.ShapeError):
-        spgemm_numeric(torch.zeros(2, dtype=torch.int32), e, e, e, v, v, 0)
-    with pytest.raises(tsp.DTypeError):
-        spgemm_numeric(z.long(), e, e, e, v, v, 0)
-    half = spgemm_numeric(torch.tensor([0, 1], dtype=torch.int32),
-                          torch.zeros(1, dtype=torch.int32),
-                          torch.zeros(1, dtype=torch.int32),
-                          torch.zeros(1, dtype=torch.int32),
-                          v.bfloat16(), v.float(), 1)
+    # no product terms: n_out == 0
+    a = tsp.CsrMatrix(1, 2, [0, 1], [0], [1.0])
+    b = tsp.CsrMatrix(2, 1, [0, 0, 1], [0], [1.0])
+    empty = tsp.spgemm_plan(a, b)
+    out = spgemm_numeric(empty, v, v)
+    assert empty.n_out == 0 and out.shape == (0,) and out.dtype == torch.float64
+    with pytest.raises(tsp.ShapeError):   # rowptr for another row count
+        spgemm_numeric(dataclasses.replace(
+            empty, rowptr=torch.zeros(3, dtype=torch.int32)), v, v)
+    with pytest.raises(tsp.DTypeError):   # an int64 operand structure
+        spgemm_numeric(dataclasses.replace(empty, a_ptr=empty.a_ptr.long()),
+                       v, v)
+    one = tsp.spgemm_plan(*(tsp.CsrMatrix(1, 1, [0, 1], [0], [1.0]),) * 2)
+    half = spgemm_numeric(one, v.bfloat16(), v.float())
     assert half.dtype == torch.float32 and half.tolist() == [1.0]
+    with pytest.raises(tsp.ShapeError):   # values shorter than the operand
+        spgemm_numeric(one, v[:0], v)
+    with pytest.raises(ValueError, match="unknown spgemm_numeric variant"):
+        spgemm_numeric(one, v, v, variant="merge")
 
 
 # ------------------------------------------------------- whole products
