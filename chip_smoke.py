@@ -21,9 +21,16 @@ pass; each prints its seconds):
    columns per row) at n = 2**21 rows, 67,108,864 stored entries, in
    float32 and float64, through the same COO -> CSR path. The kernel is
    held against the plain version on the card, row by row, and must repeat
-   bitwise; the backward's Aᵀ·g through ``perm`` must equal the kernel on
-   the gathered values bitwise, and its dvals (the SDDMM kernel at k = 1)
-   the plain version; edge structures for both SpMV variants (rows of 0,
+   bitwise; the backward's Aᵀ·g (the bucket route: pass 1, the bucket
+   scatter of ``csrc/csr_transpose.cu``, bitwise its plain version, then
+   the kernel on the bucketed values) must equal bitwise the launch through
+   ``perm`` and the kernel on the gathered values, and repeat, and its
+   dvals (the SDDMM kernel at k = 1) the plain version; the bucket route's
+   edge structures (padding slots, empty columns, ncols below the block
+   width, a block a column, ncols not a multiple of the block width, a
+   column of 150,000 entries, no entries, values and G off 16 bytes; k =
+   1, 3, 64); edge
+   structures for both SpMV variants (rows of 0,
    1, 31, 32, 33, 4096 and 150,000 entries, padding slots holding values,
    colind, values and perm views off a 16-byte boundary, the perm path)
    and for both SDDMM variants (k in {1, 3, 4, 32, 64, 100}, padding
@@ -32,21 +39,29 @@ pass; each prints its seconds):
    name the SpMV variant that launched.
 4. SpMV times of kernel and plain version at the phase 3 shapes, in turns
    (plain, kernel, kernel, plain), and of torch's CSR product, each run of
-   launches queued behind a spin of the card; Aᵀ·g through ``perm``
-   against the gathered form; SDDMM at k = 1 beside
+   launches queued behind a spin of the card; Aᵀ·g four ways: the bucket
+   route (in turns with the next; it must be faster where dispatched),
+   through ``perm``, the gathered copy beside the gather, and
+   ``torch.sparse_csc_tensor @ g`` (each pass and the plain versions
+   beside them), and so Aᵀ·g and Aᵀ·G (k = 64) on phase 3's structure with
+   a column of 150,000 entries (the bucket route where a row of Aᵀ is
+   split); SDDMM at k = 1 beside
    ``torch.sparse.sampled_addmm``; SpMV on phase 7's power-law matrix and
    on a matrix with rows of 300,000 and 120,000 entries (the vector
    variant's long-row split), checked and timed.
 5. Where the SpMV time goes at the phase 3 shapes: ``csr @ x`` with
-   autograd on, a forward + backward step, the transpose build alone, and
-   a ``torch.profiler`` trace: device time per kernel name and idle share.
+   autograd on, a forward + backward step, the transpose build alone, the
+   bucket plan's build time and bytes and the step's peak memory, and a
+   ``torch.profiler`` trace: device time per kernel name and idle share.
 6. SpMM, BASELINE config[1] at k = 64: csr_random (32 columns per row from
    32 strata) and a banded matrix (offsets -16..16) at n = 2**19 rows, in
    float32 and float64, built from sorted host arrays with the validating
    constructor; ``csc @ X`` through the CSR mirror on csr_random. Kernel
    against plain version row by row, bitwise repeats, gradients against
-   the plain version's autograd, Aᵀ·G through ``perm`` and the SDDMM at
-   k = 64 against their plain forms; edge structures (empty rows, padding
+   the plain version's autograd, Aᵀ·G (the bucket route on csr_random,
+   ``perm`` on banded, each also the other named) bitwise as in phase 3,
+   and the SDDMM at k = 64 against its plain form; edge structures (empty
+   rows, padding
    slots holding values, k in {1, 3, 4, 32, 64, 100}, X on and off a
    16-byte boundary: both SpMM variants; the perm path).
 7. SpGEMM, BASELINE config[2]: ``A·A`` on ``bench.py``'s power-law
@@ -65,11 +80,13 @@ pass; each prints its seconds):
    at config[0]'s size against dense products.
 8. SpMM and SpGEMM times, in turns (plain, kernel, kernel, plain), every
    run and torch's CSR product behind the spin, csr_random and banded
-   each; SDDMM at k = 64 beside ``torch.sparse.sampled_addmm``; both
+   each; SDDMM at k = 64 beside ``torch.sparse.sampled_addmm``; Aᵀ·G on
+   both matrices as phase 4 times Aᵀ·g; both
    SpGEMM variants in turns, and ``torch.sparse_csr_tensor(A) @
    torch.sparse_csr_tensor(A)`` (timed only) as the library call.
 9. Where the SpMM and SpGEMM time goes: ``torch.profiler`` over a forward +
-   backward SpMM step and a SpGEMM numeric step.
+   backward SpMM step (csr_random: the bucket plan's bytes and the step's
+   peak memory) and a SpGEMM numeric step.
 10. BSR: tri128, ``bench.py``'s block-tridiagonal pattern of 128 x 128
     blocks at 4096 block rows (n = 524,288, 12,286 blocks, 201M stored
     values), generated on the card from a seeded generator, through the
@@ -242,7 +259,9 @@ the plain version's, the bound from compulsory bytes or operations, and the
 time of one PyTorch library call that computes the same function, or null
 where there is none; the rows of kernels with variants also the launches
 of each variant; banded8 has BSR rows of its own, the banded matrix CSR
-SpMM rows, and SDDMM at k = 1 rows beside its k = 64 ones; the CSR and BSR
+SpMM rows, and SDDMM at k = 1 rows beside its k = 64 ones; the backward's
+Aᵀ·g and Aᵀ·G have rows of their own, ``_at``, with the launches whose
+route was the bucket one, both routes' times and pass 1's; the CSR and BSR
 SpMV rows also the launches of phase 16's solvers, and the CSR SpMV,
 SpMM and SpGEMM rows those of phases 18-19; the CSR SpMV and SpMM,
 SpGEMM and BSR SpMV rows those of phase 20 as ``dist_launches``; the
@@ -283,6 +302,7 @@ from spalinalg_tpu_torch.ops.kernels import bsr_spmm as bsr_spmm_mod
 from spalinalg_tpu_torch.ops.kernels import bsr_spmv as bsr_spmv_mod
 from spalinalg_tpu_torch.ops.kernels import csr_sddmm as sddmm_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmm as spmm_mod
+from spalinalg_tpu_torch.ops.kernels import csr_transpose as transpose_mod
 from spalinalg_tpu_torch.ops.kernels import dia_spmv as dia_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmv as spmv_mod
 from spalinalg_tpu_torch.ops.kernels import spgemm_numeric as numeric_mod
@@ -334,6 +354,8 @@ KERNELS = {
     "csr_spmm": ("spalinalg_tpu_torch/csrc/csr_spmm.cu", spmm_mod.LAUNCHES),
     "csr_sddmm": ("spalinalg_tpu_torch/csrc/csr_sddmm.cu",
                   sddmm_mod.LAUNCHES),
+    "csr_transpose": ("spalinalg_tpu_torch/csrc/csr_transpose.cu",
+                      transpose_mod.LAUNCHES),
     "spgemm": ("spalinalg_tpu_torch/csrc/spgemm_numeric.cu",
                numeric_mod.LAUNCHES),
     "bsr_spmv": ("spalinalg_tpu_torch/csrc/bsr_spmv.cu",
@@ -349,12 +371,18 @@ KERNELS = {
 VARIANTS = {"csr_spmv": spmv_mod.VARIANT_LAUNCHES,
             "csr_spmm": spmm_mod.VARIANT_LAUNCHES,
             "csr_sddmm": sddmm_mod.VARIANT_LAUNCHES,
+            "csr_transpose": transpose_mod.VARIANT_LAUNCHES,
             "spgemm": numeric_mod.VARIANT_LAUNCHES,
             "bsr_spmv": bsr_spmv_mod.VARIANT_LAUNCHES,
             "bsr_spmm": bsr_spmm_mod.VARIANT_LAUNCHES}
 # dvals of both CSR backward passes: XLA code in the JAX package.
 SDDMM_REPLACES = ("spalinalg_tpu/ops/kernels/csr_route.py:1093 and :1364 "
                   "(XLA dvals; no Pallas kernel)")
+# dx and dX of both CSR backward passes: an XLA scatter-add in the JAX
+# package, which the Aᵀ·g and Aᵀ·G rows (the forward kernels on the
+# transposed structure) and pass 1 of their bucket route take the place of.
+AT_REPLACES = ("spalinalg_tpu/ops/kernels/csr_route.py:1096 and :1367 "
+               "(XLA scatter-add of dx, dX; no Pallas kernel)")
 REPLACES = {
     ("csr_spmv", "float32"): "spalinalg_tpu/ops/kernels/csr_route.py:930",
     ("csr_spmv", "float64"): "spalinalg_tpu/ops/kernels/csr_route_df.py:47",
@@ -362,6 +390,8 @@ REPLACES = {
     ("csr_spmm", "float64"): "spalinalg_tpu/ops/kernels/csr_route.py:1112",
     ("csr_sddmm", "float32"): SDDMM_REPLACES,
     ("csr_sddmm", "float64"): SDDMM_REPLACES,
+    ("csr_transpose", "float32"): AT_REPLACES,
+    ("csr_transpose", "float64"): AT_REPLACES,
     ("spgemm", "float32"): "spalinalg_tpu/ops/kernels/pair_route.py:473",
     ("spgemm", "float64"): "spalinalg_tpu/ops/kernels/pair_route.py:473",
     ("bsr_spmv", "float32"): "spalinalg_tpu/ops/kernels/bsr_stream.py:71",
@@ -375,17 +405,21 @@ REPLACES = {
     ("wide_gather", "float32"): "tools/probe_widegather.py:39",
 }
 # Launches of each main path: config[0] forward (f64); a forward, an Aᵀ·g
-# and a dvals (SDDMM) per SpMV matrix; a forward, an Aᵀ·G and a dvals for
-# each of csr_random, banded and csc @ X; one numeric phase per SpGEMM
+# and a dvals (SDDMM) per SpMV matrix, and pass 1 of the bucket route of its
+# Aᵀ·g; a forward, an Aᵀ·G and a dvals for each of csr_random, banded and
+# csc @ X, and pass 1 for the Aᵀ·G of csr_random and csc @ X (banded keeps
+# the perm route); one numeric phase per SpGEMM
 # dtype; a forward and an Aᵀ·g (Aᵀ·G) for each BSR matrix: tri128 in three dtypes, banded8 in two;
 # a forward and an Aᵀ·g for each DIA matrix, dia9 and lap3d, per dtype; the
 # probe's check, warm-up and timed launches.
 MAIN_LAUNCHES = {
     "config[0]": {"csr_spmv": {"float64": 1}},
     "SpMV": {"csr_spmv": {"float32": 2, "float64": 2},
-             "csr_sddmm": {"float32": 1, "float64": 1}},
+             "csr_sddmm": {"float32": 1, "float64": 1},
+             "csr_transpose": {"float32": 1, "float64": 1}},
     "SpMM": {"csr_spmm": {"float32": 6, "float64": 6},
-             "csr_sddmm": {"float32": 3, "float64": 3}},
+             "csr_sddmm": {"float32": 3, "float64": 3},
+             "csr_transpose": {"float32": 2, "float64": 2}},
     "SpGEMM": {"spgemm": {"float32": 1, "float64": 1}},
     "BSR bsr @ x": {"bsr_spmv": {"float32": 4, "bfloat16": 2, "float64": 4}},
     "BSR bsr @ X": {"bsr_spmm": {"float32": 4, "bfloat16": 2, "float64": 4}},
@@ -398,15 +432,19 @@ MAIN_LAUNCHES = {
 # Aᵀ·G per matrix and dtype) on csr_random and csc @ X the vector SpMM in
 # float32 and the register one in float64, on the banded matrix the staged
 # one in both; its dvals the vector SDDMM on csr_random and csc @ X, the
-# staged one on the banded matrix. SpGEMM: the terms variant in both
+# staged one on the banded matrix; the bucket scatter (pass 1) before each
+# Aᵀ·g and each Aᵀ·G but banded's. SpGEMM: the terms variant in both
 # dtypes (rowwise runs only where named). BSR paths, by matrix
 # (forward and Aᵀ·g in each dtype): the vector SpMV on both; the tiled SpMM
 # on tri128, the staged SpMM on banded8's 8 x 8 blocks.
 MAIN_VARIANTS = {
     "config[0]": {"csr_spmv": {"vector": 1}},
-    "SpMV": {"csr_spmv": {"vector": 4}, "csr_sddmm": {"rowwalk": 2}},
+    "SpMV": {"csr_spmv": {"vector": 2, "products": 2},
+             "csr_sddmm": {"rowwalk": 2},
+             "csr_transpose": {"scatter": 2}},
     "SpMM": {"csr_spmm": {"vector": 4, "register": 4, "staged": 4},
-             "csr_sddmm": {"vector": 4, "staged": 2}},
+             "csr_sddmm": {"vector": 4, "staged": 2},
+             "csr_transpose": {"scatter": 4}},
     "SpGEMM": {"spgemm": {"terms": 2}},
     "BSR bsr @ x": {"tri128": {"vector": 6}, "banded8": {"vector": 4}},
     "BSR bsr @ X": {"tri128": {"tiled": 6}, "banded8": {"staged": 4}},
@@ -422,7 +460,11 @@ EXTRA_ROWS = {("bsr_spmv", "banded8"): "banded8",
               ("csr_spmm", "banded"): "banded",
               ("csr_sddmm", "banded"): "banded",
               ("csr_sddmm", "k1"): "spmv"}
-CSR_KERNELS = ("csr_spmv", "csr_spmm", "csr_sddmm")
+# Kernels whose transposed product in the backward (Aᵀ·g, Aᵀ·G) has rows
+# of its own ("_at"), with the main-path launches that took the bucket
+# route (csr_random; for the SpMM also csc @ X).
+AT_ROWS = ("csr_spmv", "csr_spmm")
+CSR_KERNELS = ("csr_spmv", "csr_spmm", "csr_sddmm", "csr_transpose")
 # Kernels whose variants drive() checks against MAIN_VARIANTS.
 DRIVEN_VARIANTS = CSR_KERNELS + ("spgemm",)
 TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
@@ -735,27 +777,42 @@ def run_config0(device, csr0, x0, seen):
     return out
 
 
+def record_routes(seen, kname: str, shape: str, name: str, before) -> None:
+    """Add to ``seen[kname + "_at", shape, dtype]`` the backward passes
+    since ``before`` (a copy of ``transpose_mod.ROUTES``) whose transposed
+    product took the buckets or products route, by route."""
+    per = {r: n - before[r] for r, n in transpose_mod.ROUTES.items()
+           if r != "perm" and n != before[r]}
+    if per:
+        seen[f"{kname}_at", shape, name] = per
+
+
 def run_spmv(big, seen):
     """A forward and backward ``csr @ x`` per dtype; ``seen[kernel,
-    "spmv", dtype]`` gets the variants each dtype's step ran."""
+    "spmv", dtype]`` gets the variants each dtype's step ran, and
+    ``seen["csr_spmv_at", "spmv", dtype]`` its bucket-route Aᵀ·g."""
     out = {}
     for name, (csr, x, g) in big.items():
         before = variant_counts()
+        routes = dict(transpose_mod.ROUTES)
         values = csr.values.detach().clone().requires_grad_(True)
         xg = x.detach().clone().requires_grad_(True)
         y = csr.with_values(values) @ xg
         y.backward(g)
         out["spmv", name] = (y.detach(), values.grad, xg.grad)
         record_variants(seen, "spmv", name, before)
+        record_routes(seen, "csr_spmv", "spmv", name, routes)
     return out
 
 
 def run_spmm(mats, rhs, seen):
     """A forward and backward ``mat @ X`` per config[1] matrix;
-    ``seen[kernel, matrix, dtype]`` gets the variants each step ran."""
+    ``seen[kernel, matrix, dtype]`` gets the variants each step ran, and
+    ``seen["csr_spmm_at", matrix, dtype]`` its bucket-route Aᵀ·G."""
     out = {}
     for (mname, name), mat in mats.items():
         before = variant_counts()
+        routes = dict(transpose_mod.ROUTES)
         X, G = rhs[name]
         values = mat.values.detach().clone().requires_grad_(True)
         Xg = X.detach().clone().requires_grad_(True)
@@ -763,6 +820,7 @@ def run_spmm(mats, rhs, seen):
         Y.backward(G)
         out["spmm", mname, name] = (Y.detach(), values.grad, Xg.grad)
         record_variants(seen, mname, name, before)
+        record_routes(seen, "csr_spmm", mname, name, routes)
     return out
 
 
@@ -1362,6 +1420,35 @@ def print_profile(label: str, step, steps: int) -> None:
               f"launches/step  {kname[:90]}")
 
 
+def print_plan_bytes(label: str, rowptr, colind, ncols: int, values,
+                     step) -> None:
+    """The bucket plan's build time (host clock, reads back included) and
+    device bytes, the transient ``vb`` of a backward, and the peak device
+    bytes of one ``step`` above those allocated before it."""
+    nrows = rowptr.numel() - 1
+    t = transpose_plan(rowptr, colind, nrows, ncols)
+    itemsize = values.element_size()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = transpose_mod.build_bucket_plan(rowptr, colind, t.perm, ncols,
+                                           itemsize)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del plan
+    plan = transpose_mod.bucket_plan(rowptr, colind, t, ncols, itemsize)
+    free_memory()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"{label} bucket plan: built in {build_s:.4f} s; {plan.nbytes} "
+          f"device bytes (bperm {4 * plan.nse}, lpos {2 * plan.nse}, runs "
+          f"{plan.nbytes - 6 * plan.nse}), cached with the structure; vb "
+          f"{itemsize * plan.nse} bytes a backward (transient); a step's "
+          f"peak {peak} bytes above the {base} allocated before it")
+
+
 def where_the_time_goes(big, card: str) -> None:
     for name, (csr, x, g) in big.items():
         values = csr.values.detach().clone().requires_grad_(True)
@@ -1377,7 +1464,363 @@ def where_the_time_goes(big, card: str) -> None:
         print(f"phase 5: {name} csr @ x (autograd on) {fwd:.4f} ms; forward "
               f"+ backward {fwd_bwd:.4f} ms/step; transpose_structure "
               f"{build:.4f} ms | {card}")
+        print_plan_bytes(f"phase 5: {name}", csr.rowptr, csr.colind, N_BIG,
+                         values, step)
         print_profile(f"phase 5: {name}", step, PROFILED_STEPS)
+
+
+def transposed_product(kname: str):
+    """The backward's transposed product of a kernel, on a named route:
+    ``transposed_spmv`` (routes perm, buckets, products) or
+    ``transposed_spmm`` (perm, buckets)."""
+    return (spmv_mod.transposed_spmv if kname == "csr_spmv"
+            else spmm_mod.transposed_spmm)
+
+
+def dispatched_route(kname: str, rowptr, colind, t, ncols: int,
+                     itemsize: int) -> str:
+    """The route the backward of ``kname`` takes on this structure."""
+    if kname == "csr_spmv":
+        return spmv_mod.spmv_route(rowptr, colind, t, ncols, itemsize)
+    return spmm_mod.spmm_route(rowptr, colind, t, ncols, itemsize)
+
+
+def check_transposed(what: str, kname: str, rowptr, colind, values, G,
+                     ncols: int, main=None, route=None):
+    """The backward's transposed product ``Aᵀ·G`` of A = ``(rowptr, colind,
+    values)``: pass 1 (the bucket scatter, and for the SpMV the scatter of
+    the products ``values·g[row]``) bitwise its plain version and
+    repeatable, ``vb[bperm]`` bitwise ``values[perm]``; every route
+    (through perm, buckets, for the SpMV products where the transposed
+    structure splits no row, else the products kernel refuses it), the
+    kernel on the gathered copy and the dispatched route bitwise equal,
+    each twice, and to ``main`` (the main path's dx) where given; the
+    dispatched route is ``route`` where given. Returns the max |err|
+    against the plain version and pass 1's max |err| against its plain
+    version (for the pass the dispatched route runs)."""
+    nrows = rowptr.numel() - 1
+    t = transpose_plan(rowptr, colind, nrows, ncols)
+    itemsize = values.element_size()
+    got = dispatched_route(kname, rowptr, colind, t, ncols, itemsize)
+    if route is not None and got != route:
+        raise AssertionError(f"{what}: the backward takes the {got} route, "
+                             f"expected {route}")
+    plan = transpose_mod.bucket_plan(rowptr, colind, t, ncols, itemsize)
+    scale_by = ({"g": G, "major": t.major} if kname == "csr_spmv" else {})
+    pass1_err = {}
+    for kw in ({}, scale_by) if scale_by else ({},):
+        before = dict(transpose_mod.LAUNCHES)
+        vb = transpose_mod.bucket_values(values, plan, **kw)
+        if transpose_mod.LAUNCHES == before and plan.nse:
+            raise AssertionError(f"{what}: pass 1 did not launch")
+        plain = transpose_mod.bucket_values_plain(values, plan, **kw)
+        if not bitwise_equal(vb, plain,
+                             transpose_mod.bucket_values(values, plan, **kw)):
+            raise AssertionError(f"{what}: pass 1{' (products)' if kw else ''}"
+                                 " differs from its plain version or from "
+                                 "run to run")
+        err = (vb - plain).abs()
+        pass1_err["products" if kw else "buckets"] = (
+            float(err.max()) if err.numel() else 0.0)
+        del plain, err
+    vb = transpose_mod.bucket_values(values, plan)
+    gathered = values[t.perm]
+    if not torch.equal(vb[plan.bperm], gathered):
+        raise AssertionError(f"{what}: vb[bperm] differs from values[perm]")
+    kern = csr_spmv if kname == "csr_spmv" else csr_spmm
+    product = transposed_product(kname)
+    outs = {"through perm": kern(t.ptr, t.minor, values, G, ncols,
+                                 perm=t.perm),
+            "gathered copy": kern(t.ptr, t.minor, gathered, G, ncols),
+            "named plan": kern(t.ptr, t.minor, vb, G, ncols,
+                               perm=plan.bperm)}
+    routes = ["perm", "buckets"]
+    if kname == "csr_spmv":
+        if spmv_mod.csr_spmv_plan(t.ptr).npieces == 0:
+            routes.append("products")
+        else:
+            try:
+                spmv_mod.csr_spmv_products(t.ptr, t.minor, vb, ncols,
+                                           perm=plan.bperm)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"{what}: the products kernel took rows "
+                                     "it would split")
+    for r in routes:
+        outs[f"{r} route"] = product(rowptr, colind, t, values, G, ncols,
+                                     route=r)
+        outs[f"{r} route again"] = product(rowptr, colind, t, values, G,
+                                           ncols, route=r)
+    outs[f"dispatched ({got})"] = product(rowptr, colind, t, values, G, ncols)
+    if main is not None:
+        outs["main path"] = main
+    first = outs["through perm"]
+    for way, out in outs.items():
+        if not torch.equal(first, out):
+            raise AssertionError(f"{what}: Aᵀ·G on the {way} differs bitwise "
+                                 "from the launch through perm")
+    plain = csr_spmv_plain(t.ptr, t.minor, gathered, G, ncols)
+    scale = csr_spmv_plain(t.ptr, t.minor, values.abs()[t.perm], G.abs(),
+                           ncols)
+    err = (first - plain).abs()
+    within(err, scale, TOL["float64" if values.dtype == torch.float64
+                           else "float32"], f"{what} Aᵀ·G")
+    return (float(err.max()) if err.numel() else 0.0,
+            pass1_err["products" if got == "products" else "buckets"])
+
+
+def split_column_matrix(device):
+    """``(rowptr, colind, ncols)``: 2**20 rows of eight random columns on
+    average (Poisson) and a column, 777, of 150,000 entries: its block is
+    past BUCKET_BYTES, the transposed SpMV plan splits its row, the SpMM
+    walks that row in one warp, and the values, 34 / 68 MB, fit the L2 in
+    float32 and not in float64."""
+    rng = np.random.default_rng(16)
+    n = 2**20
+    lens = rng.poisson(8, size=n)
+    lens[:150_000] += 1
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    cols = rng.integers(0, n, size=int(ptr[-1]))
+    cols[ptr[:150_000]] = 777
+    return (on_card(ptr.astype(np.int32), device=device),
+            on_card(cols.astype(np.int32), device=device), n)
+
+
+def few_columns_matrix(nrows: int, ncols: int, per_row: int, pad: int,
+                       seed: int, device):
+    """``(rowptr, colind, ncols)``: ``nrows`` rows of ``per_row`` distinct
+    columns below ``ncols - 1`` (the last column empty), and ``pad``
+    padding slots. So many entries a column that bucket_width gives
+    narrow blocks."""
+    rng = np.random.default_rng(seed)
+    cols = np.argsort(rng.random((nrows, ncols - 1)), axis=1)[:, :per_row]
+    cols = np.concatenate([np.sort(cols, axis=1).ravel(),
+                           rng.integers(0, ncols, size=pad)])
+    ptr = np.arange(nrows + 1) * per_row
+    return (on_card(ptr.astype(np.int32), device=device),
+            on_card(cols.astype(np.int32), device=device), ncols)
+
+
+def transpose_edge_matrices(device):
+    """``(what, rowptr, colind, ncols, routes, widths)`` for the bucket
+    route's edge structures, each with the route its backward must take
+    (one for every kernel and dtype, or a dict by (kernel, dtype)) and,
+    where it matters, the block widths bucket_width must give in float32
+    and float64: padding slots
+    holding values and empty columns with ncols below the block width; 4
+    columns (the last empty) of 300,000 entries each, where bucket_width
+    gives a block a column in both dtypes; 5 columns of 120,000 entries
+    each, where it gives blocks of 4 (float32) and 2 (float64) columns, so
+    ncols is not a multiple of the width; split_column_matrix (its block
+    past BUCKET_BYTES; the SpMV's values fit the L2 in float32, perm, and
+    not in float64, buckets; the SpMM keeps perm, one row bounding its
+    launch); no entries, with and without padding slots. Every route is
+    also run by name."""
+    rng = np.random.default_rng(16)
+    n, m = 3000, 5001
+    lens = rng.poisson(6, size=n)
+    lens[::5] = 0
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    cols = (2 * rng.integers(0, m // 2, size=int(ptr[-1]) + 37)).astype(
+        np.int32)           # odd columns empty; 37 padding slots
+    yield ("padding slots, empty columns, ncols < W",
+           on_card(ptr, device=device), on_card(cols, device=device), m,
+           "perm", (8192, 8192))
+    yield ("padding slots, an empty column, a block a column (W = 1)",
+           *few_columns_matrix(400_000, 4, 3, 37, 18, device), "perm",
+           (1, 1))
+    yield ("padding slots, ncols = 5 not a multiple of W (4 f32, 2 f64)",
+           *few_columns_matrix(150_000, 5, 4, 11, 19, device), "perm",
+           (4, 2))
+    yield ("a column of 150,000 entries", *split_column_matrix(device),
+           {("csr_spmv", "float32"): "perm",
+            ("csr_spmv", "float64"): "buckets",
+            ("csr_spmm", "float32"): "perm",
+            ("csr_spmm", "float64"): "perm"},
+           None)
+    for pad in (0, 5):
+        yield (f"no entries, {pad} padding slots",
+               torch.zeros(41, dtype=torch.int32, device=device),
+               torch.zeros(pad, dtype=torch.int32, device=device), 40, "perm",
+               None)
+
+
+def transpose_edge_structures(device) -> None:
+    """The bucket route (check_transposed) on transpose_edge_matrices, in
+    both dtypes, for Aᵀ·g and Aᵀ·G at k = 3 and 64, with the values and G
+    on and off a 16-byte boundary (pass 1's scalar loads); the block width
+    each plan took is printed, and must be the one the structure names."""
+    rng = np.random.default_rng(17)
+    for what, rowptr, colind, ncols, routes, want in transpose_edge_matrices(
+            device):
+        nrows = rowptr.numel() - 1
+        nse = colind.numel()
+        t = transpose_plan(rowptr, colind, nrows, ncols)
+        widths = {}
+        for name, (np_dtype, dtype) in DTYPES.items():
+            vals = rng.normal(size=nse).astype(np_dtype)
+            widths[name] = transpose_mod.bucket_plan(
+                rowptr, colind, t, ncols, np_dtype().itemsize).width
+            for shift in (False, True):
+                values = on_card(vals, shift=shift, device=device)
+                label = (f"{name} transpose edge structure, {what}"
+                         + (", values and G off 16 bytes" if shift else ""))
+                for k in (None, 3, 64):
+                    shape = (nrows,) if k is None else (nrows, k)
+                    G = on_card(rng.normal(size=shape).astype(np_dtype),
+                                shift=shift, device=device)
+                    kname = "csr_spmv" if k is None else "csr_spmm"
+                    check_transposed(f"{label}, k={k or 1}", kname, rowptr,
+                                     colind, values, G, ncols,
+                                     route=routes if isinstance(routes, str)
+                                     else routes[kname, name])
+                    del G
+            del values
+        if want is not None and tuple(widths.values()) != want:
+            raise AssertionError(f"{what}: block widths {widths}, expected "
+                                 f"{want}")
+        if nse == 0:
+            before = dict(transpose_mod.LAUNCHES)
+            plan = transpose_mod.bucket_plan(rowptr, colind, t, ncols, 8)
+            transpose_mod.bucket_values(
+                torch.zeros(0, dtype=torch.float64, device=device), plan)
+            if transpose_mod.LAUNCHES != before:
+                raise AssertionError("pass 1 launched on no slots")
+        print(f"phase 3: transpose edge structure, {what}: {nse} slots, "
+              f"ncols {ncols}, block widths {widths['float32']} (float32) / "
+              f"{widths['float64']} (float64)")
+        del t
+    free_memory()
+
+
+def time_transposed(what: str, kname: str, rowptr, colind, values, G,
+                    ncols: int, nbytes: float, card: str) -> dict:
+    """The backward's transposed product four ways, behind the spin: the
+    dispatched route (in turns with the launch through perm; it must be
+    faster where it is not that launch), through perm, the kernel on the
+    gathered copy beside the gather ``values[perm]``, and the library call
+    ``torch.sparse_csc_tensor(rowptr, colind, values) @ G`` (Aᵀ with no
+    copy); also every other route, each pass, the plain version and pass
+    1's. Returns the Aᵀ row's and pass 1's numbers (``nbytes``: the
+    function's bytes, the forward's count)."""
+    kern = csr_spmv if kname == "csr_spmv" else csr_spmm
+    product = transposed_product(kname)
+    nrows = rowptr.numel() - 1
+    t = transpose_plan(rowptr, colind, nrows, ncols)
+    itemsize = values.element_size()
+    name = "float64" if values.dtype == torch.float64 else "float32"
+    route = dispatched_route(kname, rowptr, colind, t, ncols, itemsize)
+    plan = transpose_mod.bucket_plan(rowptr, colind, t, ncols, itemsize)
+    d_ms, p_ms, (p1, d1, d2, p2) = turns(
+        lambda: product(rowptr, colind, t, values, G, ncols, route=route),
+        lambda: product(rowptr, colind, t, values, G, ncols, route="perm"),
+        TIMED_LAUNCHES, TIMED_LAUNCHES, spin=True)
+    if route != "perm" and d_ms >= p_ms:
+        raise AssertionError(f"{what}: the dispatched {route} route "
+                             f"({d_ms:.4f} ms) is not faster than through "
+                             f"perm ({p_ms:.4f} ms)")
+    vb = transpose_mod.bucket_values(values, plan)
+    gathered = values[t.perm]
+    ways = {"pass 1": lambda: transpose_mod.bucket_values(values, plan),
+            "pass 2": lambda: kern(t.ptr, t.minor, vb, G, ncols,
+                                   perm=plan.bperm),
+            "gathered copy": lambda: kern(t.ptr, t.minor, gathered, G, ncols),
+            "gather values[perm]": lambda: values[t.perm]}
+    for r in ("buckets", "products"):
+        if r != route and (r == "buckets" or kname == "csr_spmv"
+                           and spmv_mod.csr_spmv_plan(t.ptr).npieces == 0):
+            ways[f"{r} route"] = (lambda r=r: product(
+                rowptr, colind, t, values, G, ncols, route=r))
+    if kname == "csr_spmv":
+        ways["pass 1 (products)"] = lambda: transpose_mod.bucket_values(
+            values, plan, g=G, major=t.major)
+    ms = {way: time_ms(fn, TIMED_LAUNCHES, spin=True)
+          for way, fn in ways.items()}
+    del gathered, vb
+    plain_ms = time_ms(lambda: csr_spmv_plain(t.ptr, t.minor, values[t.perm],
+                                              G, ncols),
+                       PLAIN_SPMM_LAUNCHES, spin=True)
+    pass1 = "pass 1 (products)" if route == "products" else "pass 1"
+    pass1_plain_ms = time_ms(
+        lambda: transpose_mod.bucket_values_plain(
+            values, plan, **({"g": G, "major": t.major}
+                             if route == "products" else {})),
+        PLAIN_SPMM_LAUNCHES, spin=True)
+    free_memory()
+    nnz = int(rowptr[-1])
+    lib = torch.sparse_csc_tensor(rowptr, colind[:nnz], values[:nnz],
+                                  (ncols, nrows))
+    rhs = G if G.ndim == 2 else G[:, None]
+    lib_ms = library_ms(lambda: lib @ rhs, spin=True)
+    diff = float(((lib @ rhs).reshape(-1) - product(
+        rowptr, colind, t, values, G, ncols).reshape(-1)).abs().max())
+    del lib
+    free_memory()
+    others = "; ".join(f"{way} {v:.4f}" for way, v in ms.items())
+    print(f"phase 4/8: {what} {'Aᵀ·g' if G.ndim == 1 else 'Aᵀ·G'}: "
+          f"dispatched ({route} route) {d_ms:.4f} ms; through perm "
+          f"{p_ms:.4f}; gathered copy {ms['gathered copy']:.4f} + the gather "
+          f"values[perm] {ms['gather values[perm]']:.4f}; library "
+          f"torch.sparse_csc_tensor @ G {lib_ms:.4f} (max |diff| "
+          f"{diff:.3e}); plain {plain_ms:.4f} | {card}")
+    print(f"phase 4/8: {what} transposed, each alone (ms): {others}")
+    print(f"phase 4/8: {what} transposed turns (ms): perm {p1:.4f}, {route} "
+          f"{d1:.4f}, {route} {d2:.4f}, perm {p2:.4f}")
+    runs = plan.run_start.numel()
+    # The function of pass 1: read the values and the plan's places (lpos
+    # and the runs), write vb; for the products also read g and the rows,
+    # which rowptr gives (the kernel reads the transpose's major, 4 bytes a
+    # slot, instead).
+    pass1_bytes = ((2 * itemsize + 2) * plan.nse
+                   + 4 * (plan.nslab + 1 + 2 * runs)
+                   + (itemsize * nrows + 4 * (nrows + 1)
+                      if route == "products" else 0))
+    at = dict(ms=d_ms, plain_ms=plain_ms, library_ms=lib_ms,
+              dispatched=route, perm_ms=p_ms,
+              **{f"{way.replace(' ', '_')}_ms": v for way, v in ms.items()
+                 if way.endswith("route")},
+              pass1_ms=ms[pass1], pass2_ms=ms["pass 2"],
+              gathered_ms=ms["gathered copy"],
+              gather_ms=ms["gather values[perm]"],
+              **bound(nbytes, 2 * nnz * (1 if G.ndim == 1 else G.shape[1]),
+                      name))
+    pass1_row = dict(ms=ms[pass1], plain_ms=pass1_plain_ms,
+                     library_ms=None, plan_bytes=plan.nbytes,
+                     width=plan.width, **bound(pass1_bytes, 0, name))
+    print(f"phase 4/8: {what} {pass1} (bucket scatter, {plan.nblocks} blocks "
+          f"of {plan.width} columns, {runs} runs): {ms[pass1]:.4f} ms, plain "
+          f"{pass1_plain_ms:.4f} ms, bound {pass1_row['bound_ms']:.4f} ms "
+          f"({pass1_bytes} bytes, "
+          f"{100 * pass1_row['bound_ms'] / ms[pass1]:.1f} % of it); plan "
+          f"{plan.nbytes} device bytes | {card}")
+    return {"at": at, "pass1": pass1_row}
+
+
+def time_split_column(device, card: str) -> None:
+    """The transposed products on split_column_matrix, the structure of
+    phase 3 whose Aᵀ has a row the SpMV splits and the SpMM walks in one
+    warp: time_transposed for Aᵀ·g and for Aᵀ·G at k = 64, in both dtypes
+    (each route; a dispatched bucket route must be faster than through
+    perm)."""
+    rowptr, colind, n = split_column_matrix(device)
+    nnz = colind.numel()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(21)
+    for name, (_, dtype) in DTYPES.items():
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        values = torch.randn(nnz, generator=gen, dtype=dtype, device=device)
+        for k in (1, K_MM):
+            G = torch.randn((n,) if k == 1 else (n, k), generator=gen,
+                            dtype=dtype, device=device)
+            nbytes = ((itemsize + 4) * nnz + itemsize * k * 2 * n
+                      + 4 * (n + 1))
+            time_transposed(f"{name} a column of 150,000 entries, n={n} "
+                            f"k={k}", "csr_spmv" if k == 1 else "csr_spmm",
+                            rowptr, colind, values, G, n, nbytes, card)
+            del G
+        del values
+    free_memory()
 
 
 def check_spmv(big, main_out, report) -> None:
@@ -1406,13 +1849,16 @@ def check_spmv(big, main_out, report) -> None:
         within((dx - dx_p).abs(), scale_dx, tol, f"{name} dx")
         within((dvals - dvals_p).abs(), (g[rows] * x[cols]).abs(), tol,
                f"{name} dvals")
-        # The backward's Aᵀ·g reads the values through the transpose's
-        # perm: bitwise the kernel on the gathered copy.
+        # The backward's Aᵀ·g (the bucket route) is bitwise the kernel
+        # through perm and on the gathered copy.
         t = transpose_plan(rowptr, colind, N_BIG, N_BIG)
         if not torch.equal(dx, csr_spmv(t.ptr, t.minor, values[t.perm], g,
                                         N_BIG)):
-            raise AssertionError(f"{name}: Aᵀ·g through perm differs from "
-                                 "the kernel on the gathered values")
+            raise AssertionError(f"{name}: Aᵀ·g differs from the kernel on "
+                                 "the gathered values")
+        at_err, pass1_err = check_transposed(
+            f"{name} csr_random", "csr_spmv", rowptr, colind, values, g,
+            N_BIG, main=dx, route="products")
         sd = csr_sddmm(rowptr, colind, g, x, N_BIG)
         sd_err = (sd - csr_sddmm_plain(t.major, colind, g, x, N_BIG)).abs()
         within(sd_err, (g[rows] * x[cols]).abs(), tol, f"{name} SDDMM k=1")
@@ -1420,12 +1866,18 @@ def check_spmv(big, main_out, report) -> None:
             raise AssertionError(f"{name}: SDDMM differs from the main "
                                  "path's dvals")
         report["csr_spmv", name] = {"max_abs_err": float(err.max())}
+        report["csr_spmv", f"{name}_at"] = {"max_abs_err": at_err}
+        report["csr_transpose", name] = {"max_abs_err": pass1_err}
         report["csr_sddmm", f"{name}_k1"] = {
             "max_abs_err": float(sd_err.max())}
         print(f"phase 3: {name}: kernel == plain within {tol}*(|A||x|) row by "
               f"row (max |err| {float(err.max()):.3e}); bitwise repeatable; "
-              f"dx and dvals match the plain autograd; Aᵀ·g through perm "
-              f"bitwise equal to the gathered form; SDDMM k=1 == plain "
+              f"dx and dvals match the plain autograd; Aᵀ·g (products route, "
+              f"max |err| {at_err:.3e}) bitwise equal to the main path's dx, "
+              f"through perm, on the buckets and the gathered copy, and run "
+              f"to run; pass 1 bitwise its plain version (max |err| "
+              f"{pass1_err:.3e}); "
+              f"SDDMM k=1 == plain "
               f"(max |err| {float(sd_err.max()):.3e})")
         del y_p, scale, y1, y2, v_p, x_p, dvals_p, dx_p, rows, cols, scale_dx
         del sd, sd_err
@@ -1434,6 +1886,12 @@ def check_spmv(big, main_out, report) -> None:
           "31, 32, 33, 4096 and 150,000 entries; padding with values; "
           "colind, values and perm off 16 bytes; the perm path; no "
           "entries): kernel == plain in float32 and float64, both variants")
+    transpose_edge_structures(big["float32"][0].device)
+    print("phase 3: bucket-route edge structures (padding slots, empty "
+          "columns, ncols < W, W = 1, ncols not a multiple of W, a column "
+          "of 150,000 entries, no entries; values and G off 16 bytes; k = "
+          "1, 3, 64): pass 1 == plain, Aᵀ·g and Aᵀ·G bitwise through perm, "
+          "on every route and the gathered copy, in float32 and float64")
     sddmm_edge_structures(big["float32"][0].device)
     print("phase 3: SDDMM edge structures (padding slots, k in "
           f"{', '.join(map(str, SPMM_EDGE_KS))}, G off 16 bytes, no slots): "
@@ -1550,18 +2008,11 @@ def time_spmv(big, report, card: str) -> None:
                   f"| {card}")
         print(f"phase 4: {name} turns (ms): plain {p1:.4f}, kernel {k1:.4f}, "
               f"kernel {k2:.4f}, plain {p2:.4f}")
-        t = transpose_plan(rowptr, colind, N_BIG, N_BIG)
-        gathered = values[t.perm]
-        perm_ms = time_ms(lambda: csr_spmv(t.ptr, t.minor, values, g, N_BIG,
-                                           perm=t.perm), TIMED_LAUNCHES,
-                          spin=True)
-        gath_ms = time_ms(lambda: csr_spmv(t.ptr, t.minor, gathered, g,
-                                           N_BIG), TIMED_LAUNCHES, spin=True)
-        copy_ms = time_ms(lambda: values[t.perm], TIMED_LAUNCHES, spin=True)
-        del gathered
-        print(f"phase 4: {name} Aᵀ·g: through perm {perm_ms:.4f} ms; on the "
-              f"gathered copy {gath_ms:.4f} ms + the gather values[perm] "
-              f"{copy_ms:.4f} ms | {card}")
+        timed = time_transposed(f"{name} csr_random n={N_BIG}", "csr_spmv",
+                                rowptr, colind, values, g, N_BIG, nbytes,
+                                card)
+        report["csr_spmv", f"{name}_at"].update(timed["at"])
+        report["csr_transpose", name].update(timed["pass1"])
         lib = torch.sparse_csr_tensor(rowptr, colind, values, (N_BIG, N_BIG))
         lib_ms = library_ms(lambda: lib @ x, spin=True)
         diff = (lib @ x - csr_spmv(rowptr, colind, values, x, N_BIG)).abs()
@@ -1575,6 +2026,7 @@ def time_spmv(big, report, card: str) -> None:
         report["csr_sddmm", f"{name}_k1"].update(time_sddmm(
             rowptr, colind, g, x, N_BIG, f"{name} csr_random n={N_BIG}",
             card))
+    time_split_column(big["float32"][0].device, card)
 
 
 def long_row_matrix(np_dtype, device):
@@ -1671,8 +2123,11 @@ def check_spmm(mats, rhs, main_out, report) -> None:
         within((dvals - dvals_p).abs(), dvals_scale, tol, f"{what} dvals")
         if not torch.equal(dX, csr_spmm(t.ptr, t.minor, values[t.perm], G,
                                         N_MM)):
-            raise AssertionError(f"{what}: Aᵀ·G through perm differs from "
-                                 "the kernel on the gathered values")
+            raise AssertionError(f"{what}: Aᵀ·G differs from the kernel on "
+                                 "the gathered values")
+        at_err, _ = check_transposed(
+            what, "csr_spmm", rowptr, colind, values, G, N_MM, main=dX,
+            route="buckets" if mname == "random" else "perm")
         sd = csr_sddmm(rowptr, colind, G, X, N_MM)
         sd_err = (sd - csr_sddmm_plain(t.major, colind, G, X, N_MM)).abs()
         within(sd_err, dvals_scale, tol, f"{what} SDDMM k={K_MM}")
@@ -1690,6 +2145,7 @@ def check_spmm(mats, rhs, main_out, report) -> None:
                     or not bitwise_equal(dvals_c[mirror.perm], dvals):
                 raise AssertionError(f"{name}: csc @ X differs from csr @ X")
             report["csr_spmm", name] = {"max_abs_err": max_err}
+            report["csr_spmm", f"{name}_at"] = {"max_abs_err": at_err}
             report["csr_sddmm", name] = {"max_abs_err": float(sd_err.max())}
         else:
             report["csr_spmm", f"{name}_{mname}"] = {"max_abs_err": max_err}
@@ -1699,8 +2155,10 @@ def check_spmm(mats, rhs, main_out, report) -> None:
         print(f"phase 6: {what} n={N_MM} nnz={mat.nnz} k={K_MM}: kernel == "
               f"plain within {tol}*(|A||X|) entry by entry (max |err| "
               f"{max_err:.3e}); bitwise repeatable; dX and dvals match the "
-              f"plain autograd; Aᵀ·G through perm bitwise equal to the "
-              f"gathered form; SDDMM k={K_MM} == plain and == dvals"
+              f"plain autograd; Aᵀ·G ({'bucket' if mname == 'random' else 'perm'}"
+              f" route, max |err| {at_err:.3e}) bitwise equal to the bucket "
+              f"route, through perm, the gathered copy, and run to run; "
+              f"SDDMM k={K_MM} == plain and == dvals"
               + ("; csc @ X through the mirror bitwise equal to csr @ X"
                  if mname == "random" else ""))
     spmm_edge_structures(X.device)
@@ -2107,6 +2565,13 @@ def time_spmm_spgemm(mats, rhs, gemm, plan, report, card: str) -> None:
         G = rhs[name][1]
         report["csr_sddmm", row].update(time_sddmm(
             rowptr, colind, G, X, N_MM, f"{name} {mname} n={N_MM}", card))
+        # the backward's Aᵀ·G on both matrices (banded: the perm route)
+        timed = time_transposed(f"{name} {mname} n={N_MM} k={K_MM}",
+                                "csr_spmm", rowptr, colind, values, G, N_MM,
+                                nbytes, card)
+        if mname == "random":
+            report["csr_spmm", f"{name}_at"].update(timed["at"])
+        free_memory()
     time_spgemm(gemm, plan, report, card)
 
 
@@ -2122,6 +2587,9 @@ def profile_spmm_spgemm(mats, rhs, gemm, card: str) -> None:
             time_ms(step, 2)
             print(f"phase 9: {name} {label} SpMM k={K_MM} forward + backward "
                   f"{time_ms(step, 3):.4f} ms/step | {card}")
+            if mname == "random":
+                print_plan_bytes(f"phase 9: {name} {label}", mat.rowptr,
+                                 mat.colind, N_MM, values, step)
             print_profile(f"phase 9: {name} {label} SpMM fwd+bwd", step, 3)
             del values, Xg, m
         a, _ = gemm[name]
@@ -4648,6 +5116,14 @@ def kernel_line(launches, report, seen, solver_launches,
                          "launches": sum(per.values()),
                          **report[kname, f"{name}_{suffix}"],
                          "variants": per})
+    for kname in AT_ROWS:
+        for name in ("float32", "float64"):
+            per = variants(f"{kname}_at", name)
+            rows.append({"name": f"{kname}_{name}_at", "route": "cuda",
+                         "source": KERNELS[kname][0],
+                         "replaces": AT_REPLACES,
+                         "launches": sum(per.values()),
+                         **report[kname, f"{name}_at"], "routes": per})
     return rows
 
 

@@ -4,7 +4,9 @@
 //
 // with q(p) = p, or q(p) = perm[p] when a perm array is given (the
 // backward's Aᵀ·G reads the forward's values through the cached transpose
-// permutation instead of a gathered copy). X is (ncols, k) and Y is
+// permutation, or the values bucketed by column block through bperm:
+// csr_transpose.cu's bucket route; not a gathered copy). X is (ncols, k)
+// and Y is
 // (nrows, k), both row-major and contiguous.
 //
 // Replaces the two Pallas kernels of the JAX package's CSR SpMM:

@@ -3,8 +3,10 @@
 //   y[i] = sum over p in [rowptr[i], rowptr[i+1]) of values[q(p)] * x[colind[p]]
 //
 // with q(p) = p, or q(p) = perm[p] when a perm array is given: the
-// backward's Aᵀ·g reads the forward's values through the cached transpose
-// permutation instead of a gathered copy of them.
+// backward's Aᵀ·g runs on the cached transpose and reads the forward's
+// values through its permutation, or (the bucket route, csr_transpose.cu)
+// the values bucketed by column block through bperm, instead of a
+// gathered copy of them.
 //
 // Replaces the four Pallas kernels of the JAX package's CSR SpMV:
 //   spalinalg_tpu/ops/kernels/csr_route.py     _route_kernel       (f32)
@@ -62,16 +64,27 @@
 // mean row length; each lane strides over the row by L, one entry (three
 // dependent loads) at a time, and a fixed __shfl_down_sync tree ends it.
 //
+// products (x == nullptr; the vector variant, on a structure that splits no
+// row). The values are the products already: the SpMV backward's
+// "products" route (csr_transpose.cu) hands the kernel values[p]·g[row p]
+// bucketed by column block, read through bperm. The window warps stage
+// them as they are, where the other instance stages values·x, and sum them
+// in the same order: the same bits, with no column id read and no gather
+// of x. The piece path would fuse the products into its sum (an FMA), so
+// this instance has none and the entry point refuses a plan with pieces.
+//
 // Both: no atomics, and the summation order depends only on the structure
 // (and L), so a result is bitwise the same from run to run. Every row is
 // written, an empty row with 0. Slots past rowptr[nrows] are never read.
 // Registers (ptxas -v, nvcc 12.9, sm_90a), no spills in any instance: the
 // window/piece kernel 40 (float) and 48 (double), with 18.7 / 37.4 KB of
-// shared memory a block; the scalar kernel 32; the finishing kernel 31 / 28.
+// shared memory a block, its products instance 40 / 44; the scalar kernel
+// 32; the finishing kernel 31 / 28.
 //
 // C interface: one entry point per type. Each launches on the given stream,
 // allocates nothing, does not synchronise, and returns cudaGetLastError(),
-// or cudaErrorInvalidValue for arguments the variant does not take.
+// or cudaErrorInvalidValue for arguments the variant does not take (x ==
+// nullptr: the products instance).
 // nrows == 0 launches nothing (a grid of 0 blocks is a launch error); the
 // caller handles a matrix with no stored slots.
 
@@ -176,13 +189,16 @@ __device__ __forceinline__ void stage_quad(double* sm, int o, double a,
 // 16-byte vectors, two a round, lane + 32 * i. All of a round's x gathers
 // are issued before any product is formed. With STAGE the products go to
 // shared memory (sm, at offsets from base = e0 rounded down to 16 bytes)
-// and 0 is returned; else the lane's sum of them is.
-template <typename T, bool STAGE>
+// and 0 is returned; else the lane's sum of them is. With PROD the values
+// are the products already (colind and x are not read): staged as they
+// are, they are the bits the products of values and x would have.
+template <typename T, bool STAGE, bool PROD>
 __device__ __forceinline__ T products(const int* __restrict__ colind,
                                       const T* __restrict__ values,
                                       const int* __restrict__ perm,
                                       const T* __restrict__ x, int e0, int e1,
                                       int lane, T* sm) {
+  static_assert(STAGE || !PROD, "given products are only staged");
   const int base = e0 & ~3;
   const int h = min((e0 + 3) & ~3, e1);
   const int t = max(e1 & ~3, h);
@@ -190,7 +206,9 @@ __device__ __forceinline__ T products(const int* __restrict__ colind,
   {
     const int p = lane < 3 ? e0 + lane : t + lane - 3;
     if (lane < 6 && p < (lane < 3 ? h : e1)) {
-      const T prod = load_one(values, perm, p) * __ldg(x + __ldcs(colind + p));
+      const T prod = PROD ? load_one(values, perm, p)
+                          : load_one(values, perm, p) *
+                                __ldg(x + __ldcs(colind + p));
       if (STAGE) {
         sm[stage_index(p - base)] = prod;
       } else {
@@ -204,12 +222,25 @@ __device__ __forceinline__ T products(const int* __restrict__ colind,
     const bool two = q1 < nq;
     const int p0 = h + 4 * q0;
     const int p1 = h + 4 * (two ? q1 : q0);
-    const int4 c0 = __ldcs(reinterpret_cast<const int4*>(colind + p0));
-    const int4 c1 = __ldcs(reinterpret_cast<const int4*>(colind + p1));
+    // The column ids load first, ahead of the values: issuing them after
+    // the values made the float64 product 23 % slower on the H100.
+    int4 c0 = make_int4(0, 0, 0, 0);
+    int4 c1 = c0;
+    if (!PROD) {
+      c0 = __ldcs(reinterpret_cast<const int4*>(colind + p0));
+      c1 = __ldcs(reinterpret_cast<const int4*>(colind + p1));
+    }
     const Quad<T> v0 = perm == nullptr ? load_quad(values, p0)
                                        : load_quad_perm(values, perm, p0);
     const Quad<T> v1 = perm == nullptr ? load_quad(values, p1)
                                        : load_quad_perm(values, perm, p1);
+    if (PROD) {
+      stage_quad(sm, p0 - base, v0.v[0], v0.v[1], v0.v[2], v0.v[3]);
+      if (two) {
+        stage_quad(sm, p1 - base, v1.v[0], v1.v[1], v1.v[2], v1.v[3]);
+      }
+      continue;
+    }
     const T x0 = __ldg(x + c0.x), x1 = __ldg(x + c0.y);
     const T x2 = __ldg(x + c0.z), x3 = __ldg(x + c0.w);
     const T x4 = __ldg(x + c1.x), x5 = __ldg(x + c1.y);
@@ -237,7 +268,7 @@ __device__ __forceinline__ T products(const int* __restrict__ colind,
   return sum;
 }
 
-template <typename T>
+template <typename T, bool PROD>
 __global__ void __launch_bounds__(kThreads)
 csr_spmv_vector(const int* __restrict__ rowptr, const int* __restrict__ colind,
                 const T* __restrict__ values, const int* __restrict__ perm,
@@ -249,23 +280,26 @@ csr_spmv_vector(const int* __restrict__ rowptr, const int* __restrict__ colind,
   const int lane = threadIdx.x & 31;
   const long long w = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (w >= nwin) {
-    // A piece of a long row. The warp leaves together: w is uniform.
-    const long long piece = w - nwin;
-    if (piece >= npieces) {
-      return;
-    }
-    const int* piece_row = plan + 4 * nwin;
-    const int row = piece_row[piece];
-    const int e0 = piece_row[npieces + piece];  // piece_start
-    const int e1 = min(e0 + kBudget, __ldg(rowptr + row + 1));
-    T sum = products<T, false>(colind, values, perm, x, e0, e1, lane,
-                               nullptr);
+    // A piece of a long row (never with PROD: the entry point refuses a
+    // plan with pieces there). The warp leaves together: w is uniform.
+    if constexpr (!PROD) {
+      const long long piece = w - nwin;
+      if (piece >= npieces) {
+        return;
+      }
+      const int* piece_row = plan + 4 * nwin;
+      const int row = piece_row[piece];
+      const int e0 = piece_row[npieces + piece];  // piece_start
+      const int e1 = min(e0 + kBudget, __ldg(rowptr + row + 1));
+      T sum = products<T, false, false>(colind, values, perm, x, e0, e1, lane,
+                                        nullptr);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      sum += __shfl_xor_sync(kFull, sum, off);
-    }
-    if (lane == 0) {
-      partial[piece] = sum;
+      for (int off = 16; off > 0; off >>= 1) {
+        sum += __shfl_xor_sync(kFull, sum, off);
+      }
+      if (lane == 0) {
+        partial[piece] = sum;
+      }
     }
     return;
   }
@@ -290,7 +324,7 @@ csr_spmv_vector(const int* __restrict__ rowptr, const int* __restrict__ colind,
     hi = __ldg(rowptr + row + 1) - base;
   }
   T* sm = staged[warp];
-  products<T, true>(colind, values, perm, x, e0, e1, lane, sm);
+  products<T, true, PROD>(colind, values, perm, x, e0, e1, lane, sm);
   __syncwarp();
   if (nr <= 32) {
     const int G = 1 << g_log;
@@ -371,6 +405,9 @@ int launch(const void* rowptr_, const void* colind_, const void* values_,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == kScalar) {
+    if (x == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     switch (lanes) {
       case 1: return launch_scalar<T, 1>(rowptr, colind, values, perm, x, y, nrows, s);
       case 2: return launch_scalar<T, 2>(rowptr, colind, values, perm, x, y, nrows, s);
@@ -383,7 +420,10 @@ int launch(const void* rowptr_, const void* colind_, const void* values_,
   }
   const int* plan = static_cast<const int*>(plan_);
   T* partial = static_cast<T*>(partial_);
+  // x == nullptr: the values are the products (the window path only).
+  const bool prod = x == nullptr;
   if (variant != kVector || plan == nullptr || nwin < 1 || npieces < 0 ||
+      (prod && npieces > 0) ||
       nlong < 0 || (npieces > 0 && (partial == nullptr || nlong == 0)) ||
       !aligned16(colind) || (perm == nullptr ? !aligned16(values)
                                              : !aligned16(perm)) ||
@@ -391,7 +431,8 @@ int launch(const void* rowptr_, const void* colind_, const void* values_,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long blocks = (nwin + npieces + kWarps - 1) / kWarps;
-  csr_spmv_vector<T><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+  auto kernel = prod ? csr_spmv_vector<T, true> : csr_spmv_vector<T, false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       rowptr, colind, values, perm, x, y, plan, static_cast<int>(nwin),
       static_cast<int>(npieces), partial);
   if (nlong > 0) {

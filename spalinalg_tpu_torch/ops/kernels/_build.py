@@ -61,6 +61,10 @@ _ENTRIES = {
     **{f"spal_bsr_spmm_{t}": [_P] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                          ctypes.c_int] + [ctypes.c_longlong] * 2
        + [ctypes.c_int, _P] for t in ("f32", "bf16", "f64")},
+    # (values, lpos, run_ptr, run_start, run_goff, vb, nse, nslab, g, major,
+    #  nrows, stream)
+    **{f"spal_bucket_scatter_{t}": [_P] * 6 + [ctypes.c_longlong] * 2
+       + [_P, _P, ctypes.c_longlong, _P] for t in ("f32", "f64")},
     # (offsets, ndiag, data, x, y, nrows, ncols, transposed, stream)
     **{f"spal_dia_spmv_{t}": [_P, ctypes.c_int] + [_P] * 3
        + [ctypes.c_longlong] * 2 + [ctypes.c_int, _P] for t in ("f32", "f64")},

@@ -30,9 +30,11 @@ right-hand side. Like ``csr_spmv`` it takes an optional ``perm``.
 :class:`CsrSpmm` carries the gradient of
 ``csr_route.py::_route_spmm_ad_bwd``: ``dX = Aᵀ·G`` runs the same kernel on
 the cached transposed structure (no atomics), reading the forward's values
-through the transpose's ``perm``, and ``dvals[p] = Σ_c G[row_p, c]·X[col_p,
-c]`` is the CSR SDDMM kernel (``ops/kernels/csr_sddmm.py``; XLA code
-outside any Pallas kernel in the JAX package).
+through the transpose's ``perm`` or, on the bucket route
+(``ops/kernels/csr_transpose.py``), bucketed by column block, and
+``dvals[p] = Σ_c G[row_p, c]·X[col_p, c]`` is the CSR SDDMM kernel
+(``ops/kernels/csr_sddmm.py``; XLA code outside any Pallas kernel in the
+JAX package).
 """
 
 from __future__ import annotations
@@ -42,12 +44,15 @@ from torch.autograd.function import once_differentiable
 
 from ...dtypes import INDEX_DTYPE, acc_dtype
 from ...errors import DTypeError, ShapeError
+from ...utils.plancache import StructureCache
 from .csr_sddmm import csr_sddmm
 from .csr_spmv import (aligned16, csr_spmv_plain, csr_tile_plan, staged_fits,
                        transpose_plan)
+from .csr_transpose import ROUTES, transposed_route, transposed_values
 
-__all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "CsrSpmm", "csr_spmm",
-           "csr_spmm_plain", "csr_spmm_variant", "kernel_path"]
+__all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "WARPS_PER_SM", "CsrSpmm",
+           "csr_spmm", "csr_spmm_plain", "csr_spmm_variant", "kernel_path",
+           "one_row_bounds", "spmm_route", "transposed_spmm"]
 
 # Kernel launches per instantiation and per variant: plain integers,
 # advanced only where the wrapper launches the kernel.
@@ -181,6 +186,59 @@ def csr_spmm(rowptr, colind, values, X, nrows: int, perm=None,
     return Y
 
 
+# Warps an SM of the H100 keeps resident (2,048 threads).
+WARPS_PER_SM = 64
+
+# Live as long as each structure does (see utils/plancache.py).
+_ROW_BOUNDS = StructureCache()
+
+
+def one_row_bounds(longest: int, nnz: int, sms: int) -> bool:
+    """Whether one row of ``longest`` entries bounds a launch over ``nnz``
+    entries on ``sms`` SMs: the kernel walks a row in one warp, and this
+    row holds more entries than a resident warp's share of them. A pure
+    function.
+
+    >>> one_row_bounds(150_001, 8_535_214, 132), one_row_bounds(60, 2**24, 132)
+    (True, False)
+    """
+    return longest * sms * WARPS_PER_SM > nnz
+
+
+def spmm_route(rowptr, colind, t, ncols: int, itemsize: int) -> str:
+    """The route of the SpMM backward's ``Aᵀ·G``:
+    :func:`~.csr_transpose.transposed_route`, with ``"buckets"`` kept
+    ``"perm"`` where one row of the transpose bounds the launch
+    (:func:`one_row_bounds`, decided once per structure on its card): that
+    row's walk takes as long on either route (a column of 150,000 entries:
+    14.9 / 70.2 ms against 15.1 / 70.5 through ``perm`` at k = 64 on the
+    H100, PERF.md), so pass 1 and ``vb`` would buy nothing."""
+    route = transposed_route(rowptr, colind, t, ncols, itemsize)
+    if route != "buckets":
+        return route
+
+    def decide() -> bool:
+        lengths = t.ptr[1:] - t.ptr[:-1]
+        sms = torch.cuda.get_device_properties(
+            t.ptr.device).multi_processor_count
+        return one_row_bounds(int(lengths.max()), int(t.ptr[-1]), sms)
+
+    return "perm" if _ROW_BOUNDS.get((rowptr, colind), decide) else route
+
+
+def transposed_spmm(rowptr, colind, t, values, G, ncols: int,
+                    route=None) -> torch.Tensor:
+    """``Aᵀ·G`` for CSR ``A = (rowptr, colind, values)`` (values in the
+    kernel's type) on its cached transpose ``t``, on ``route`` (``"perm"``
+    or ``"buckets"``; by default :func:`spmm_route`'s, counted in
+    ``csr_transpose.ROUTES``). Both give the same bits."""
+    if route is None:
+        route = spmm_route(rowptr, colind, t, ncols, values.element_size())
+        ROUTES[route] += 1
+    vals, perm = transposed_values(rowptr, colind, t, values, ncols, route)
+    return csr_spmm(t.ptr, t.minor, vals, G, ncols, perm=perm)
+
+
 class CsrSpmm(torch.autograd.Function):
     """``Y = A @ X`` with the closed-form gradient of
     ``spalinalg_tpu/ops/kernels/csr_route.py::_route_spmm_ad_bwd``.
@@ -211,6 +269,7 @@ class CsrSpmm(torch.autograd.Function):
             dvals = csr_sddmm(rowptr, colind, G, X.to(acc), nrows,
                               major=t.major).to(values.dtype)
         if ctx.needs_input_grad[1]:
-            dX = csr_spmm(t.ptr, t.minor, values, G, ncols, perm=t.perm
-                          ).to(X.dtype)
+            dX = transposed_spmm(rowptr, colind, t,
+                                 values.to(acc).contiguous(), G,
+                                 ncols).to(X.dtype)
         return dvals, dX, None, None, None, None

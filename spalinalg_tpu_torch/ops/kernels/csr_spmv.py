@@ -32,9 +32,14 @@ optional ``perm``: the values of slot ``p`` are then ``values[perm[p]]``,
 read by the kernel itself. :class:`CsrSpmv` carries the gradient of
 ``csr_route.py::_route_spmv_ad_bwd``: ``dx = Aᵀ·g`` runs the same kernel on
 the cached transposed structure (no atomics), reading the forward's values
-through the transpose's ``perm``, and ``dvals = g[row]·x[colind]`` is the
-CSR SDDMM kernel at k = 1 (``ops/kernels/csr_sddmm.py``; XLA code outside
-any Pallas kernel in the JAX package).
+through the transpose's ``perm``, or (:func:`transposed_spmv`, on the
+route :func:`spmv_route` picks) the values bucketed by column block, or
+the products ``values·g[row]`` bucketed so and summed by the kernel's
+products instance (:func:`csr_spmv_products`; ``ops/kernels/
+csr_transpose.py``): the same bits on every route. ``dvals =
+g[row]·x[colind]`` is the CSR SDDMM kernel at k = 1
+(``ops/kernels/csr_sddmm.py``; XLA code outside any Pallas kernel in the
+JAX package).
 """
 
 from __future__ import annotations
@@ -49,18 +54,23 @@ from ...dtypes import INDEX_DTYPE, acc_dtype
 from ...errors import DTypeError, ShapeError
 from ...utils.plancache import StructureCache
 from .csr_sddmm import csr_sddmm
+from .csr_transpose import ROUTES, transposed_route, transposed_values
 
 __all__ = ["BUDGET", "LAUNCHES", "STAGE_BUDGET", "TILE_ROWS",
            "VARIANT_LAUNCHES", "CsrSpmv", "SpmvPlan", "TilePlan", "aligned16",
            "build_tile_plan", "csr_spmv", "csr_spmv_plain", "csr_spmv_plan",
-           "csr_spmv_variant", "csr_tile_plan", "kernel_path", "lanes_for",
-           "path_for", "stage_bytes", "staged_fits", "transpose_plan"]
+           "csr_spmv_products", "csr_spmv_products_plain", "csr_spmv_variant",
+           "csr_tile_plan", "kernel_path", "lanes_for", "path_for",
+           "spmv_route", "stage_bytes", "staged_fits", "transpose_plan",
+           "transposed_spmv"]
 
 # Kernel launches per instantiation and per variant: plain integers,
 # advanced only where the wrapper launches the kernels. "finish" counts
-# the vector variant's second kernel, launched where rows were split.
+# the vector variant's second kernel, launched where rows were split;
+# "products" the vector kernel summing given products
+# (csr_spmv_products).
 LAUNCHES = {"float32": 0, "float64": 0}
-VARIANT_LAUNCHES = {"scalar": 0, "vector": 0, "finish": 0}
+VARIANT_LAUNCHES = {"scalar": 0, "vector": 0, "finish": 0, "products": 0}
 
 # The variant's code in the C entry points.
 _VARIANT_CODE = {"scalar": 0, "vector": 1}
@@ -432,6 +442,95 @@ def csr_spmv(rowptr, colind, values, x, nrows: int, perm=None
     return y
 
 
+def csr_spmv_products_plain(rowptr, products, nrows: int) -> torch.Tensor:
+    """Plain torch ``y[i] = Σ products[p]`` over row ``i``'s slots:
+    ``index_add_`` into rows, padding slots into a sentinel row that is cut
+    off."""
+    rows = major_ids(rowptr, products.numel())
+    y = torch.zeros(nrows + 1, dtype=products.dtype, device=products.device)
+    y.index_add_(0, rows, products)
+    return y[:nrows]
+
+
+def csr_spmv_products(rowptr, colind, products, nrows: int, perm=None
+                      ) -> torch.Tensor:
+    """``y[i] = Σ products[q(p)]`` over row ``i``'s slots (``q(p) = perm[p]``
+    or ``p``): the vector kernel summing products it is given instead of
+    forming ``values·x``, in its own order, so bitwise what :func:`csr_spmv`
+    gives where its products are these. On CPU tensors the plain version.
+    The structure must split no row (no row past :data:`BUDGET` entries:
+    the kernel's split rows fuse their products into the sum), and
+    ``colind`` and the streamed array must start on 16 bytes; else it
+    raises."""
+    if products.dtype not in _ENTRY:
+        raise DTypeError(f"no csr_spmv kernel for {products.dtype}")
+    if perm is not None and perm.dtype != INDEX_DTYPE:
+        raise DTypeError(f"perm must be {INDEX_DTYPE}, got {perm.dtype}")
+    operands = (rowptr, colind, products) + (() if perm is None else (perm,))
+    if len({t.device for t in operands}) != 1:
+        raise ValueError("csr_spmv_products operands on several devices")
+    if (rowptr.ndim != 1 or rowptr.numel() != nrows + 1
+            or products.shape != colind.shape
+            or (perm is not None and perm.shape != colind.shape)):
+        raise ShapeError(
+            f"csr_spmv_products shapes: rowptr {tuple(rowptr.shape)}, colind "
+            f"{tuple(colind.shape)}, products {tuple(products.shape)}")
+    products = products.contiguous()
+    device = products.device
+    if device.type == "cpu":
+        return csr_spmv_products_plain(
+            rowptr, products if perm is None else products[perm], nrows)
+    if device.type != "cuda":
+        raise ValueError(f"no csr_spmv kernel for device {device}")
+    if nrows == 0 or colind.numel() == 0:
+        return torch.zeros(nrows, dtype=products.dtype, device=device)
+    plan = csr_spmv_plan(rowptr)
+    if plan.npieces or csr_spmv_variant(colind, products, perm) != "vector":
+        raise ValueError("csr_spmv_products takes structures that split no "
+                         "row, with operands on 16-byte boundaries")
+    from ._build import launch
+
+    name, key = _ENTRY[products.dtype]
+    y = torch.empty(nrows, dtype=products.dtype, device=device)
+    with torch.cuda.device(device):
+        launch(name, rowptr.data_ptr(), colind.data_ptr(),
+               products.data_ptr(), None if perm is None else perm.data_ptr(),
+               None, y.data_ptr(), nrows, 1, _VARIANT_CODE["vector"],
+               plan.plan.data_ptr(), plan.nwin, 0, 0, None,
+               torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES[key] += 1
+    VARIANT_LAUNCHES["products"] += 1
+    return y
+
+
+def spmv_route(rowptr, colind, t, ncols: int, itemsize: int) -> str:
+    """The route of the SpMV backward's ``Aᵀ·g``:
+    :func:`~.csr_transpose.transposed_route`, with ``"buckets"`` made
+    ``"products"`` where the transposed structure splits no row (its
+    :func:`csr_spmv_plan`)."""
+    route = transposed_route(rowptr, colind, t, ncols, itemsize)
+    if route == "buckets" and csr_spmv_plan(t.ptr).npieces == 0:
+        return "products"
+    return route
+
+
+def transposed_spmv(rowptr, colind, t, values, g, ncols: int,
+                    route=None) -> torch.Tensor:
+    """``Aᵀ·g`` for CSR ``A = (rowptr, colind, values)`` (values in the
+    kernel's type) on its cached transpose ``t``, on ``route`` (``"perm"``,
+    ``"buckets"`` or ``"products"``; by default :func:`spmv_route`'s,
+    counted in ``csr_transpose.ROUTES``). Every route gives the same
+    bits."""
+    if route is None:
+        route = spmv_route(rowptr, colind, t, ncols, values.element_size())
+        ROUTES[route] += 1
+    vals, perm = transposed_values(rowptr, colind, t, values, ncols, route,
+                                   g=g)
+    if route == "products":
+        return csr_spmv_products(t.ptr, t.minor, vals, ncols, perm=perm)
+    return csr_spmv(t.ptr, t.minor, vals, g, ncols, perm=perm)
+
+
 class CsrSpmv(torch.autograd.Function):
     """``y = A @ x`` with the closed-form gradient of
     ``spalinalg_tpu/ops/kernels/csr_route.py::_route_spmv_ad_bwd``.
@@ -465,6 +564,7 @@ class CsrSpmv(torch.autograd.Function):
             dvals = csr_sddmm(rowptr, colind, g, x.to(acc), nrows,
                               major=t.major).to(values.dtype)
         if ctx.needs_input_grad[1]:
-            dx = csr_spmv(t.ptr, t.minor, values, g, ncols, perm=t.perm
-                          ).to(x.dtype)
+            dx = transposed_spmv(rowptr, colind, t,
+                                 values.to(acc).contiguous(),
+                                 g.contiguous(), ncols).to(x.dtype)
         return dvals, dx, None, None, None, None

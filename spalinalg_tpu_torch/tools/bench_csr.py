@@ -38,6 +38,20 @@ SDDMM kernels, each named on purpose, at the same shapes (``op`` is
 takes, ``tile_rows``), so that one run shows what the dispatch chose
 between. A variant the kernel refuses for the shape is left out.
 
+``--transposed`` times instead the backward's transposed product (Aᵀ·g
+at k = 1, Aᵀ·G at k = 64) at the same shapes, in turns (each way once,
+then each once more in the opposite order): ``perm`` (the kernel reading
+the values through the transpose's ``perm``), ``buckets`` (pass 1, the
+bucket scatter, then the kernel on ``(vb, bperm)``), ``products`` (k = 1
+where no row of Aᵀ is split: pass 1 moving ``values·g[row]``, then the
+vector kernel summing them), each pass alone, ``gathered`` (the kernel on
+``values[perm]``) beside ``gather`` (``values[perm]`` alone),
+``dispatched`` (the route the backward takes, named in ``route``) and
+``library`` (``torch.sparse_csc_tensor(rowptr, colind, values) @ G``, Aᵀ
+with no copy). Every route must give the ``perm`` result bitwise. A
+package without the bucket module times the ``perm``, ``gathered``,
+``gather`` and ``library`` lines only.
+
 Launches are timed with CUDA events behind a queued spin of the card, so
 that the host enqueues all of them while the spin runs and the events time
 the card, not the host's launch rate.
@@ -191,6 +205,74 @@ def sweep(emit, mods, shape, n, k, rowptr, colind, t, gen, device) -> None:
         torch.cuda.empty_cache()
 
 
+def transposed(emit, mods, shape, n, k, rowptr, colind, t, gen,
+               device) -> None:
+    """The backward's Aᵀ·g (k = 1) or Aᵀ·G on each route, in turns
+    (``--transposed``)."""
+    try:
+        from spalinalg_tpu_torch.ops.kernels import csr_transpose as ct
+    except ImportError:
+        ct = None
+    kern = mods[0].csr_spmv if k == 1 else mods[1].csr_spmm
+    for name, dtype in DTYPES.items():
+        values = torch.randn(colind.numel(), generator=gen, dtype=dtype,
+                             device=device)
+        G = torch.randn((n,) if k == 1 else (n, k), generator=gen,
+                        dtype=dtype, device=device)
+        itemsize = values.element_size()
+        common = {"shape": shape, "n": n, "nnz": colind.numel(), "k": k,
+                  "dtype": name}
+        ways = {"perm": lambda: kern(t.ptr, t.minor, values, G, n,
+                                     perm=t.perm)}
+        want = ways["perm"]()
+        gathered = values[t.perm]
+        ways["gathered"] = lambda: kern(t.ptr, t.minor, gathered, G, n)
+        ways["gather"] = lambda: values[t.perm]
+        extra, route = {}, None
+        if ct is not None:
+            product = (mods[0].transposed_spmv if k == 1
+                       else mods[1].transposed_spmm)
+            routes = ["buckets"]
+            if k == 1 and mods[0].csr_spmv_plan(t.ptr).npieces == 0:
+                routes.append("products")
+            for r in routes:
+                ways[r] = (lambda r=r: product(rowptr, colind, t, values, G,
+                                               n, route=r))
+            plan = ct.bucket_plan(rowptr, colind, t, n, itemsize)
+            extra["buckets"] = {"width": plan.width,
+                                "plan_bytes": plan.nbytes}
+            vb = ct.bucket_values(values, plan)
+            ways["pass1"] = lambda: ct.bucket_values(values, plan)
+            ways["pass2"] = lambda: kern(t.ptr, t.minor, vb, G, n,
+                                         perm=plan.bperm)
+            if "products" in routes:
+                vp = ct.bucket_values(values, plan, g=G, major=t.major)
+                ways["pass1_products"] = lambda: ct.bucket_values(
+                    values, plan, g=G, major=t.major)
+                ways["pass2_products"] = lambda: mods[0].csr_spmv_products(
+                    t.ptr, t.minor, vp, n, perm=plan.bperm)
+            route = (mods[0].spmv_route if k == 1 else mods[1].spmm_route)(
+                rowptr, colind, t, n, itemsize)
+            ways["dispatched"] = lambda: product(rowptr, colind, t, values,
+                                                 G, n)
+            for way in routes + ["dispatched"]:
+                if not torch.equal(ways[way](), want):
+                    raise AssertionError(f"{shape} {name}: {way} differs "
+                                         "from the perm path")
+        lib = torch.sparse_csc_tensor(rowptr, colind, values, (n, n))
+        ways["library"] = lambda: lib @ (G if k > 1 else G[:, None])
+        times = {way: [] for way in ways}
+        for order in (list(ways), list(ways)[::-1]):
+            for way in order:
+                times[way].append(time_ms(ways[way]))
+        for way, ms in times.items():
+            emit(op="transposed", **common, way=way, ms=sum(ms) / len(ms),
+                 turns=ms, **({"route": route} if way == "dispatched"
+                              else {}), **extra.get(way, {}))
+        del values, G, want, gathered, lib, ways
+        torch.cuda.empty_cache()
+
+
 def power_law(sp, device, n: int = N_GEMM):
     """config[2]'s matrix (``chip_smoke.power_law``) in both dtypes."""
     rng = np.random.default_rng(1)
@@ -294,6 +376,8 @@ def main() -> int:
                         help="time every CSR SpMM and SDDMM variant by name")
     parser.add_argument("--spgemm", action="store_true",
                         help="time SpGEMM A·A on the config[2] matrix")
+    parser.add_argument("--transposed", action="store_true",
+                        help="time the backward's Aᵀ·g and Aᵀ·G routes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench_csr: no CUDA device; it times kernels on a card",
@@ -332,6 +416,10 @@ def main() -> int:
         t = mv_mod.transpose_plan(rowptr, colind, n, n)
         if args.variants:
             sweep(emit, mods, shape, n, k, rowptr, colind, t, gen, device)
+            continue
+        if args.transposed:
+            transposed(emit, mods, shape, n, k, rowptr, colind, t, gen,
+                       device)
             continue
         for name, dtype in DTYPES.items():
             size = (n,) if k == 1 else (n, k)
