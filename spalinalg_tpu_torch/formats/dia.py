@@ -213,8 +213,7 @@ class DiaMatrix:
         out_dtype = result_dtype(self.dtype, other.dtype)
         n, m = self._nrows, self._ncols
         nnz = self.nnz
-        counts = dict(nnz=nnz, flops=2 * nnz,
-                      bytes=self._data.element_size() * nnz)
+        counts = dict(nnz=nnz, flops=2 * nnz)
         if other.ndim == 1:
             return instrument(
                 "dia_spmv", lambda: DiaSpmv.apply(

@@ -7,6 +7,8 @@ test reads ``r·r`` back each iteration (one synchronisation with the card
 a step), with the same test (``r·r > tol²``, in the vectors' dtype) and so
 the same iteration count. Every ``A @ v`` is the operand's own product:
 on a ``CsrMatrix`` the CSR SpMV kernel, on a ``BsrMatrix`` the BSR one.
+The preconditioner's set-up (the Jacobi diagonal, rebuilt on every call)
+is the span ``spal.precond``, with device time (``utils/profiling.py``).
 
 On a row-partitioned :class:`~spalinalg_tpu_torch.parallel.DistCsr` the
 vectors are this rank's padded slices (``shard_vector``), each product is
@@ -36,6 +38,7 @@ import torch
 from ..device import resolve_device
 from ..ops.reduce_api import diagonal
 from ..parallel.spmv import is_dist, summed
+from ..utils.profiling import annotate
 
 __all__ = ["cg", "CgResult"]
 
@@ -161,7 +164,8 @@ def cg(
         x0 = torch.zeros_like(b)
     else:
         x0 = torch.zeros(n, dtype=b.dtype, device=b.device)
-    psolve = resolve_precond(precondition, A)
+    with annotate("spal.precond", device=b.device):
+        psolve = resolve_precond(precondition, A)
     with torch.no_grad():
         return _cg_loop(lambda v: A @ v, b, x0, tol, maxiter, psolve,
                         _dots(A))

@@ -44,27 +44,23 @@ def bsr_matvec(bsr, x) -> torch.Tensor:
     """``y = A @ x`` for BSR ``A``."""
     x = _dense_operand(bsr, x, (1,))
     nnz = bsr.nnz
-    itm = bsr.data.element_size()
 
     def run():
         return BsrSpmv.apply(bsr.data, x, bsr.indptr, bsr.indices)
 
     return instrument("bsr_spmv", run,
                       path=lambda: kernel_path(bsr_spmv_variant, bsr.data, x),
-                      device=x.device, nnz=nnz, flops=2 * nnz,
-                      bytes=itm * nnz)
+                      device=x.device, nnz=nnz, flops=2 * nnz)
 
 
 def bsr_matmat(bsr, X) -> torch.Tensor:
     """``Y = A @ X`` for BSR ``A`` and dense ``X`` of shape ``(ncols, k)``."""
     X = _dense_operand(bsr, X, (2,))
     nnz = bsr.nnz
-    itm = bsr.data.element_size()
 
     def run():
         return BsrSpmm.apply(bsr.data, X, bsr.indptr, bsr.indices)
 
     return instrument("bsr_spmm", run,
                       path=lambda: kernel_path(bsr_spmm_variant, bsr.data, X),
-                      device=X.device, nnz=nnz, flops=2 * nnz * X.shape[1],
-                      bytes=itm * nnz)
+                      device=X.device, nnz=nnz, flops=2 * nnz * X.shape[1])

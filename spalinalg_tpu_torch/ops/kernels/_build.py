@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ...utils.profiling import annotate
+
 __all__ = ["KernelBuildError", "find_nvcc", "launch", "library_path",
            "load_library"]
 
@@ -155,9 +157,11 @@ def load_library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call the C entry point ``name`` (building and loading the library
-    if needed); raise if it reports a CUDA error."""
-    lib = load_library()
-    code = getattr(lib, name)(*args)
+    if needed); raise if it reports a CUDA error. Every kernel of the port
+    launches here, inside the span ``spal.launch``."""
+    with annotate("spal.launch"):
+        lib = load_library()
+        code = getattr(lib, name)(*args)
     if code != 0:
         raise RuntimeError(
             f"{name} launch failed: {lib.spal_error_string(code).decode()} "

@@ -53,6 +53,7 @@ from ...convert.engine import TransposeStructure, major_ids, transpose_structure
 from ...dtypes import INDEX_DTYPE, acc_dtype
 from ...errors import DTypeError, ShapeError
 from ...utils.plancache import StructureCache
+from ...utils.profiling import annotate
 from .csr_sddmm import csr_sddmm
 from .csr_transpose import ROUTES, transposed_route, transposed_values
 
@@ -341,8 +342,10 @@ def build_spmv_plan(rowptr: torch.Tensor) -> SpmvPlan:
 
 def csr_spmv_plan(rowptr: torch.Tensor) -> SpmvPlan:
     """:func:`build_spmv_plan` of ``rowptr``, built once per structure
-    (keyed on the identity and shape of ``rowptr``) and dropped with it."""
-    return _SPMV_PLANS.get((rowptr,), lambda: build_spmv_plan(rowptr))
+    (keyed on the identity and shape of ``rowptr``) and dropped with it.
+    The lookup, and a build on a miss, is the span ``spal.spmv.plan``."""
+    with annotate("spal.spmv.plan"):
+        return _SPMV_PLANS.get((rowptr,), lambda: build_spmv_plan(rowptr))
 
 
 def transpose_plan(ptr: torch.Tensor, minor: torch.Tensor, n_major: int,

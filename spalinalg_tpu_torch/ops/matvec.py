@@ -16,6 +16,9 @@ state the intent, `csr.rs:16-17`).
 - The metrics path names the kernel variant that runs
   (``csr_spmv:cuda:vector``, ``csr_spmm:cuda:register``, ...) or
   ``:plain`` off the card.
+- Each product is the span ``spal.spmv`` or ``spal.spmm``
+  (``utils/profiling.py``) from here to the kernel launch's return, the
+  outermost of the port's spans on that path.
 - :func:`matmul_dense` dispatches ``A @ dense`` to SpMV (1-D) or SpMM
   (2-D).
 
@@ -29,6 +32,7 @@ import torch
 
 from ..errors import ShapeError
 from ..utils.metrics import instrument
+from ..utils.profiling import annotate
 from .kernels import csr_spmm as spmm_kernel
 from .kernels import csr_spmv as spmv_kernel
 from .kernels.csr_spmm import CsrSpmm
@@ -71,25 +75,27 @@ def _csr_arrays(mat):
 
 
 def _spmv(op, mat, x):
-    x = _dense_operand(mat, x, (1,))
-    nnz = mat.nse
-    itm = mat.values.element_size()
+    with annotate("spal.spmv"):
+        x = _dense_operand(mat, x, (1,))
+        nnz = mat.nse
 
-    def run():
-        rowptr, colind, values = _csr_arrays(mat)
-        return CsrSpmv.apply(values, x, rowptr, colind, mat.nrows,
-                             mat.ncols)
+        def run():
+            rowptr, colind, values = _csr_arrays(mat)
+            return CsrSpmv.apply(values, x, rowptr, colind, mat.nrows,
+                                 mat.ncols)
 
-    def path():
-        from ..formats.compressed import CscMatrix
+        def path():
+            from ..formats.compressed import CscMatrix
 
-        if isinstance(mat, CscMatrix):
-            t = transpose_plan(mat.colptr, mat.rowind, mat.ncols, mat.nrows)
-            return spmv_kernel.kernel_path(t.minor, mat.values, x, fresh=True)
-        return spmv_kernel.kernel_path(mat.colind, mat.values, x)
+            if isinstance(mat, CscMatrix):
+                t = transpose_plan(mat.colptr, mat.rowind, mat.ncols,
+                                   mat.nrows)
+                return spmv_kernel.kernel_path(t.minor, mat.values, x,
+                                               fresh=True)
+            return spmv_kernel.kernel_path(mat.colind, mat.values, x)
 
-    return instrument(op, run, path=path, device=x.device,
-                      nnz=nnz, flops=2 * nnz, bytes=(itm * 2 + 4) * nnz)
+        return instrument(op, run, path=path, device=x.device,
+                          nnz=nnz, flops=2 * nnz)
 
 
 def csr_matvec(csr, x) -> torch.Tensor:
@@ -103,26 +109,27 @@ def csc_matvec(csc, x) -> torch.Tensor:
 
 
 def _spmm(op, mat, X):
-    X = _dense_operand(mat, X, (2,))
-    nnz, k = mat.nse, int(X.shape[1])
-    itm = mat.values.element_size()
+    with annotate("spal.spmm"):
+        X = _dense_operand(mat, X, (2,))
+        nnz, k = mat.nse, int(X.shape[1])
 
-    def run():
-        rowptr, colind, values = _csr_arrays(mat)
-        return CsrSpmm.apply(values, X, rowptr, colind, mat.nrows,
-                             mat.ncols)
+        def run():
+            rowptr, colind, values = _csr_arrays(mat)
+            return CsrSpmm.apply(values, X, rowptr, colind, mat.nrows,
+                                 mat.ncols)
 
-    def path():
-        from ..formats.compressed import CscMatrix
+        def path():
+            from ..formats.compressed import CscMatrix
 
-        if isinstance(mat, CscMatrix):
-            t = transpose_plan(mat.colptr, mat.rowind, mat.ncols, mat.nrows)
-            return spmm_kernel.kernel_path(t.ptr, t.minor, mat.values, X)
-        return spmm_kernel.kernel_path(mat.rowptr, mat.colind, mat.values, X)
+            if isinstance(mat, CscMatrix):
+                t = transpose_plan(mat.colptr, mat.rowind, mat.ncols,
+                                   mat.nrows)
+                return spmm_kernel.kernel_path(t.ptr, t.minor, mat.values, X)
+            return spmm_kernel.kernel_path(mat.rowptr, mat.colind,
+                                           mat.values, X)
 
-    return instrument(op, run, path=path, device=X.device,
-                      nnz=nnz, flops=2 * nnz * k,
-                      bytes=(itm * (1 + 2 * k) + 4) * nnz)
+        return instrument(op, run, path=path, device=X.device,
+                          nnz=nnz, flops=2 * nnz * k)
 
 
 def csr_matmat(csr, X) -> torch.Tensor:

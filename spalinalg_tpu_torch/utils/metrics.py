@@ -1,7 +1,7 @@
 """Metrics tier (counterpart of ``spalinalg_tpu/utils/metrics.py``).
 
-Per-op structured metrics (nnz, flops, bytes moved, achieved rate) through
-a host-side recorder with optional JSON-lines output. Each record also
+Per-op structured metrics (nnz, flops, achieved rate) through a host-side
+recorder with optional JSON-lines output. Each record also
 names the dispatch path that ran, for example ``csr_spmv:cuda`` (the
 hand-written kernel) or ``csr_spmv:plain`` (the plain torch version on
 CPU tensors), so a reader of the records can tell the two apart. The
@@ -15,11 +15,6 @@ kernel for a 2-D operand either); ``spgemm_symbolic:native|numpy``; the
 supernodal Cholesky's host phases (``chol_ordering:host``,
 ``chol_symbolic:host``, ``chol_plan:host``, or ``chol_plan:disk`` where
 the plan came from the on-disk cache).
-
-:func:`roofline_model` gives the bytes a core op must move and the rate
-the card's memory allows: ``HBM_GBPS`` holds the published HBM3
-bandwidth of the H100 SXM; pass ``hbm_gbps`` to use a copy bandwidth
-measured on the card instead.
 
 Examples
 --------
@@ -44,11 +39,7 @@ from typing import Callable, Dict, List, Optional, Union
 import torch
 
 __all__ = ["OpMetrics", "MetricsRecorder", "recorder", "enable", "disable",
-           "instrument", "roofline_model", "HBM_GBPS"]
-
-# Published device-memory bandwidth per card (GB/s): "NVIDIA H100 80GB
-# HBM3" (SXM5), 3.35 TB/s.
-HBM_GBPS = {"h100": 3350.0}
+           "instrument"]
 
 
 @dataclass
@@ -58,21 +49,16 @@ class OpMetrics:
     path: str = ""
     nnz: int = 0
     flops: int = 0
-    bytes: int = 0
 
     @property
     def nnz_per_s(self) -> float:
         return self.nnz / self.seconds if self.seconds else 0.0
 
-    @property
-    def gbytes_per_s(self) -> float:
-        return self.bytes / self.seconds / 1e9 if self.seconds else 0.0
-
     def to_dict(self) -> Dict:
         return {
             "op": self.op, "path": self.path, "seconds": self.seconds,
-            "nnz": self.nnz, "flops": self.flops, "bytes": self.bytes,
-            "nnz_per_s": self.nnz_per_s, "gbytes_per_s": self.gbytes_per_s,
+            "nnz": self.nnz, "flops": self.flops,
+            "nnz_per_s": self.nnz_per_s,
         }
 
 
@@ -93,8 +79,7 @@ class MetricsRecorder:
             self.jsonl_stream.write(json.dumps(m.to_dict()) + "\n")
 
     @contextmanager
-    def measure(self, op: str, *, nnz: int = 0, flops: int = 0,
-                bytes: int = 0, sync=None):
+    def measure(self, op: str, *, nnz: int = 0, flops: int = 0, sync=None):
         """Time a block and record it as ``op``. ``sync``, if given, runs
         before the clock stops; where the process has used the card, the
         clock stops only after ``torch.cuda.synchronize()`` too, so the
@@ -106,7 +91,7 @@ class MetricsRecorder:
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
         self.record(OpMetrics(op=op, seconds=time.perf_counter() - t0,
-                              nnz=nnz, flops=flops, bytes=bytes))
+                              nnz=nnz, flops=flops))
 
     def summary(self) -> Dict[str, Dict]:
         out: Dict[str, Dict] = {}
@@ -140,8 +125,7 @@ def disable() -> None:
 
 
 def instrument(op: str, fn, *, path: Union[str, Callable[[], str]],
-               device: torch.device, nnz: int = 0, flops: int = 0,
-               bytes: int = 0):
+               device: torch.device, nnz: int = 0, flops: int = 0):
     """Run ``fn()``; when the recorder is enabled, time it to completion
     (synchronising ``device`` if it is a GPU) and record an
     :class:`OpMetrics` whose ``path`` is ``f"{op}:{path}"``. ``path`` may
@@ -156,39 +140,6 @@ def instrument(op: str, fn, *, path: Union[str, Callable[[], str]],
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     rec.record(OpMetrics(op=op, seconds=time.perf_counter() - t0,
-                         path=f"{op}:{path}", nnz=nnz, flops=flops,
-                         bytes=bytes))
+                         path=f"{op}:{path}", nnz=nnz, flops=flops))
     return out
 
-
-def roofline_model(op: str, nnz: int, *, dtype_bytes: int = 4,
-                   index_bytes: int = 4, rhs_cols: int = 1,
-                   generation: str = "h100",
-                   hbm_gbps: Optional[float] = None) -> Dict[str, float]:
-    """Minimal-traffic roofline of the core ops (the bytes that must move),
-    by the JAX package's formulas (``spalinalg_tpu/utils/metrics.py:
-    150-174``).
-
-    SpMV: a value, an index and one operand element per nnz. SpMM
-    amortises the index over ``rhs_cols`` operand elements. SpGEMM
-    numeric: two value gathers and an index pair per term. The rate is
-    ``hbm_gbps`` where given (a copy bandwidth measured on the card), else
-    ``HBM_GBPS[generation]``.
-    """
-    if op == "spmv":
-        bytes_per = dtype_bytes * 2 + index_bytes
-    elif op == "spmm":
-        bytes_per = dtype_bytes * (1 + 2 * rhs_cols) + index_bytes
-    elif op == "spgemm":
-        bytes_per = dtype_bytes * 3 + 2 * index_bytes
-    else:
-        bytes_per = dtype_bytes * 2 + index_bytes
-    if hbm_gbps is None:
-        hbm_gbps = HBM_GBPS[generation]
-    hbm = float(hbm_gbps) * 1e9
-    return {
-        "bytes_per_nnz": float(bytes_per),
-        "hbm_gbps": hbm / 1e9,
-        "peak_nnz_per_s": hbm / bytes_per,
-        "total_bytes": float(bytes_per * nnz),
-    }

@@ -462,10 +462,10 @@ def test_metrics_record_path_and_counts():
         eye @ torch.ones(8, dtype=torch.float64)
         eye @ torch.ones(8, 3, dtype=torch.float64)
         nnz = 32
-        assert [(r.op, r.path, r.nnz, r.flops, r.bytes)
+        assert [(r.op, r.path, r.nnz, r.flops)
                 for r in rec.records] == [
-            ("bsr_spmv", "bsr_spmv:plain", nnz, 2 * nnz, 8 * nnz),
-            ("bsr_spmm", "bsr_spmm:plain", nnz, 2 * nnz * 3, 8 * nnz)]
+            ("bsr_spmv", "bsr_spmv:plain", nnz, 2 * nnz),
+            ("bsr_spmm", "bsr_spmm:plain", nnz, 2 * nnz * 3)]
     finally:
         metrics.disable()
         rec.records.clear()

@@ -324,6 +324,7 @@ def test_no_plain_torch_off_the_cpu():
     "spalinalg_tpu_torch.ops.kernels.csr_sddmm",
     "spalinalg_tpu_torch.utils.metrics",
     "spalinalg_tpu_torch.utils.plancache",
+    "spalinalg_tpu_torch.utils.profiling",
     "spalinalg_tpu_torch.device",
     "spalinalg_tpu_torch.formats.dia",
     "spalinalg_tpu_torch.formats.device",
@@ -621,8 +622,10 @@ def test_parallel_all_matches_jax():
 
 def test_io_and_utils_all_match_jax():
     """The port's io and utils tiers export every name of the JAX
-    package's; the three BCOO/BCSR bridges map to their torch.sparse
-    counterparts, and the io tier keeps its carry functions."""
+    package's, but the utils tier's per-entry byte model
+    (``roofline_model``, ``HBM_GBPS``), which the port left out; the three
+    BCOO/BCSR bridges map to their torch.sparse counterparts, and the io
+    tier keeps its carry functions."""
     import spalinalg_tpu.io as jio
     import spalinalg_tpu.utils as jutils
     import spalinalg_tpu_torch.io as tio
@@ -634,7 +637,8 @@ def test_io_and_utils_all_match_jax():
              "dia_from_arrays", "device_coo_from_arrays", "to_arrays"}
     assert sorted(tio.__all__) == sorted(
         {torch_names.get(n, n) for n in jio.__all__} | carry)
-    assert set(jutils.__all__) <= set(tutils.__all__)
+    assert set(jutils.__all__) - set(tutils.__all__) == {
+        "roofline_model", "HBM_GBPS"}
     assert sorted(set(tutils.__all__) - set(jutils.__all__)) == [
         "StructureCache"]
     for mod in (tio, tutils):
