@@ -43,9 +43,11 @@ pass; each prints its seconds):
    route (in turns with the next; it must be faster where dispatched),
    through ``perm``, the gathered copy beside the gather, and
    ``torch.sparse_csc_tensor @ g`` (each pass and the plain versions
-   beside them), and so Aᵀ·g and Aᵀ·G (k = 64) on phase 3's structure with
-   a column of 150,000 entries (the bucket route where a row of Aᵀ is
-   split); SDDMM at k = 1 beside
+   beside them), and so Aᵀ·g and Aᵀ·G (k = 64 and 256, the SpMM's long
+   row in pieces) and the forward ``A @ X`` beside
+   ``torch.sparse_csr_tensor @ X`` on phase 3's structure with a column
+   of 150,000 entries (the bucket route where a row of Aᵀ is split);
+   SDDMM at k = 1 beside
    ``torch.sparse.sampled_addmm``; SpMV on phase 7's power-law matrix and
    on a matrix with rows of 300,000 and 120,000 entries (the vector
    variant's long-row split), checked and timed.
@@ -475,6 +477,7 @@ N_BIG = 2**21
 ROW_NNZ = 32
 N_MM = 2**19
 K_MM = 64
+K_WIDE = 256     # the GCN's hidden width: the split column's widest product
 BAND = 16
 N_GEMM = 2**19
 N_LONG = 2**20   # rows of the long-row SpMV edge matrix
@@ -889,8 +892,8 @@ def on_card(a, dtype=None, shift: bool = False, device=None):
 
 def ran_variant(counts, before, what: str) -> str:
     """The one variant launched since ``before`` (a copy of ``counts``).
-    The SpMV's ``finish`` count (its second kernel, after a vector launch
-    with split rows) names no variant."""
+    The ``finish`` count (the SpMV's and the SpMM's second kernel, after a
+    launch with split rows) names no variant."""
     ran = [v for v, n in counts.items() if n != before[v] and v != "finish"]
     if len(ran) != 1:
         raise AssertionError(f"{what}: variants {ran} ran, not one")
@@ -1573,9 +1576,9 @@ def check_transposed(what: str, kname: str, rowptr, colind, values, G,
 def split_column_matrix(device):
     """``(rowptr, colind, ncols)``: 2**20 rows of eight random columns on
     average (Poisson) and a column, 777, of 150,000 entries: its block is
-    past BUCKET_BYTES, the transposed SpMV plan splits its row, the SpMM
-    walks that row in one warp, and the values, 34 / 68 MB, fit the L2 in
-    float32 and not in float64."""
+    past BUCKET_BYTES, the transposed SpMV and SpMM split its row into
+    pieces (one row bounds their launches), and the values, 34 / 68 MB, fit
+    the L2 in float32 and not in float64."""
     rng = np.random.default_rng(16)
     n = 2**20
     lens = rng.poisson(8, size=n)
@@ -1798,11 +1801,13 @@ def time_transposed(what: str, kname: str, rowptr, colind, values, G,
 
 
 def time_split_column(device, card: str) -> None:
-    """The transposed products on split_column_matrix, the structure of
-    phase 3 whose Aᵀ has a row the SpMV splits and the SpMM walks in one
-    warp: time_transposed for Aᵀ·g and for Aᵀ·G at k = 64, in both dtypes
-    (each route; a dispatched bucket route must be faster than through
-    perm)."""
+    """The products on split_column_matrix, the structure of phase 3
+    whose Aᵀ has a row that the SpMV and the SpMM split into pieces: the
+    forward ``A @ X`` (rows of eight: no pieces) beside
+    ``torch.sparse_csr_tensor @ X`` at k = 64 and 256, and time_transposed
+    for Aᵀ·g and for Aᵀ·G at k = 64 and 256, in both dtypes (each route; a
+    dispatched bucket route must be faster than through perm), each with
+    its bound."""
     rowptr, colind, n = split_column_matrix(device)
     nnz = colind.numel()
     gen = torch.Generator(device=device)
@@ -1810,17 +1815,40 @@ def time_split_column(device, card: str) -> None:
     for name, (_, dtype) in DTYPES.items():
         itemsize = torch.empty((), dtype=dtype).element_size()
         values = torch.randn(nnz, generator=gen, dtype=dtype, device=device)
-        for k in (1, K_MM):
+        for k in (1, K_MM, K_WIDE):
             G = torch.randn((n,) if k == 1 else (n, k), generator=gen,
                             dtype=dtype, device=device)
             nbytes = ((itemsize + 4) * nnz + itemsize * k * 2 * n
                       + 4 * (n + 1))
-            time_transposed(f"{name} a column of 150,000 entries, n={n} "
-                            f"k={k}", "csr_spmv" if k == 1 else "csr_spmm",
+            what = f"{name} a column of 150,000 entries, n={n} k={k}"
+            if k > 1:
+                time_split_forward(what, rowptr, colind, values, G, n,
+                                   nbytes, card)
+            time_transposed(what, "csr_spmv" if k == 1 else "csr_spmm",
                             rowptr, colind, values, G, n, nbytes, card)
             del G
         del values
     free_memory()
+
+
+def time_split_forward(what: str, rowptr, colind, values, X, n: int,
+                       nbytes: float, card: str) -> None:
+    """The forward ``A @ X`` on split_column_matrix behind the spin, the
+    dispatched kernel beside ``torch.sparse_csr_tensor(A) @ X``, with the
+    bound and the metrics path."""
+    name = "float64" if values.dtype == torch.float64 else "float32"
+    time_ms(lambda: csr_spmm(rowptr, colind, values, X, n), 1)
+    ms = time_ms(lambda: csr_spmm(rowptr, colind, values, X, n),
+                 TIMED_LAUNCHES, spin=True)
+    nnz = int(rowptr[-1])
+    lib = torch.sparse_csr_tensor(rowptr, colind[:nnz], values[:nnz], (n, n))
+    lib_ms = library_ms(lambda: lib @ X, spin=True)
+    del lib
+    b = bound(nbytes, 2 * nnz * X.shape[1], name)
+    path = spmm_mod.kernel_path(rowptr, colind, values, X)
+    print(f"phase 4/8: {what} A @ X ({path}): {ms:.4f} ms; library "
+          f"torch.sparse_csr_tensor @ X {lib_ms:.4f}; "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) | {card}")
 
 
 def check_spmv(big, main_out, report) -> None:

@@ -34,6 +34,26 @@
 // each round with __shfl_sync; where a perm is given, an instance of its
 // own reads the values through it.
 //
+// Long rows, in both (the wrapper's row_pieces: where one row holds more
+// entries than a resident warp's share of the launch's, so that its walk
+// alone would set the launch's time). A warp a row walks a row of L
+// entries in L / 32 batches, one after another: on a power-law graph at k
+// = 256 a 163,243-entry row took as long as the other 132M entries
+// together. There the wrapper passes the SpMV's long-row plan (csr_spmv.cu;
+// every row longer than `budget` entries cut into pieces of `budget`
+// entries, the last shorter) and scratch for a partial row a piece. The
+// first npieces warps of the grid each walk one piece with the variant's
+// own loop (the same gathers, perm and column blocks, stopping at the
+// row's end, so padding slots are never read) and write its partial row;
+// warp npieces + r walks row r as before, except a long row, which it
+// leaves to its pieces. Pieces come first, so none waits in the last wave.
+// A second kernel (csr_spmm_finish) then adds each long row's partials in
+// piece order, a warp a row and 32 columns, a lane a column. Whether a
+// launch has pieces is a template parameter (PIECES), and the piece
+// arguments come last, so the unsplit instances keep the code of a warp a
+// row: a run-time test in one instance slowed the unsplit register kernel
+// 11 % (csr_random, k = 64) to 24 % (rows of eight) in double on the H100.
+//
 // vector (float, k a multiple of 4, X and Y 16-byte aligned). A group of S
 // lanes reads a row of X in 16-byte vectors (float4; S the power of two
 // covering the row's vectors, at most 32, NV <= 2 vectors a lane, wider
@@ -90,24 +110,32 @@
 // rowptr[nrows] are in no tile. PERF.md has its times beside the other
 // variants' (spalinalg_tpu_torch/tools/bench_csr.py --variants).
 //
-// All: no atomics, and the summation order depends only on the structure
-// and k, so a result is bitwise the same from run to run. Slots past
+// All: no atomics, and the summation order depends only on the structure,
+// k and the piece plan, so a result is bitwise the same from run to run;
+// without pieces the bits are those of a warp a row. Slots past
 // rowptr[nrows] are never read; an empty row gives 0. Offsets into X and Y
 // are 64-bit, since ncols * k passes 2^31 well inside the card's memory.
 // Registers (ptxas -v, nvcc 12.9, sm_90a): the vector kernel at k = 64
-// (float, S = 16) 64 with 8 bytes of spill stores; its other instances
-// 40-80, spilling 0-20 bytes; the register kernel at k = 64 38 (double)
-// and 32 (float), no spills; its other instances 32-62, 0-4 bytes; the
+// (float, S = 16) 64 with 8 bytes of spill stores, at k = 256 (S = 32, NV
+// = 2) 80 with 20; its other instances 40-78, spilling 0-8 bytes; the
+// register kernel at k = 64 38 (double) and 32 (float, 4 bytes), its other
+// instances 32-62, 0-12 bytes; their pieced instances within 16 registers
+// of these (at k = 64 40 and 38; the vector kernel at k = 256 80 with 32
+// bytes); the finishing kernel 32 (float) and 34 (double), no spills; the
 // staged kernel's split rows at k = 64 55 (double, L = 16, NV = 2) and 46
 // (float, NV = 1), its other instances 43-76, its register-loop instances
 // 30-48, no spills but 16 bytes at G = 16 in double.
 //
 // C interface: one entry point per type, with the variant as an int (0
 // register, 1 vector, 2 staged; staged also takes the tile plan, its tile
-// count and its widest window). Each launches on the given stream, allocates
-// nothing, does not synchronise, and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments the variant does not take.
-// nrows == 0 or k == 0 launches nothing.
+// count and its widest window; register and vector take the piece plan:
+// each piece's row, then each piece's first entry, the long rows and the
+// first piece of each, as one int32 array, with their counts, the budget
+// and scratch of npieces * k elements; npieces == 0 walks a row a warp).
+// Each launches on the given stream, allocates nothing, does not
+// synchronise, and returns cudaGetLastError(), or cudaErrorInvalidValue for
+// arguments the variant does not take. nrows == 0 or k == 0 launches
+// nothing.
 
 #include <cstdint>
 
@@ -134,23 +162,71 @@ __device__ __forceinline__ T slot_value(const T* values, const int* perm,
   return PERM ? __ldg(values + __ldcs(perm + p)) : __ldcs(values + p);
 }
 
-template <typename T, int G, int NT, bool PERM>
+// The piece plan: piece_row (npieces), piece_start (npieces), then the
+// finishing kernel's long rows (nlong) and first pieces (nlong + 1).
+struct Pieces {
+  const int* plan;
+  long long npieces;
+  long long nlong;
+  long long budget;
+};
+
+// The slots [start, end) of this warp and the row it writes: row `orow`
+// of `base` (Y or partial), `width` elements (T or 16-byte vectors) a row,
+// which starts at `out`. With PIECES, warp w < npieces walks piece w
+// (budget slots from its first, fewer at its row's end) into row w of
+// partial, and warp npieces + r row r of Y unless that row is longer than
+// the budget; without, warp r row r of Y. False: the warp writes nothing.
+// The same for every lane of a warp. Both forms of the row are given
+// because nvcc 12.9 compiled each kernel best with its own: the register
+// kernel's stores from base and orow keep its unsplit instances' code; the
+// vector kernel from base and orow took 140 registers (80 with `out`) in
+// its pieced instance at k = 256.
+template <bool PIECES, typename P>
+__device__ __forceinline__ bool warp_work(const int* __restrict__ rowptr,
+                                          Pieces pc, P* Y, P* partial,
+                                          long long nrows, long long width,
+                                          P*& base, long long& orow, P*& out,
+                                          long long& start, long long& end) {
+  const long long w =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
+  if (PIECES && w < pc.npieces) {
+    start = pc.plan[pc.npieces + w];
+    const long long row_end = rowptr[pc.plan[w] + 1];
+    end = start + pc.budget < row_end ? start + pc.budget : row_end;
+    base = partial;
+    orow = w;
+    out = partial + w * width;
+    return true;
+  }
+  const long long row = PIECES ? w - pc.npieces : w;
+  if (row >= nrows) {
+    return false;
+  }
+  start = rowptr[row];
+  end = rowptr[row + 1];
+  base = Y;
+  orow = row;
+  out = Y + row * width;
+  return !PIECES || end - start <= pc.budget;  // else its pieces write it
+}
+
+template <typename T, int G, int NT, bool PERM, bool PIECES>
 __global__ void __launch_bounds__(kThreads)
 csr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colind,
                 const T* __restrict__ values, const int* __restrict__ perm,
                 const T* __restrict__ X, T* __restrict__ Y, long long nrows,
-                long long k) {
+                long long k, Pieces pc, T* __restrict__ partial) {
   constexpr int S = kWarp / G;  // sub-groups: entries in flight per warp
-  const long long row =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
-  if (row >= nrows) {
-    return;  // the whole warp leaves together: row is uniform in a warp
+  T *base, *out;
+  long long orow, start, end;
+  if (!warp_work<PIECES>(rowptr, pc, Y, partial, nrows, k, base, orow, out,
+                         start, end)) {
+    return;  // the whole warp leaves together
   }
   const int lane = threadIdx.x & (kWarp - 1);
   const int sub = lane / G;
   const int c0 = lane % G;
-  const long long start = rowptr[row];
-  const long long end = rowptr[row + 1];
   for (long long cb = 0; cb < k; cb += G * NT) {
     T acc[NT];
 #pragma unroll
@@ -191,7 +267,7 @@ csr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colind,
       }
     }
     if (sub == 0) {
-      T* yr = Y + row * k + cb + c0;
+      T* yr = base + orow * k + cb + c0;
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
         if (cb + c0 + t * G < k) {
@@ -200,6 +276,32 @@ csr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colind,
       }
     }
   }
+}
+
+// Y of each long row: its pieces' partials (rows of partial, k wide) added
+// in piece order. A warp takes a long row and a block of 32 columns, a lane
+// a column.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+csr_spmm_finish(const int* __restrict__ long_rows,
+                const int* __restrict__ first_piece,
+                const T* __restrict__ partial, T* __restrict__ Y,
+                long long nlong, long long k) {
+  const long long cblocks = (k + kWarp - 1) / kWarp;
+  const long long w =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
+  const long long c = (w % cblocks) * kWarp + (threadIdx.x & (kWarp - 1));
+  const long long i = w / cblocks;
+  if (i >= nlong || c >= k) {
+    return;
+  }
+  T sum = T(0);
+  const long long p1 = first_piece[i + 1];
+#pragma unroll 8
+  for (long long p = first_piece[i]; p < p1; ++p) {
+    sum += __ldcs(partial + p * k + c);
+  }
+  Y[static_cast<long long>(long_rows[i]) * k + c] = sum;
 }
 
 // 16 bytes from global to shared memory.
@@ -450,28 +552,27 @@ struct Vec<float> {
   }
 };
 
-template <typename T, int S, int NV, bool PERM>
+template <typename T, int S, int NV, bool PERM, bool PIECES>
 __global__ void __launch_bounds__(kThreads)
 csr_spmm_vector(const int* __restrict__ rowptr, const int* __restrict__ colind,
                 const T* __restrict__ values, const int* __restrict__ perm,
                 const T* __restrict__ X, T* __restrict__ Y, long long nrows,
-                long long nvec) {
+                long long nvec, Pieces pc, T* __restrict__ partial) {
   using Op = Vec<T>;
   using V = typename Op::V;
   constexpr int SG = kWarp / S;  // groups: each takes S entries of a batch
   constexpr int U = S < 4 ? S : 4;  // entries a group a step
-  const long long row =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
-  if (row >= nrows) {
-    return;  // the whole warp leaves together: row is uniform in a warp
+  V *base, *y;
+  long long orow, start, end;
+  if (!warp_work<PIECES>(rowptr, pc, reinterpret_cast<V*>(Y),
+                         reinterpret_cast<V*>(partial), nrows, nvec, base,
+                         orow, y, start, end)) {
+    return;  // the whole warp leaves together
   }
   const int lane = threadIdx.x & (kWarp - 1);
   const int sub = lane / S;
   const int c0 = lane % S;
-  const long long start = rowptr[row];
-  const long long end = rowptr[row + 1];
   const V* x = reinterpret_cast<const V*>(X);
-  V* y = reinterpret_cast<V*>(Y) + row * nvec;
   for (long long cb = 0; cb < nvec; cb += S * NV) {
     V acc[NV];
 #pragma unroll
@@ -546,19 +647,27 @@ csr_spmm_vector(const int* __restrict__ rowptr, const int* __restrict__ colind,
   }
 }
 
+// Blocks of the register and vector kernels: a warp a piece and a row.
+long long walk_blocks(long long nrows, const Pieces& pc) {
+  return (pc.npieces + nrows + kRowsPerBlock - 1) / kRowsPerBlock;
+}
+
 template <typename T, int S, int NV, bool PERM>
 int launch_vec(const void* rowptr, const void* colind, const void* values,
-               const void* perm, const void* X, void* Y, long long nrows,
-               long long nvec, cudaStream_t stream) {
-  const long long blocks = (nrows + kRowsPerBlock - 1) / kRowsPerBlock;
+               const void* perm, const void* X, void* Y, Pieces pc,
+               void* partial, long long nrows, long long nvec,
+               cudaStream_t stream) {
+  const long long blocks = walk_blocks(nrows, pc);
   if (blocks > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  csr_spmm_vector<T, S, NV, PERM><<<static_cast<unsigned>(blocks), kThreads,
-                                    0, stream>>>(
+  auto* const kernel = pc.npieces > 0 ? csr_spmm_vector<T, S, NV, PERM, true>
+                                      : csr_spmm_vector<T, S, NV, PERM, false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const int*>(rowptr), static_cast<const int*>(colind),
       static_cast<const T*>(values), static_cast<const int*>(perm),
-      static_cast<const T*>(X), static_cast<T*>(Y), nrows, nvec);
+      static_cast<const T*>(X), static_cast<T*>(Y), nrows, nvec, pc,
+      static_cast<T*>(partial));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -568,17 +677,37 @@ bool aligned16(const void* p) {
 
 template <typename T, int G, int NT, bool PERM>
 int launch_g(const void* rowptr, const void* colind, const void* values,
-             const void* perm, const void* X, void* Y, long long nrows,
-             long long k, cudaStream_t stream) {
-  const long long blocks = (nrows + kRowsPerBlock - 1) / kRowsPerBlock;
+             const void* perm, const void* X, void* Y, Pieces pc,
+             void* partial, long long nrows, long long k,
+             cudaStream_t stream) {
+  const long long blocks = walk_blocks(nrows, pc);
   if (blocks > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  csr_spmm_kernel<T, G, NT, PERM><<<static_cast<unsigned>(blocks), kThreads,
-                                    0, stream>>>(
+  auto* const kernel = pc.npieces > 0 ? csr_spmm_kernel<T, G, NT, PERM, true>
+                                      : csr_spmm_kernel<T, G, NT, PERM, false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const int*>(rowptr), static_cast<const int*>(colind),
       static_cast<const T*>(values), static_cast<const int*>(perm),
-      static_cast<const T*>(X), static_cast<T*>(Y), nrows, k);
+      static_cast<const T*>(X), static_cast<T*>(Y), nrows, k, pc,
+      static_cast<T*>(partial));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The long rows' sums from their pieces' partials (after the walk, on the
+// same stream).
+template <typename T>
+int launch_finish(const Pieces& pc, const void* partial, void* Y,
+                  long long k, cudaStream_t stream) {
+  const long long warps = pc.nlong * ((k + kWarp - 1) / kWarp);
+  const long long blocks = (warps + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (blocks > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const int* long_rows = pc.plan + 2 * pc.npieces;
+  csr_spmm_finish<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      long_rows, long_rows + pc.nlong, static_cast<const T*>(partial),
+      static_cast<T*>(Y), pc.nlong, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -655,49 +784,75 @@ int launch_staged(const void* rowptr, const void* colind, const void* values,
   return launch_st<T, 32, 2, PERM>(rowptr, colind, values, perm, X, Y, plan, ntiles, shared, nrows, k, s);
 }
 
+// The register or vector walk (with pieces where pc has some).
 template <typename T, bool PERM>
-int launch_variant(const void* rowptr, const void* colind, const void* values,
-                   const void* perm, const void* X, void* Y, long long nrows,
-                   long long k, int variant, const void* plan,
-                   long long ntiles, long long max_window, cudaStream_t s) {
-  if (variant == kStaged) {
-    return launch_staged<T, PERM>(rowptr, colind, values, perm, X, Y, nrows,
-                                  k, plan, ntiles, max_window, s);
-  }
+int launch_walk(const void* rowptr, const void* colind, const void* values,
+                const void* perm, const void* X, void* Y, long long nrows,
+                long long k, int variant, Pieces pc, void* partial,
+                cudaStream_t s) {
   if (variant == kVector) {
     if constexpr (sizeof(T) != sizeof(float)) {
       return static_cast<int>(cudaErrorInvalidValue);
     } else {
-      if (k % Vec<T>::kWidth || !aligned16(X) || !aligned16(Y)) {
+      if (k % Vec<T>::kWidth || !aligned16(X) || !aligned16(Y) ||
+          (pc.npieces > 0 && !aligned16(partial))) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
       const long long nv = k / Vec<T>::kWidth;
-      if (nv == 1) return launch_vec<T, 1, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
-      if (nv == 2) return launch_vec<T, 2, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
-      if (nv <= 4) return launch_vec<T, 4, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
-      if (nv <= 8) return launch_vec<T, 8, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
-      if (nv <= 16) return launch_vec<T, 16, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
-      if (nv <= 32) return launch_vec<T, 32, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
-      return launch_vec<T, 32, 2, PERM>(rowptr, colind, values, perm, X, Y, nrows, nv, s);
+      if (nv == 1) return launch_vec<T, 1, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, nv, s);
+      if (nv == 2) return launch_vec<T, 2, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, nv, s);
+      if (nv <= 4) return launch_vec<T, 4, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, nv, s);
+      if (nv <= 8) return launch_vec<T, 8, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, nv, s);
+      if (nv <= 16) return launch_vec<T, 16, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, nv, s);
+      if (nv <= 32) return launch_vec<T, 32, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, nv, s);
+      return launch_vec<T, 32, 2, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, nv, s);
     }
   }
   if (variant != kRegister) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (k == 1) return launch_g<T, 1, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
-  if (k == 2) return launch_g<T, 2, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
-  if (k <= 4) return launch_g<T, 4, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
-  if (k <= 8) return launch_g<T, 8, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
-  if (k <= 16) return launch_g<T, 16, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
-  if (k <= 32) return launch_g<T, 32, 1, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
-  return launch_g<T, 32, 2, PERM>(rowptr, colind, values, perm, X, Y, nrows, k, s);
+  if (k == 1) return launch_g<T, 1, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, k, s);
+  if (k == 2) return launch_g<T, 2, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, k, s);
+  if (k <= 4) return launch_g<T, 4, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, k, s);
+  if (k <= 8) return launch_g<T, 8, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, k, s);
+  if (k <= 16) return launch_g<T, 16, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, k, s);
+  if (k <= 32) return launch_g<T, 32, 1, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, k, s);
+  return launch_g<T, 32, 2, PERM>(rowptr, colind, values, perm, X, Y, pc, partial, nrows, k, s);
+}
+
+// The staged variant, or the walk and, with pieces, the finishing kernel.
+// Refuses pieces with the staged variant, a piece plan without its long
+// rows, budget or scratch, and negative counts.
+template <typename T, bool PERM>
+int launch_variant(const void* rowptr, const void* colind, const void* values,
+                   const void* perm, const void* X, void* Y, long long nrows,
+                   long long k, int variant, const void* plan,
+                   long long ntiles, long long max_window, Pieces pc,
+                   void* partial, cudaStream_t s) {
+  if (pc.npieces < 0 || pc.nlong < 0 ||
+      (pc.npieces > 0 &&
+       (variant == kStaged || pc.plan == nullptr || pc.nlong == 0 ||
+        pc.budget < 1 || partial == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (variant == kStaged) {
+    return launch_staged<T, PERM>(rowptr, colind, values, perm, X, Y, nrows,
+                                  k, plan, ntiles, max_window, s);
+  }
+  const int walked = launch_walk<T, PERM>(rowptr, colind, values, perm, X, Y,
+                                          nrows, k, variant, pc, partial, s);
+  if (walked != 0 || pc.npieces == 0) {
+    return walked;
+  }
+  return launch_finish<T>(pc, partial, Y, k, s);
 }
 
 template <typename T>
 int launch(const void* rowptr, const void* colind, const void* values,
            const void* perm, const void* X, void* Y, long long nrows,
            long long k, int variant, const void* plan, long long ntiles,
-           long long max_window, void* stream) {
+           long long max_window, const void* pieces, long long npieces,
+           long long nlong, long long budget, void* partial, void* stream) {
   if (nrows < 0 || k < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -705,12 +860,15 @@ int launch(const void* rowptr, const void* colind, const void* values,
     return static_cast<int>(cudaSuccess);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Pieces pc{static_cast<const int*>(pieces), npieces, nlong, budget};
   if (perm != nullptr) {
     return launch_variant<T, true>(rowptr, colind, values, perm, X, Y, nrows,
-                                   k, variant, plan, ntiles, max_window, s);
+                                   k, variant, plan, ntiles, max_window, pc,
+                                   partial, s);
   }
   return launch_variant<T, false>(rowptr, colind, values, perm, X, Y, nrows,
-                                  k, variant, plan, ntiles, max_window, s);
+                                  k, variant, plan, ntiles, max_window, pc,
+                                  partial, s);
 }
 
 }  // namespace
@@ -720,9 +878,12 @@ extern "C" int spal_csr_spmm_f32(const void* rowptr, const void* colind,
                                  const void* X, void* Y, long long nrows,
                                  long long k, int variant, const void* plan,
                                  long long ntiles, long long max_window,
-                                 void* stream) {
+                                 const void* pieces, long long npieces,
+                                 long long nlong, long long budget,
+                                 void* partial, void* stream) {
   return launch<float>(rowptr, colind, values, perm, X, Y, nrows, k, variant,
-                       plan, ntiles, max_window, stream);
+                       plan, ntiles, max_window, pieces, npieces, nlong,
+                       budget, partial, stream);
 }
 
 extern "C" int spal_csr_spmm_f64(const void* rowptr, const void* colind,
@@ -730,7 +891,10 @@ extern "C" int spal_csr_spmm_f64(const void* rowptr, const void* colind,
                                  const void* X, void* Y, long long nrows,
                                  long long k, int variant, const void* plan,
                                  long long ntiles, long long max_window,
-                                 void* stream) {
+                                 const void* pieces, long long npieces,
+                                 long long nlong, long long budget,
+                                 void* partial, void* stream) {
   return launch<double>(rowptr, colind, values, perm, X, Y, nrows, k, variant,
-                        plan, ntiles, max_window, stream);
+                        plan, ntiles, max_window, pieces, npieces, nlong,
+                        budget, partial, stream);
 }

@@ -38,10 +38,10 @@ _ENTRIES = {
                                          ctypes.c_int, _P]
        + [ctypes.c_longlong] * 3 + [_P, _P] for t in ("f32", "f64")},
     # (rowptr, colind, values, perm, X, Y, nrows, k, variant, plan, ntiles,
-    #  max_window, stream)
+    #  max_window, pieces, npieces, nlong, budget, partial, stream)
     **{f"spal_csr_spmm_{t}": [_P] * 6 + [ctypes.c_longlong] * 2
        + [ctypes.c_int, _P] + [ctypes.c_longlong] * 2 + [_P]
-       for t in ("f32", "f64")},
+       + [ctypes.c_longlong] * 3 + [_P, _P] for t in ("f32", "f64")},
     # (major, rowptr, colind, G, X, out, nse, nrows, k, variant, plan, n_a,
     #  n_b, n_c, stream)
     **{f"spal_csr_sddmm_{t}": [_P] * 6 + [ctypes.c_longlong] * 3

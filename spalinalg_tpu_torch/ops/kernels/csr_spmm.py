@@ -10,18 +10,28 @@ Pallas kernels on the JAX package's SpMM path:
 
 One warp per row reads ``rowptr``/``colind``/``values`` directly and
 gathers rows of ``X``, for float32 and float64 and any number of columns.
-It has three variants, chosen by :func:`csr_spmm_variant` and passed to the
-kernel by name: ``staged`` (a CTA copies the rows of ``X`` its tile of rows
-reads, the window of :func:`~.csr_spmv.csr_tile_plan`, into shared memory
-and runs its rows on them; it gives the register variant's bits) where the
+Where one row would bound the launch (:func:`one_row_bounds`, decided once
+per ``rowptr`` by :func:`row_split`), the ``register`` and ``vector``
+variants split every row longer than :data:`~.csr_spmv.BUDGET` entries
+into pieces of the SpMV's cached long-row plan
+(:func:`~.csr_spmv.csr_spmv_plan`): a warp a piece writes a partial row,
+and a second kernel adds each long row's partials in piece order
+(:func:`row_pieces`). It has three variants, chosen by
+:func:`csr_spmm_variant` and passed to the kernel by name: ``staged`` (a
+CTA copies the rows of ``X`` its tile of rows reads, the window of
+:func:`~.csr_spmv.csr_tile_plan`, into shared memory and runs its rows on
+them; it gives the register variant's bits) where the
 widest window fits :data:`~.csr_spmv.STAGE_BUDGET` and ``X`` starts on a
 16-byte boundary (a banded matrix); ``vector`` (16-byte row gathers, 8
 entries' rows in flight a warp at k = 64) for float32 where ``k`` is a
 multiple of 4 and ``X`` starts on a 16-byte boundary; ``register`` (the
 first design, one element a lane) otherwise. ``csr_spmm(..., variant=...)``
 names one on purpose. Each launch adds one to ``LAUNCHES`` (by dtype) and
-to ``VARIANT_LAUNCHES``; the metrics path names the variant, for example
-``csr_spmm:cuda:vector``.
+to ``VARIANT_LAUNCHES``; a launch with pieces adds one more to each
+(``VARIANT_LAUNCHES["finish"]``, the second kernel) and counts in
+``PIECED`` (launches, and the slots its pieces walked). The metrics path
+names the variant, with ``+pieces`` where rows are split, for example
+``csr_spmm:cuda:vector+pieces``.
 
 :func:`csr_spmm` is the wrapper. For CUDA tensors it launches the kernel or
 raises; for CPU tensors it runs the plain version, which is
@@ -39,25 +49,33 @@ JAX package).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch.autograd.function import once_differentiable
 
 from ...dtypes import INDEX_DTYPE, acc_dtype
 from ...errors import DTypeError, ShapeError
 from ...utils.plancache import StructureCache
+from ...utils.profiling import annotate
 from .csr_sddmm import csr_sddmm
-from .csr_spmv import (aligned16, csr_spmv_plain, csr_tile_plan, staged_fits,
+from .csr_spmv import (BUDGET, SpmvPlan, aligned16, csr_spmv_plain,
+                       csr_spmv_plan, csr_tile_plan, staged_fits,
                        transpose_plan)
 from .csr_transpose import ROUTES, transposed_route, transposed_values
 
-__all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "WARPS_PER_SM", "CsrSpmm",
-           "csr_spmm", "csr_spmm_plain", "csr_spmm_variant", "kernel_path",
-           "one_row_bounds", "spmm_route", "transposed_spmm"]
+__all__ = ["LAUNCHES", "PIECED", "VARIANT_LAUNCHES", "WARPS_PER_SM",
+           "CsrSpmm", "RowSplit", "csr_spmm", "csr_spmm_plain",
+           "csr_spmm_variant", "kernel_path", "one_row_bounds", "row_pieces",
+           "row_split", "row_split_of", "spmm_route", "transposed_spmm"]
 
 # Kernel launches per instantiation and per variant: plain integers,
-# advanced only where the wrapper launches the kernel.
+# advanced only where the wrapper launches the kernel. "finish" counts the
+# second kernel of a launch with pieces; PIECED such launches and the slots
+# their pieces walked.
 LAUNCHES = {"float32": 0, "float64": 0}
-VARIANT_LAUNCHES = {"register": 0, "vector": 0, "staged": 0}
+VARIANT_LAUNCHES = {"register": 0, "vector": 0, "staged": 0, "finish": 0}
+PIECED = {"launches": 0, "slots": 0}
 
 _VARIANT_CODE = {"register": 0, "vector": 1, "staged": 2}
 
@@ -112,7 +130,80 @@ def kernel_path(rowptr, colind, values, X) -> str:
         return "plain"
     acc = acc_dtype(values.dtype, X.dtype)
     plan = csr_tile_plan(rowptr, colind)
-    return f"cuda:{csr_spmm_variant(X.to(acc).contiguous(), plan)}"
+    variant = csr_spmm_variant(X.to(acc).contiguous(), plan)
+    pieces = variant != "staged" and row_pieces(rowptr) is not None
+    return f"cuda:{variant}{'+pieces' if pieces else ''}"
+
+
+# Warps an SM of the H100 keeps resident (2,048 threads).
+WARPS_PER_SM = 64
+
+# Live as long as each structure does (see utils/plancache.py).
+_ROW_SPLITS = StructureCache()
+
+
+def one_row_bounds(longest: int, nnz: int, sms: int) -> bool:
+    """Whether one row of ``longest`` entries bounds a launch over ``nnz``
+    entries on ``sms`` SMs, were it walked by one warp: it holds more
+    entries than a resident warp's share of them. Where it does, the
+    wrapper splits the long rows (:func:`row_pieces`). A pure function.
+
+    >>> one_row_bounds(150_001, 8_535_214, 132), one_row_bounds(60, 2**24, 132)
+    (True, False)
+    """
+    return longest * sms * WARPS_PER_SM > nnz
+
+
+class RowSplit(NamedTuple):
+    """How launches on one ``rowptr`` walk its rows (:func:`row_split`):
+    ``bounded``, whether its longest row bounds a launch
+    (:func:`one_row_bounds`); ``slots``, the slots of its rows longer than
+    :data:`~.csr_spmv.BUDGET`, which are walked in pieces where
+    ``bounded`` (``pieced``)."""
+
+    bounded: bool
+    slots: int
+
+    @property
+    def pieced(self) -> bool:
+        return self.bounded and self.slots > 0
+
+
+def row_split_of(rowptr: torch.Tensor, sms: int) -> RowSplit:
+    """The :class:`RowSplit` of ``rowptr`` on a card of ``sms`` SMs, with
+    one read back. Slots past ``rowptr[-1]`` count for nothing.
+
+    >>> ptr = torch.tensor([0, 3, 303, 304], dtype=torch.int32)
+    >>> row_split_of(ptr, 132), row_split_of(ptr, 132).pieced
+    (RowSplit(bounded=True, slots=300), True)
+    """
+    ptr = rowptr.to(torch.int64)
+    lens = ptr[1:] - ptr[:-1]
+    if lens.numel() == 0:
+        return RowSplit(False, 0)
+    longest, nnz, slots = torch.stack(
+        [lens.max(), ptr[-1], lens[lens > BUDGET].sum()]).tolist()
+    return RowSplit(one_row_bounds(longest, nnz, sms), slots)
+
+
+def row_split(rowptr: torch.Tensor) -> RowSplit:
+    """:func:`row_split_of` on the card ``rowptr`` lies on, decided once
+    per structure (keyed on the identity and shape of ``rowptr``) and
+    dropped with it."""
+    return _ROW_SPLITS.get((rowptr,), lambda: row_split_of(
+        rowptr, torch.cuda.get_device_properties(
+            rowptr.device).multi_processor_count))
+
+
+def row_pieces(rowptr: torch.Tensor) -> SpmvPlan | None:
+    """The pieces the ``register`` and ``vector`` variants walk on
+    ``rowptr``: the SpMV's long-row plan (:func:`~.csr_spmv.csr_spmv_plan`:
+    every row longer than :data:`~.csr_spmv.BUDGET` entries in pieces of
+    ``BUDGET``) where :func:`row_split` is ``pieced``, else None (a warp a
+    row). The lookup, and a build on a miss, is the span
+    ``spal.spmm.plan``."""
+    with annotate("spal.spmm.plan"):
+        return csr_spmv_plan(rowptr) if row_split(rowptr).pieced else None
 
 
 def csr_spmm(rowptr, colind, values, X, nrows: int, perm=None,
@@ -172,7 +263,11 @@ def csr_spmm(rowptr, colind, values, X, nrows: int, perm=None,
     if variant is None:
         variant = csr_spmm_variant(X, plan)
     staged = variant == "staged"
+    pieces = None if staged else row_pieces(rowptr)
+    npieces = 0 if pieces is None else pieces.npieces
     Y = torch.empty((nrows, k), dtype=acc, device=device)
+    partial = (torch.empty((npieces, k), dtype=acc, device=device)
+               if npieces else None)
     with torch.cuda.device(device):
         launch(name, rowptr.data_ptr(), colind.data_ptr(), values.data_ptr(),
                None if perm is None else perm.data_ptr(), X.data_ptr(),
@@ -180,50 +275,34 @@ def csr_spmm(rowptr, colind, values, X, nrows: int, perm=None,
                plan.tiles.data_ptr() if staged else None,
                plan.ntiles if staged else 0,
                plan.max_window if staged else 0,
+               pieces.parts()[1].data_ptr() if npieces else None, npieces,
+               pieces.nlong if npieces else 0, BUDGET,
+               None if partial is None else partial.data_ptr(),
                torch.cuda.current_stream(device).cuda_stream)
-    LAUNCHES[key] += 1
+    finish = int(npieces > 0)
+    LAUNCHES[key] += 1 + finish
     VARIANT_LAUNCHES[variant] += 1
+    VARIANT_LAUNCHES["finish"] += finish
+    if finish:
+        PIECED["launches"] += 1
+        PIECED["slots"] += row_split(rowptr).slots
     return Y
-
-
-# Warps an SM of the H100 keeps resident (2,048 threads).
-WARPS_PER_SM = 64
-
-# Live as long as each structure does (see utils/plancache.py).
-_ROW_BOUNDS = StructureCache()
-
-
-def one_row_bounds(longest: int, nnz: int, sms: int) -> bool:
-    """Whether one row of ``longest`` entries bounds a launch over ``nnz``
-    entries on ``sms`` SMs: the kernel walks a row in one warp, and this
-    row holds more entries than a resident warp's share of them. A pure
-    function.
-
-    >>> one_row_bounds(150_001, 8_535_214, 132), one_row_bounds(60, 2**24, 132)
-    (True, False)
-    """
-    return longest * sms * WARPS_PER_SM > nnz
 
 
 def spmm_route(rowptr, colind, t, ncols: int, itemsize: int) -> str:
     """The route of the SpMM backward's ``Aᵀ·G``:
     :func:`~.csr_transpose.transposed_route`, with ``"buckets"`` kept
     ``"perm"`` where one row of the transpose bounds the launch
-    (:func:`one_row_bounds`, decided once per structure on its card): that
-    row's walk takes as long on either route (a column of 150,000 entries:
-    14.9 / 70.2 ms against 15.1 / 70.5 through ``perm`` at k = 64 on the
-    H100, PERF.md), so pass 1 and ``vb`` would buy nothing."""
+    (:func:`row_split` of ``t.ptr``): while a warp walked that row,
+    pass 1 and ``vb`` bought nothing (a column of 150,000 entries: 14.9 /
+    70.2 ms against 15.1 / 70.5 through ``perm`` at k = 64 on the H100).
+    With the row in pieces buckets ran 3-10 % faster on that column
+    (PERF.md §6, PR 18); the exception stays until a graph's Aᵀ·G says
+    the same."""
     route = transposed_route(rowptr, colind, t, ncols, itemsize)
     if route != "buckets":
         return route
-
-    def decide() -> bool:
-        lengths = t.ptr[1:] - t.ptr[:-1]
-        sms = torch.cuda.get_device_properties(
-            t.ptr.device).multi_processor_count
-        return one_row_bounds(int(lengths.max()), int(t.ptr[-1]), sms)
-
-    return "perm" if _ROW_BOUNDS.get((rowptr, colind), decide) else route
+    return "perm" if row_split(t.ptr).bounded else route
 
 
 def transposed_spmm(rowptr, colind, t, values, G, ncols: int,

@@ -356,7 +356,13 @@ def test_variant_names_are_checked():
     with pytest.raises(ValueError, match="unknown csr_spmm variant"):
         spmm_mod.csr_spmm(ptr, cols, vals, torch.ones(20, 3), 20,
                           variant="tiled")
-    assert set(spmm_mod.VARIANT_LAUNCHES) == {"register", "vector", "staged"}
+    # "finish" counts the second kernel of a launch with pieces; it names
+    # no variant
+    with pytest.raises(ValueError, match="unknown csr_spmm variant"):
+        spmm_mod.csr_spmm(ptr, cols, vals, torch.ones(20, 3), 20,
+                          variant="finish")
+    assert set(spmm_mod.VARIANT_LAUNCHES) == {"register", "vector", "staged",
+                                              "finish"}
     assert set(sddmm_mod.VARIANT_LAUNCHES) == {"scalar", "vector", "staged",
                                                "rowwalk"}
 
