@@ -16,6 +16,11 @@ cell's end-to-end metrics over all of them) or the traced run (``--trace
 unit with the port's metrics recorder on; the cell's per-layer metrics),
 then the output check against the plain reference once the program's
 state is freed, then one JSON line.
+
+A cell on several cards runs this in every rank of a gang (``gang.py``):
+one window that rank 0 opens and closes and every rank runs the same
+units of, every rank traced and checked, and rank 0 gathering their
+readings.
 """
 
 from __future__ import annotations
@@ -128,7 +133,9 @@ class Reservoir:
 
 @dataclass
 class Context:
-    """What a loop's set-up gets."""
+    """What a loop's set-up gets. ``rank``, ``world`` and ``group`` (the
+    harness's gloo group; None on one card) are what a loop's multi-rank
+    branch reads; the port's collectives run on the default group."""
 
     cell: Cell
     seed: int
@@ -136,6 +143,9 @@ class Context:
     tracer: tracing.Tracer
     timings: dict = field(default_factory=dict)   # host seconds by name
     notes: dict = field(default_factory=dict)     # printed, not compared
+    rank: int = 0
+    world: int = 1
+    group: object = None
 
 
 @dataclass
@@ -149,6 +159,10 @@ class Record:
     busy_s: float             # device busy seconds
     peak_bytes: int           # device memory peak
     timings: dict
+    # every rank's readings in rank order (one entry on one card):
+    # ``rank``, ``units``, ``peak_bytes``, ``trace``, ``busy_s`` and, traced,
+    # ``window_s`` (else ``agree_us``); the fields above are rank 0's
+    ranks: list = field(default_factory=list)
 
 
 def power_limit() -> str:
@@ -162,22 +176,68 @@ def power_limit() -> str:
         return "power limit not read"
 
 
-def _window(loop, state, seconds: float) -> tuple:
-    """Whole units until ``seconds`` have passed; ``(units, seconds)`` to
-    the end of the last one's device work."""
+CLOCK_QUERIES = ("clocks.sm,power.draw,clocks_event_reasons.active",
+                 # the same, as nvidia-smi named it before the rename
+                 "clocks.sm,power.draw,clocks_throttle_reasons.active")
+
+
+def card_clocks(device) -> str:
+    """The card's SM clock, power draw and active throttle reasons, as
+    ``nvidia-smi`` reads them (None off the card)."""
+    if device.type != "cuda":
+        return None
+    # by UUID: nvidia-smi's indices need not follow CUDA's order
+    card = f"GPU-{torch.cuda.get_device_properties(device).uuid}"
+    for query in CLOCK_QUERIES:
+        try:
+            out = subprocess.run(
+                ["nvidia-smi", f"--query-gpu={query}", "-i", card,
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=30)
+        except (OSError, subprocess.SubprocessError):
+            break
+        if out.returncode == 0 and out.stdout.strip():
+            return f"{query}: {out.stdout.strip()}"
+    return "clocks not read"
+
+
+def peak_bytes(device) -> int:
+    """The device's memory peak since the run reset it (0 off the card)."""
+    return torch.cuda.max_memory_allocated(device) \
+        if device.type == "cuda" else 0
+
+
+def _window(loop, state, seconds: float, gang=None) -> tuple:
+    """Whole units until ``seconds`` have passed; ``(units, seconds,
+    agreeing seconds)`` to the end of the last one's device work. In a gang
+    the window opens after a barrier, rank 0's clock decides after each
+    unit whether it has passed, every rank gets that decision, and the
+    window closes after a barrier once every rank's work is done."""
     units = 0
+    agree_s = 0.0
+    if gang is not None:
+        gang.barrier()
     t0 = time.perf_counter()
     deadline = t0 + seconds
     while True:
         loop.unit(state)
         units += 1
-        if time.perf_counter() >= deadline:
-            break
+        if gang is None:
+            if time.perf_counter() >= deadline:
+                break
+        else:
+            t = time.perf_counter()
+            stop = gang.agree(t >= deadline)
+            agree_s += time.perf_counter() - t
+            if stop:
+                break
     loop.sync(state)
-    return units, time.perf_counter() - t0
+    if gang is not None:
+        gang.barrier()
+    return units, time.perf_counter() - t0, agree_s
 
 
-def _traced(loop, state, ctx: Context):
+def _traced(loop, state, ctx: Context, gang=None):
     """The traced run's three phases: ``trace_units`` units under the
     profiler with the benchmark's spans on, ``timed_units`` units with
     CUDA-event brackets on, and one unit with the port's metrics recorder
@@ -193,6 +253,8 @@ def _traced(loop, state, ctx: Context):
     tracer.spans = True
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if gang is not None:
+            gang.barrier()         # every rank's profiler is on: one window
         with torch.profiler.record_function(tracing.WINDOW_SPAN):
             for _ in range(int(traffic["trace_units"])):
                 loop.unit(state)
@@ -231,14 +293,18 @@ def _check_modules(where: str) -> None:
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              t_start: float, device, print_fn=print,
-             imported_s: float = None):
+             imported_s: float = None, gang=None):
     """One run of ``cell`` on ``device``: set-up, window or trace, check.
-    ``t_start`` is the wall-clock time the run's process started. Returns
-    the result dict with the compared numbers under ``checks``."""
+    ``t_start`` is the wall-clock time the run started. Returns the result
+    dict with the compared numbers under ``checks``. In a gang (``gang``,
+    this rank's :class:`gang.Gang`) every rank runs this; rank 0 gets the
+    result, from every rank's readings, and every other rank None."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tracer = tracing.Tracer()
     ctx = Context(cell=cell, seed=int(seed), device=device, tracer=tracer)
+    if gang is not None:
+        ctx.rank, ctx.world, ctx.group = gang.rank, gang.world, gang.group
     if imported_s is not None:
         ctx.timings["imports_s"] = imported_s
     loop = loop_module(cell.traffic["loop"])
@@ -249,26 +315,54 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     state = loop.setup(ctx)
     loop.sync(state)
     setup_s = time.time() - t_start
-    metrics, dev = {}, {}
-    reduced, paths, iterations = None, [], 0
+    metrics = {}
+    reduced, paths, iterations, agree_s = None, [], 0, 0.0
+    clocks_before = card_clocks(device)
     if not trace:
-        units, window_s = _window(loop, state, seconds)
-        values = loop.end_to_end(state, units, window_s)
-        values["setup_s"] = setup_s
-        for m in cell.end_to_end:
-            if m["name"] in values:
-                metrics[m["name"]] = {"value": values[m["name"]],
-                                      "unit": m["unit"]}
+        units, window_s, agree_s = _window(loop, state, seconds, gang)
+        if ctx.rank == 0:
+            values = loop.end_to_end(state, units, window_s)
+            values["setup_s"] = setup_s
+            for m in cell.end_to_end:
+                if m["name"] in values:
+                    metrics[m["name"]] = {"value": values[m["name"]],
+                                          "unit": m["unit"]}
     else:
-        reduced, units, iterations, paths = _traced(loop, state, ctx)
-    peak = (torch.cuda.max_memory_allocated(device) if is_cuda else 0)
+        reduced, units, iterations, paths = _traced(loop, state, ctx, gang)
+    if is_cuda:
+        ctx.notes["clocks"] = {"before": clocks_before,
+                               "after": card_clocks(device)}
+    peak = peak_bytes(device)
     _check_modules("after the window")
     busy = reduced["busy_s"] if reduced else 0.0
-    record = Record(cell=cell.name, trace=reduced, tracer=tracer,
-                    iterations=iterations, busy_s=busy, peak_bytes=peak,
-                    timings=ctx.timings)
     checks = loop.check(state, cell.limits)        # frees the program first
     state = None
+    mine = {"rank": ctx.rank, "units": units, "peak_bytes": int(peak),
+            "trace": reduced, "busy_s": busy}
+    if trace:
+        mine["window_s"] = reduced["window_s"]
+    else:
+        mine["agree_us"] = 1e6 * agree_s / units
+    # every rank past its check, or rank 0 waits here until the launcher
+    # ends the gang
+    ranks = [mine] if gang is None else gang.gather(mine)
+    if trace:
+        print_fn("variant paths: " + json.dumps(paths))
+        print_fn("device ops: " + json.dumps(
+            [[n, s, c] for n, s, c in reduced["device_ops"][:20]]))
+    if ranks is None:                              # not rank 0
+        print_fn("timings: " + json.dumps(ctx.timings))
+        if ctx.notes:
+            print_fn("notes: " + json.dumps(ctx.notes))
+        return None
+    if gang is not None:
+        ctx.notes["ranks"] = [
+            {k: v for k, v in r.items() if k not in ("trace", "busy_s")}
+            | ({"busy_share": r["busy_s"] / r["window_s"]} if trace else {})
+            for r in ranks]
+    record = Record(cell=cell.name, trace=reduced, tracer=tracer,
+                    iterations=iterations, busy_s=busy, peak_bytes=peak,
+                    timings=ctx.timings, ranks=ranks)
     if trace:
         for m in cell.per_layer:
             value = metric_reader(m["name"])(record)
@@ -277,18 +371,19 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     failed = sum(1 for c in checks.values() if not c["value"] <= c["limit"])
     dev = {"platform": "gpu",
            "kind": torch.cuda.get_device_name(device) if is_cuda else "cpu",
-           "count": cell.chips, "memory_peak_bytes": int(peak)}
+           "count": cell.chips,
+           "memory_peak_bytes": max(r["peak_bytes"] for r in ranks)}
     out = {"correct": failed == 0 and bool(checks), "attempted": units,
            "failed": failed, "metrics": metrics, "device": dev}
     if trace:
-        dev["busy_s"] = busy
-        dev["window_s"] = reduced["window_s"]
+        # the idlest card: it waits longest on the others
+        idle = min(ranks, key=lambda r: r["busy_s"] / r["window_s"])
+        dev["busy_s"] = idle["busy_s"]
+        dev["window_s"] = idle["window_s"]
         out["breakdown"] = {
-            "device_ops": [[n, s] for n, s, _ in reduced["device_ops"][:10]],
-            "idle_gaps": [[n, s] for n, s in reduced["idle_gaps"][:10]]}
-        print_fn("variant paths: " + json.dumps(paths))
-        print_fn("device ops: " + json.dumps(
-            [[n, s, c] for n, s, c in reduced["device_ops"][:20]]))
+            "device_ops": [[n, s] for n, s, _ in
+                           idle["trace"]["device_ops"][:10]],
+            "idle_gaps": [[n, s] for n, s in idle["trace"]["idle_gaps"][:10]]}
     print_fn("timings: " + json.dumps(ctx.timings))
     if ctx.notes:
         print_fn("notes: " + json.dumps(ctx.notes))
