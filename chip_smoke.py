@@ -110,10 +110,17 @@ pass; each prints its seconds):
     3, 8 and 384, rectangular blocks, (128, 128) with k in {16, 17, 32,
     65, 130}, (96, 160), (64, 64), (40, 48), (40, 18), (64, 8), k in {1,
     3, 32, 64, 100}, data and operand views off a 16-byte boundary, no
-    blocks); the card's peak memory.
+    blocks; blocks of at most 32 values on short block rows, where the
+    scalar SpMV must run, and on long ones, where the stream SpMV must);
+    the card's peak memory.
 11. BSR times, in turns, each run of launches (and torch's BSR call)
     queued behind a spin of the card, and ``torch.profiler`` over forward
-    + backward steps.
+    + backward steps. Then ex56, the stream SpMV's main path: PETSc ex56's
+    block pattern at 161**3 block rows of up to 27 3 x 3 float64 blocks
+    (``tools/bench_bsr.py``'s, 111,284,641 blocks), ``bsr @ x`` once
+    between a reset and a read of the counts (one launch, the stream
+    variant), against the plain version within ``1e-13·(|A||x|)``, a
+    bitwise repeat, timed in turns beside torch's BSR call.
 12. DeviceCoo: ``coo.to_device().to_csr_device()`` on the card for phase 3's
     triplets (both dtypes) and config[0]'s (duplicates and zeros): the
     padded CSR holds ``CsrMatrix.from_coo``'s structure exactly and its
@@ -249,7 +256,7 @@ Each main path (config[0]; a forward and backward SpMV per dtype; config[1]
 forward and backward for each matrix and for ``csc @ X``; config[2]
 forward and backward; on the CSR paths also the kernel variants of
 MAIN_VARIANTS; BSR ``bsr @ x`` and ``bsr @ X`` forward and backward
-on every BSR matrix; DIA ``dia @ x`` forward and backward on dia9 and
+on every BSR matrix, and ex56's ``bsr @ x``; DIA ``dia @ x`` forward and backward on dia9 and
 lap3d per dtype; the probe's ``run``) runs once, between a reset and a read
 of every launch count, before its checks; the counts must be exactly the
 path's. Phase 2 also checks that ``CsrMatrix.from_coo`` with no device
@@ -260,7 +267,8 @@ launches on the main path, max |err| against the plain version, its time,
 the plain version's, the bound from compulsory bytes or operations, and the
 time of one PyTorch library call that computes the same function, or null
 where there is none; the rows of kernels with variants also the launches
-of each variant; banded8 has BSR rows of its own, the banded matrix CSR
+of each variant; banded8 has BSR rows of its own (ex56 a BSR SpMV row,
+float64), the banded matrix CSR
 SpMM rows, and SDDMM at k = 1 rows beside its k = 64 ones; the backward's
 Aᵀ·g and Aᵀ·G have rows of their own, ``_at``, with the launches whose
 route was the bucket one, both routes' times and pass 1's; the CSR and BSR
@@ -309,7 +317,8 @@ from spalinalg_tpu_torch.ops.kernels import dia_spmv as dia_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmv as spmv_mod
 from spalinalg_tpu_torch.ops.kernels import spgemm_numeric as numeric_mod
 from spalinalg_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm
-from spalinalg_tpu_torch.ops.kernels.bsr_spmv import (_block_outer, bsr_spmv,
+from spalinalg_tpu_torch.ops.kernels.bsr_spmv import (STREAM_MAX_VALUES,
+                                                      _block_outer, bsr_spmv,
                                                       bsr_spmv_plain,
                                                       transposed_blocks)
 from spalinalg_tpu_torch.ops.kernels.csr_sddmm import (csr_sddmm,
@@ -344,6 +353,7 @@ from spalinalg_tpu_torch.parallel import (dist_bsr_spmv, dist_dot, dist_spmm,
                                           unshard_vector)
 from spalinalg_tpu_torch.parallel.partition import gather_rows, mesh_device
 from spalinalg_tpu_torch.tools import probe_widegather as probe
+from spalinalg_tpu_torch.tools.bench_bsr import EX56_NODES, grid27_pattern
 from spalinalg_tpu_torch.utils import (annotate, checked_call,
                                        checked_structure, determinism_audit,
                                        metrics, trace_to)
@@ -425,6 +435,7 @@ MAIN_LAUNCHES = {
     "SpGEMM": {"spgemm": {"float32": 1, "float64": 1}},
     "BSR bsr @ x": {"bsr_spmv": {"float32": 4, "bfloat16": 2, "float64": 4}},
     "BSR bsr @ X": {"bsr_spmm": {"float32": 4, "bfloat16": 2, "float64": 4}},
+    "BSR ex56 bsr @ x": {"bsr_spmv": {"float64": 1}},
     "DIA dia @ x": {"dia_spmv": {"float32": 4, "float64": 4}},
     "B10 probe": {"wide_gather": {"float32": 1 + probe.WARMUP + probe.TIMED}},
 }
@@ -450,18 +461,22 @@ MAIN_VARIANTS = {
     "SpGEMM": {"spgemm": {"terms": 2}},
     "BSR bsr @ x": {"tri128": {"vector": 6}, "banded8": {"vector": 4}},
     "BSR bsr @ X": {"tri128": {"tiled": 6}, "banded8": {"staged": 4}},
+    "BSR ex56 bsr @ x": {"ex56": {"stream": 1}},
 }
 # Rows of the kernel line beside the rows that carry each dtype's launch
 # count: banded8 for BSR; the banded matrix for CSR SpMM and SDDMM; SDDMM
 # at k = 1 on the SpMV matrix (the main rows: k = 64 on csr_random). Each
 # gets the launches of its own matrix's main path.
-# Keyed by (kernel, row suffix), in float32 and float64; the value names
-# the row's matrix in the record of variants a main path ran.
-EXTRA_ROWS = {("bsr_spmv", "banded8"): "banded8",
-              ("bsr_spmm", "banded8"): "banded8",
-              ("csr_spmm", "banded"): "banded",
-              ("csr_sddmm", "banded"): "banded",
-              ("csr_sddmm", "k1"): "spmv"}
+# Keyed by (kernel, row suffix); the value names the row's matrix in the
+# record of variants a main path ran and the row's dtypes. ex56's bsr @ x
+# (float64) is the main path of the stream SpMV.
+F32_F64 = ("float32", "float64")
+EXTRA_ROWS = {("bsr_spmv", "banded8"): ("banded8", F32_F64),
+              ("bsr_spmm", "banded8"): ("banded8", F32_F64),
+              ("bsr_spmv", "ex56"): ("ex56", ("float64",)),
+              ("csr_spmm", "banded"): ("banded", F32_F64),
+              ("csr_sddmm", "banded"): ("banded", F32_F64),
+              ("csr_sddmm", "k1"): ("spmv", F32_F64)}
 # Kernels whose transposed product in the backward (Aᵀ·g, Aᵀ·G) has rows
 # of its own ("_at"), with the main-path launches that took the bucket
 # route (csr_random; for the SpMM also csc @ X).
@@ -499,6 +514,9 @@ TRI_NBR = 4096   # bench.py's bsr cells: 1024 block rows of 128 x 128
 TRI_BS = 128
 BAND_BS = 8
 PLAIN_BSR_SPMM_LAUNCHES = 5
+# ex56's bsr @ x against its plain version, relative to |A||x|: float64
+# sums of at most 81 products a row, in another order.
+EX56_TOL = 1e-13
 BSR_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "float64": torch.float64}
 N_DIA = 2**25    # bench.py's dia cells (n = 2**22) scaled past the L2
@@ -864,10 +882,10 @@ def run_bsr(op: str, bsr_in, seen):
 
 def check_variants(label: str, op: str, seen) -> None:
     """Fail unless the BSR main path ``label`` ran exactly the variants of
-    MAIN_VARIANTS on each matrix."""
+    MAIN_VARIANTS on each of its matrices."""
     got = {}
     for (o, shape, _), per in seen.items():
-        if o == op:
+        if o == op and shape in MAIN_VARIANTS[label]:
             for v, n in per.items():
                 got.setdefault(shape, {}).setdefault(v, 0)
                 got[shape][v] += n
@@ -2695,6 +2713,21 @@ BSR_EDGE_CASES = {
 }
 
 
+# The edge shapes whose blocks the stream SpMV takes.
+STREAM_SHAPES = tuple(bs for bs in BSR_EDGE_CASES
+                      if bs[0] * bs[1] <= STREAM_MAX_VALUES)
+
+
+def bsr_edge_layouts():
+    """``((br, bc), ks, rows)`` for each edge shape and structure: short
+    block rows (a mean of 1.5 blocks) for every shape, and long ones too
+    for STREAM_SHAPES."""
+    for bs, ks in BSR_EDGE_CASES.items():
+        yield bs, ks, "short"
+        if bs in STREAM_SHAPES:
+            yield bs, ks, "long"
+
+
 def bsr_edge_case(kern, indptr, indices, data, x, empty, tol, what):
     """One BSR edge case: kernel against plain version within
     ``tol·(|A||x|)``, empty rows 0, a bitwise repeat. Returns the variant
@@ -2717,15 +2750,21 @@ def bsr_edge_structures(device) -> dict:
     not reach (BSR_EDGE_CASES): every fourth block row empty; padding
     blocks past ``indptr[-1]`` holding values that must count for nothing;
     a ``data`` view 4 bytes off a 16-byte boundary (8 in float64) and an
-    operand view one element off it, which must take the scalar and
-    register variants; a matrix with no blocks and k = 0, which launch
-    nothing. Returns, per dtype, the cases each variant ran."""
+    operand view one element off it, which must take the stream or scalar
+    SpMV and the register SpMM; a matrix with no blocks and k = 0, which
+    launch nothing. Blocks of at most ``STREAM_MAX_VALUES`` values run on
+    two structures, short block rows (the scalar SpMV's) and long ones
+    (the stream SpMV's), and each such shape must run both SpMV variants
+    in every dtype. Returns, per dtype, the cases each variant ran."""
     rng = np.random.default_rng(8)
     gen = torch.Generator(device=device).manual_seed(12)
     ran = {name: {} for name in BSR_DTYPES}
-    for (br, bc), ks in BSR_EDGE_CASES.items():
+    for (br, bc), ks, rows in bsr_edge_layouts():
         nbr, nbc = (60, 50) if max(br, bc) < 100 else (6, 5)
-        lens = rng.poisson(2.0, nbr)
+        # long block rows hold STREAM_MIN_STEPS warp steps of
+        # STREAM_MAX_VALUES // (br * bc) blocks and more on average
+        slots = STREAM_MAX_VALUES // (br * bc) if rows == "long" else 0
+        lens = rng.poisson(2.0 + 6.0 * slots, nbr)
         lens[::4] = 0
         ptr = np.concatenate([[0], np.cumsum(lens)])
         nblocks = int(ptr[-1]) + 3
@@ -2750,16 +2789,17 @@ def bsr_edge_structures(device) -> dict:
                 off_x = torch.empty(x.numel() + 1, dtype=acc,
                                     device=device)[1:].view(size)
                 off_x.copy_(x)
-                what = f"{name} BSR edge structure ({br}, {bc}), k {k}"
+                what = (f"{name} BSR edge structure ({br}, {bc}), {rows} "
+                        f"block rows, k {k}")
                 for d, r, how in ((data, x, ""), (off_data, x, " data view"),
                                   (data, off_x, " operand view")):
                     v = bsr_edge_case(kern, indptr, indices, d, r, empty,
                                       TOL[name], what + how)
-                    if how and v not in ("scalar", "register"):
+                    if how and v not in ("stream", "scalar", "register"):
                         raise AssertionError(f"{what}{how}: off a 16-byte "
                                              f"boundary, ran {v}")
                     ran[name].setdefault(v, []).append(
-                        (br, bc, k, how.strip() or "aligned"))
+                        (br, bc, k, how.strip() or "aligned", rows))
             before = (dict(bsr_spmv_mod.LAUNCHES), dict(bsr_spmm_mod.LAUNCHES))
             none = (torch.zeros(nbr + 1, dtype=torch.int32, device=device),
                     indices[:0], data[:0])
@@ -2777,12 +2817,19 @@ def bsr_edge_structures(device) -> dict:
     for name, per in ran.items():
         aligned = {v: [c[:3] for c in cases if c[3] == "aligned"]
                    for v, cases in per.items()}
-        if set(per) != {"scalar", "vector", "register", "tiled", "staged"}:
+        if set(per) != {"scalar", "vector", "stream", "register", "tiled",
+                        "staged"}:
             raise AssertionError(f"{name}: the edge structures ran only the "
                                  f"variants {sorted(per)}")
         if "staged" not in per:
             raise AssertionError(f"{name}: the edge structures ran no staged "
                                  "SpMM")
+        for bs in STREAM_SHAPES:
+            for v, rows in (("stream", "long"), ("scalar", "short")):
+                if not any(c[:3] == (*bs, None) and c[4] == rows
+                           for c in per.get(v, [])):
+                    raise AssertionError(f"{name} {bs}: no bsr @ x on {rows}"
+                                         f" block rows ran the {v} SpMV")
         tiled = aligned.get("tiled", [])
         k_min = 32 if name == "float64" else 16
         if ((128, 128, k_min) not in tiled or (128, 128, 17) in tiled
@@ -3041,6 +3088,74 @@ def profile_bsr(bsr_in, card: str) -> None:
             del rg
         del data, m
         free_memory()
+
+
+def ex56_inputs(device):
+    """``(bsr, x)``: PETSc ex56's block pattern at EX56_NODES nodes a side
+    (``tools/bench_bsr.py``'s ``ex56``, the operator of the benchmark's
+    ``ex56-160`` cell: 161**3 block rows of up to 27 blocks) with 3 x 3
+    float64 blocks and ``x`` drawn on the card."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    indptr, indices = grid27_pattern(EX56_NODES, device)
+    n = 3 * EX56_NODES ** 3
+    data = torch.randn((indices.numel(), 3, 3), generator=gen,
+                       dtype=torch.float64, device=device)
+    x = torch.randn(n, generator=gen, dtype=torch.float64, device=device)
+    bsr = BsrMatrix._from_parts(n, n, 3, 3, indptr, indices, data)
+    print(f"phase 11: ex56 float64: n={n} blocksize=(3, 3) "
+          f"blocks={bsr.n_blocks} stored values={bsr.nnz} data "
+          f"{data.numel() * data.element_size() / 1e6:.1f} MB")
+    return bsr, x
+
+
+def run_ex56(bsr, x, seen):
+    """ex56's ``bsr @ x``, once; ``seen["bsr_spmv", "ex56", "float64"]``
+    gets the variant it ran."""
+    counts = VARIANTS["bsr_spmv"]
+    before = dict(counts)
+    y = bsr @ x
+    seen["bsr_spmv", "ex56", "float64"] = {
+        v: n - before[v] for v, n in counts.items() if n != before[v]}
+    return y
+
+
+def check_ex56(bsr, x, y, report, card) -> None:
+    """ex56's ``bsr @ x`` (the stream SpMV) against the plain version entry
+    by entry within ``EX56_TOL·(|A||x|)``, a bitwise repeat; then kernel
+    and plain version in turns and torch's BSR call, behind the spin, and
+    the bound from compulsory bytes."""
+    ip, ix, data = bsr.indptr, bsr.indices, bsr.data
+    nbr = ip.numel() - 1
+    what = "ex56 float64 bsr @ x"
+    err = (y - bsr_spmv_plain(ip, ix, data, x)).abs()
+    within(err, bsr_spmv_plain(ip, ix, data.abs(), x.abs()), EX56_TOL, what)
+    max_err = float(err.max())
+    del err
+    free_memory()
+    if not bitwise_equal(y, bsr_spmv(ip, ix, data, x)):
+        raise AssertionError(f"{what}: kernel results differ run to run")
+    print(f"phase 11: {what}: kernel == plain within {EX56_TOL}*(|A||x|) "
+          f"row by row (max |err| {max_err:.3e}); bitwise repeatable")
+    k_ms, p_ms, (p1, k1, k2, p2) = turns(
+        lambda: bsr_spmv(ip, ix, data, x),
+        lambda: bsr_spmv_plain(ip, ix, data, x),
+        TIMED_LAUNCHES, PLAIN_BSR_SPMM_LAUNCHES, spin=True)
+    free_memory()
+    nbytes = (data.element_size() * bsr.nnz + 4 * bsr.n_blocks
+              + 4 * (nbr + 1) + x.element_size() * (bsr.nrows + bsr.ncols))
+    lib = torch.sparse_bsr_tensor(ip, ix, data, bsr.shape)
+    lib_ms = library_ms(lambda: lib @ x, spin=True)
+    del lib
+    free_memory()
+    b = bound(nbytes, 2 * bsr.nnz, "float64")
+    print(f"phase 11: {what} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+          f"(turns: plain {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain "
+          f"{p2:.4f}), torch.sparse_bsr_tensor @ x {lib_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; "
+          f"{100 * b['bound_ms'] / k_ms:.1f} % of it) | {card}")
+    report["bsr_spmv", "float64_ex56"] = {
+        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+        "library_ms": lib_ms, **b}
 
 
 def check_device_coo(coos, big, host_seconds, coo0, csr0, x0,
@@ -5135,8 +5250,8 @@ def kernel_line(launches, report, seen, solver_launches,
             if (kname, name) in io_launches:
                 row["io_launches"] = io_launches[kname, name]
             rows.append(row)
-    for (kname, suffix), shape in EXTRA_ROWS.items():
-        for name in ("float32", "float64"):
+    for (kname, suffix), (shape, names) in EXTRA_ROWS.items():
+        for name in names:
             per = variants(kname, name, (shape,))
             rows.append({"name": f"{kname}_{name}_{suffix}", "route": "cuda",
                          "source": KERNELS[kname][0],
@@ -5307,6 +5422,16 @@ def run(t_start: float, tmpdir: str) -> int:
         time_bsr(bsr_in, report, card)
         profile_bsr(bsr_in, card)
     del bsr_in, mats, rhs
+    free_memory()
+    # ex56's bsr @ x: the stream SpMV's main path, checked and timed
+    with phase("inputs: BSR ex56"):
+        ex56 = ex56_inputs(device)
+    ex56_y = drive("BSR ex56 bsr @ x", lambda: run_ex56(*ex56, seen),
+                   launches)
+    check_variants("BSR ex56 bsr @ x", "bsr_spmv", seen)
+    with phase("phase 11 ex56"):
+        check_ex56(*ex56, ex56_y, report, card)
+    del ex56, ex56_y
     free_memory()
 
     # ---- DeviceCoo: COO -> CSR on the card (phase 12) -------------------

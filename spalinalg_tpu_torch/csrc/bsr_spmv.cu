@@ -29,8 +29,8 @@
 // behind its index load, streamed 28.6 % of 3.35 TB/s with 8 x 8 float
 // blocks on the H100.
 //
-// Two variants; the caller names one (the wrapper's bsr_spmv_variant) and
-// the entry point refuses arguments that do not suit it:
+// Three variants; the caller names one (the wrapper's bsr_spmv_variant)
+// and the entry point refuses arguments that do not suit it:
 //
 // vector (bc * sizeof(T) a multiple of 16 bytes, data and x 16-byte
 // aligned). Every load moves 16 bytes: a float4, a double2 or 8 bf16 values
@@ -56,27 +56,47 @@
 // storage order, each block's elements in order (for the wider slices, the
 // U blocks of a round for each of the lane's vectors in turn).
 //
-// scalar (everything else: bc * itemsize not a multiple of 16, as for
-// blocks of width 1 or 3 or (8, 4) in bf16, or a data or x pointer that is
-// not 16-byte aligned). The first design, kept for those shapes: a group of
-// L lanes (the power of two covering bc, at most 32) owns a scalar row and
-// walks the row's slice of each block one element a lane, then a fixed
-// shuffle tree.
+// stream (blocks of at most 32 values that vector does not take: rows of
+// 1, 3 or 5 values, (8, 4) in bf16, or an operand off 16 bytes). Bound by
+// the same bytes. Under BSR storage a block row's stored values are one
+// contiguous run, so a warp owns a block row and reads the run A = (32 /
+// (br * bc)) * (br * bc) values a step, coalesced (ex56's 3 x 3 blocks: 27
+// lanes, 216 bytes a step in double). As A is a multiple of the block
+// size, a lane keeps one position of every block it reads, and one
+// accumulator. The block ids come 32 at a time, one a lane, handed round
+// with __shfl_sync, so a step's loads of values (__ldcs) and of x (__ldg)
+// wait on no load of their own; U = 3 steps are in flight. The launch
+// bounds hold it to 32 registers, so that 64 warps sit on an SM: the bytes
+// in flight come from warps more than from steps a warp. On the ex56
+// pattern (3 x 3 double, 161^3 nodes; the bound 2.59 ms) it took 2.98 ms
+// with U = 3 in 128-thread CTAs (4 bytes spilled), 3.02 in 256-thread
+// CTAs, 3.18-3.23 with U = 2 (no spill), 3.60-5.56 with 36-68 registers
+// (U = 2 to 4, fewer warps), 4.27-4.54 with U = 4 spilled into 32; the
+// scalar variant 5.26. A fixed __shfl_down_sync tree over a block's
+// columns, then over the step's blocks, ends it. A short block row leaves
+// a warp's lanes idle, so the wrapper sends this variant block rows of at
+// least three steps on average.
 //
-// Both: no atomics, so a result is bitwise the same from run to run. Every
-// row is written, rows of empty block rows with 0, so no mask pass
-// follows. Blocks at or past min(indptr[nbr], nblocks) are never read.
+// scalar (everything else: blocks of more than 32 values off 16 bytes, and
+// short block rows). The first design: a group of L lanes (the power of two
+// covering bc, at most 32) owns a scalar row and walks the row's slice of
+// each block one element a lane, then a fixed shuffle tree.
+//
+// All three: no atomics, so a result is bitwise the same from run to
+// run. Every row is written, rows of empty block rows with 0, so no mask
+// pass follows. Blocks at or past min(indptr[nbr], nblocks) are never read.
 // Offsets into data, x and y are 64-bit. Registers (ptxas -v, nvcc 12.9,
-// sm_90a), no spills in any of the 99 instances: the one-thread-a-row
+// sm_90a), no spills in 101 of the 102 instances: the one-thread-a-row
 // kernel 94 (float, 8 x 8), 98 (double, 8 x 8), 78 (bf16, 8 x 8); the wide
 // kernel 128 (float and double, L = 32; bf16, L = 16); the scalar variant
-// 40 (float, L = 32).
+// 40 (float, L = 32); the stream kernel 32 (float, double and bf16), with
+// the one spill named above in its double instance.
 //
 // C interface: one entry point per storage type, with the variant as an
-// int (0 scalar, 1 vector). Each launches on the given stream, allocates
-// nothing, does not synchronise, and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments the variant does not take. nbr == 0
-// launches nothing; the caller handles a matrix with no blocks.
+// int (0 scalar, 1 vector, 2 stream). Each launches on the given stream,
+// allocates nothing, does not synchronise, and returns cudaGetLastError(),
+// or cudaErrorInvalidValue for arguments the variant does not take.
+// nbr == 0 launches nothing; the caller handles a matrix with no blocks.
 
 #include <cstdint>
 
@@ -88,6 +108,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kScalar = 0;
 constexpr int kVector = 1;
+constexpr int kStream = 2;
 
 __device__ __forceinline__ float load_acc(const float* p) { return __ldg(p); }
 
@@ -201,6 +222,12 @@ template <>
 struct Lanes<__nv_bfloat16> {
   static constexpr int R = 8, U = 2;
 };
+
+// The stream kernel's steps in flight a lane and its CTA size; its launch
+// bounds hold it to 32 registers, so that 64 warps fit an SM (measured on
+// the H100: the note at the top).
+constexpr int kStreamSteps = 3;
+constexpr int kStreamCta = 128;
 
 // The group's block range [kb, ke), read by lane 0 and handed round.
 template <int G>
@@ -407,6 +434,99 @@ bsr_spmv_scalar(const int* __restrict__ indptr,
   }
 }
 
+// The stored value at p widened to the accumulation type, streamed once
+// (__ldcs, evict first).
+__device__ __forceinline__ float load_stream(const float* p) {
+  return __ldcs(p);
+}
+
+__device__ __forceinline__ double load_stream(const double* p) {
+  return __ldcs(p);
+}
+
+__device__ __forceinline__ float load_stream(const __nv_bfloat16* p) {
+  return bf16_lo(__ldcs(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// stream variant: a warp a block row. Its stored values are one contiguous
+// run, data[kb * bs .. ke * bs) with bs = br * bc; the warp reads it
+// A = (32 / bs) * bs values a step, lane l at flat positions l, l + A, ...
+// Since A is a multiple of bs, lane l keeps one position q = l % bs of every
+// block it reads (row q / bc, column q % bc) and one accumulator: its
+// blocks are kb + l / bs + i * (32 / bs). The block ids come 32 at a time,
+// one a lane, handed round with __shfl_sync, so that a step's loads of
+// values and of x wait on no load of its own; U steps are in flight.
+template <typename T, typename A>
+__global__ void __launch_bounds__(kStreamCta, 2048 / kStreamCta)
+bsr_spmv_stream(const int* __restrict__ indptr,
+                const int* __restrict__ indices, const T* __restrict__ data,
+                const A* __restrict__ x, A* __restrict__ y, long long nbr,
+                int br, int bc, long long nblocks) {
+  constexpr int U = kStreamSteps;
+  const long long bi =
+      (static_cast<long long>(blockIdx.x) * kStreamCta + threadIdx.x) / 32;
+  if (bi >= nbr) {
+    return;  // the whole warp leaves together
+  }
+  const int lane = threadIdx.x & 31;
+  const int bs = br * bc;
+  const int slots = 32 / bs;   // blocks a step
+  const int slot = lane / bs;  // lanes past slots * bs only reduce
+  const int q = lane - slot * bs;
+  const int r = q / bc;
+  const int c = q - r * bc;
+  const bool live = slot < slots;
+  long long ke = indptr[bi + 1];
+  ke = ke < nblocks ? ke : nblocks;
+  long long kb = indptr[bi];
+  kb = kb < ke ? kb : ke;
+  const int n = static_cast<int>(ke - kb);  // indptr is int32
+  const int* ind = indices + kb;
+  const T* dq = data + kb * bs + q;
+  const A* xc = x + c;
+  A acc = A(0);
+  for (int k0 = 0; k0 < n; k0 += 32) {
+    const int nb = n - k0 < 32 ? n - k0 : 32;
+    const int mine = lane < nb ? __ldg(ind + k0 + lane) : 0;
+    const T* d = dq + static_cast<long long>(k0) * bs;
+    for (int j0 = slot; j0 - slot < nb; j0 += U * slots) {
+      A dv[U], xv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * slots;  // past 31 only where not read
+        const int col = __shfl_sync(0xffffffffu, mine, j & 31);
+        if (live && j < nb) {
+          dv[u] = load_stream(d + j * bs);
+          xv[u] = __ldg(xc + static_cast<long long>(col) * bc);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (live && j0 + u * slots < nb) {
+          acc += dv[u] * xv[u];
+        }
+      }
+    }
+  }
+  // A fixed tree over the bc lanes of a block's row, then over the slots:
+  // lane r * bc (slot 0, column 0) ends with row r's sum.
+  for (int off = 1; off < bc; off <<= 1) {
+    const A v = __shfl_down_sync(0xffffffffu, acc, off);
+    if ((c & (2 * off - 1)) == 0 && c + off < bc) {
+      acc += v;
+    }
+  }
+  for (int off = 1; off < slots; off <<= 1) {
+    const A v = __shfl_down_sync(0xffffffffu, acc, off * bs);
+    if ((slot & (2 * off - 1)) == 0 && slot + off < slots) {
+      acc += v;
+    }
+  }
+  if (slot == 0 && c == 0) {
+    y[bi * br + r] = acc;
+  }
+}
+
 template <typename T, typename A>
 struct Args {
   const void* indptr;
@@ -424,12 +544,13 @@ struct Args {
 template <typename T, typename A>
 int run(void (*kernel)(const int*, const int*, const T*, const A*, A*,
                        long long, int, int, long long),
-        long long threads, long long extent, const Args<T, A>& a) {
-  const long long blocks = (threads + kThreads - 1) / kThreads;
+        long long threads, long long extent, const Args<T, A>& a,
+        int cta = kThreads) {
+  const long long blocks = (threads + cta - 1) / cta;
   if (blocks > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), cta, 0, a.stream>>>(
       static_cast<const int*>(a.indptr), static_cast<const int*>(a.indices),
       static_cast<const T*>(a.data), static_cast<const A*>(a.x),
       static_cast<A*>(a.y), extent, a.br, a.bc, a.nblocks);
@@ -498,7 +619,9 @@ int launch(const void* indptr, const void* indices, const void* data,
       (static_cast<long long>(bc) * sizeof(T)) % 16 == 0 &&
       reinterpret_cast<std::uintptr_t>(data) % 16 == 0 &&
       reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
-  if (variant != kScalar && !(variant == kVector && vector_ok)) {
+  const bool stream_ok = static_cast<long long>(br) * bc <= 32;
+  if (variant != kScalar && !(variant == kVector && vector_ok) &&
+      !(variant == kStream && stream_ok)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nbr == 0) {
@@ -506,6 +629,10 @@ int launch(const void* indptr, const void* indices, const void* data,
   }
   const Args<T, A> a{indptr, indices, data, x, y, nbr, br, bc, nblocks,
                      static_cast<cudaStream_t>(stream)};
+  if (variant == kStream) {
+    return run<T, A>(bsr_spmv_stream<T, A>, a.nbr * 32, a.nbr, a,
+                     kStreamCta);
+  }
   return variant == kVector ? vector<T, A>(a) : scalar<T, A>(a);
 }
 

@@ -5,9 +5,9 @@
 - :func:`bsr_matvec` (``bsr @ x``) runs ``BsrSpmv``: the hand-written
   kernel ``csrc/bsr_spmv.cu`` for CUDA tensors, its plain torch version
   for CPU tensors, with the gradient to ``data`` and ``x``. The metrics
-  path names the kernel's variant (``bsr_spmv:cuda:vector`` or
-  ``:scalar``; ``bsr_spmv:plain`` on the CPU). Each product is the span
-  ``spal.bsr_spmv``.
+  path names the kernel's variant (``bsr_spmv:cuda:vector``, ``:stream``
+  or ``:scalar``; ``bsr_spmv:plain`` on the CPU). Each product is the
+  span ``spal.bsr_spmv``.
 - :func:`bsr_matmat` (``bsr @ X``, ``X`` of shape ``(ncols, k)``) runs
   ``BsrSpmm``: ``csrc/bsr_spmm.cu`` or its plain version, with the
   gradient to ``data`` and ``X``. Any ``k >= 1``; ``k == 0`` gives an
@@ -54,7 +54,8 @@ def bsr_matvec(bsr, x) -> torch.Tensor:
 
         return instrument(
             "bsr_spmv", run,
-            path=lambda: kernel_path(bsr_spmv_variant, bsr.data, x),
+            path=lambda: kernel_path(bsr_spmv_variant, bsr.data, x,
+                                     bsr.indptr.numel() - 1),
             device=x.device, nnz=nnz, flops=2 * nnz)
 
 

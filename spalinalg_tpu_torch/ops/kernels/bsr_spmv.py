@@ -16,13 +16,16 @@ kernels on the JAX package's BSR SpMV path:
 Their block windows, VMEM-resident accumulators and double-float planes
 work around TPU limits, so one source, instantiated for float32, bfloat16
 and float64 blocks, reads ``indptr``/``indices``/``data`` directly. It has
-two variants, chosen by :func:`bsr_spmv_variant` from shapes, dtypes and
+three variants, chosen by :func:`bsr_spmv_variant` from shapes, dtypes and
 addresses and passed to the kernel by name: ``vector`` (16-byte loads,
 several blocks in flight) where a block row's slice is a whole number of
 16-byte vectors and ``data`` and ``x`` start on a 16-byte boundary,
-``scalar`` (one element a lane) otherwise. Each launch adds one to
-``LAUNCHES`` (by storage type) and to ``VARIANT_LAUNCHES`` (by variant);
-the metrics path names the variant, for example ``bsr_spmv:cuda:vector``.
+``stream`` (a warp reads a block row's stored values as one contiguous
+run) for the other operands whose blocks hold at most 32 values, where
+block rows are long enough to fill the warp, ``scalar`` (one element a
+lane) for the rest. Each launch adds one to ``LAUNCHES`` (by storage type)
+and to ``VARIANT_LAUNCHES`` (by variant); the metrics path names the
+variant, for example ``bsr_spmv:cuda:stream``.
 
 **Dtypes** follow the JAX package's public path (``bsr_ops.py:26,119``):
 bfloat16 blocks accumulate and return float32, whatever ``x`` is;
@@ -55,17 +58,24 @@ from ...dtypes import INDEX_DTYPE, canonical_value_dtype, result_dtype
 from ...errors import DTypeError, ShapeError
 from .csr_spmv import aligned16, transpose_plan
 
-__all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "BsrSpmv", "bsr_acc_dtype",
-           "bsr_spmv", "bsr_spmv_plain", "bsr_spmv_variant", "kernel_operands",
+__all__ = ["LAUNCHES", "STREAM_MAX_VALUES", "STREAM_MIN_STEPS",
+           "VARIANT_LAUNCHES", "BsrSpmv", "bsr_acc_dtype", "bsr_spmv",
+           "bsr_spmv_plain", "bsr_spmv_variant", "kernel_operands",
            "kernel_path", "transposed_blocks"]
 
 # Kernel launches per storage type and per variant: plain integers,
 # advanced only where the wrapper launches the kernel.
 LAUNCHES = {"float32": 0, "bfloat16": 0, "float64": 0}
-VARIANT_LAUNCHES = {"scalar": 0, "vector": 0}
+VARIANT_LAUNCHES = {"scalar": 0, "vector": 0, "stream": 0}
+
+# Values a block may hold for the stream variant: a warp's step of 32
+# lanes takes 32 // (br * bc) whole blocks, so larger blocks cannot go; and
+# the warp steps a block row must hold on average (bsr_spmv_variant).
+STREAM_MAX_VALUES = 32
+STREAM_MIN_STEPS = 3
 
 # The variant's code in the C entry points.
-_VARIANT_CODE = {"scalar": 0, "vector": 1}
+_VARIANT_CODE = {"scalar": 0, "vector": 1, "stream": 2}
 
 _ENTRY = {torch.float32: ("spal_bsr_spmv_f32", "float32"),
           torch.bfloat16: ("spal_bsr_spmv_bf16", "bfloat16"),
@@ -99,41 +109,70 @@ def kernel_operands(data, x):
     return data.to(store).contiguous(), x.to(acc).contiguous(), acc
 
 
-def bsr_spmv_variant(data, x) -> str:
+def bsr_spmv_variant(data, x, nbr: int) -> str:
     """The variant of ``csrc/bsr_spmv.cu`` for the blocks ``data`` and the
-    operand ``x`` as the kernel takes them (:func:`kernel_operands`):
-    ``"vector"`` when a row's slice of a block is a whole number of 16-byte
-    vectors (``bc * itemsize % 16 == 0``) and ``data`` and ``x`` start on a
-    16-byte boundary, else ``"scalar"``. Shapes, dtypes and addresses
-    alone decide, so it answers for tensors on any device.
+    operand ``x`` as the kernel takes them (:func:`kernel_operands`), in a
+    matrix of ``nbr`` block rows:
 
-    >>> bsr_spmv_variant(torch.zeros(4, 8, 8), torch.zeros(64))
+    - ``"vector"`` when a row's slice of a block is a whole number of
+      16-byte vectors (``bc * itemsize % 16 == 0``) and ``data`` and ``x``
+      start on a 16-byte boundary;
+    - else ``"stream"`` when a block holds at most ``STREAM_MAX_VALUES``
+      values and the block rows hold on average at least
+      ``STREAM_MIN_STEPS`` of a warp's steps (``32 // (br * bc)`` blocks a
+      step);
+    - else ``"scalar"``.
+
+    The stream variant gives a block row a warp, so short block rows leave
+    its lanes idle. On the H100, banded patterns of 2**25 stored values
+    (``bsr @ x``, ms, stream against scalar): 3 x 3 blocks at 7 a block
+    row (2.3 steps) 0.212 / 0.194 in float64, 0.189 / 0.158 in float32; at
+    9 (3 steps) 0.166 / 0.190 and 0.148 / 0.152; at 27 0.100 / 0.188 and
+    0.085 / 0.155; 2 x 2 float32 blocks at 21 (2.6 steps) 0.142 / 0.135,
+    at 27 (3.4 steps) 0.130 / 0.147; 3 x 1 float32 at 27 (2.7 steps) 0.146
+    / 0.119, at 45 0.133 / 0.136; PETSc ex56's 3 x 3 float64 pattern at
+    161**3 nodes (8.9 steps) 2.98 / 5.27. Shapes, dtypes, addresses and
+    the mean block row alone decide, so it answers for tensors on any
+    device.
+
+    >>> bsr_spmv_variant(torch.zeros(4, 8, 8), torch.zeros(64), 2)
     'vector'
-    >>> bsr_spmv_variant(torch.zeros(4, 8, 3), torch.zeros(24))
+    >>> bsr_spmv_variant(torch.zeros(27, 3, 3, dtype=torch.float64),
+    ...                  torch.zeros(9, dtype=torch.float64), 1)
+    'stream'
+    >>> bsr_spmv_variant(torch.zeros(7, 3, 3, dtype=torch.float64),
+    ...                  torch.zeros(9, dtype=torch.float64), 1)
     'scalar'
-    >>> bsr_spmv_variant(torch.zeros(65)[1:].reshape(1, 8, 8), torch.zeros(8))
+    >>> bsr_spmv_variant(torch.zeros(65)[1:].reshape(1, 8, 8), torch.zeros(8),
+    ...                  1)
     'scalar'
     """
-    bc = data.shape[2]
+    nblocks, br, bc = data.shape
     if bc * data.element_size() % 16 == 0 and aligned16(data) \
             and aligned16(x):
         return "vector"
+    values = br * bc
+    if values <= STREAM_MAX_VALUES and nblocks >= (
+            STREAM_MIN_STEPS * (STREAM_MAX_VALUES // values) * nbr):
+        return "stream"
     return "scalar"
 
 
-def kernel_path(variant_of, data, x) -> str:
+def kernel_path(variant_of, data, x, *structure) -> str:
     """The metrics path of a BSR product: ``"plain"`` off the card, else
     ``"cuda:"`` and the variant ``variant_of`` (:func:`bsr_spmv_variant`
     or ``bsr_spmm_variant``) picks for the operands as the kernel takes
-    them, for example ``"cuda:vector"``.
+    them and ``structure`` (the SpMV's block row count), for example
+    ``"cuda:vector"``.
 
-    >>> kernel_path(bsr_spmv_variant, torch.zeros(1, 2, 2), torch.zeros(2))
+    >>> kernel_path(bsr_spmv_variant, torch.zeros(1, 2, 2), torch.zeros(2),
+    ...             1)
     'plain'
     """
     if x.device.type != "cuda":
         return "plain"
     data, x, _ = kernel_operands(data, x)
-    return f"cuda:{variant_of(data, x)}"
+    return f"cuda:{variant_of(data, x, *structure)}"
 
 
 def checked_operands(name, indptr, indices, data, x, ndim):
@@ -180,12 +219,20 @@ def bsr_spmv_plain(indptr, indices, data, x) -> torch.Tensor:
     return y[:nbr].reshape((nbr * br,) + tuple(x.shape[1:]))
 
 
-def bsr_spmv(indptr, indices, data, x) -> torch.Tensor:
+def bsr_spmv(indptr, indices, data, x, variant=None) -> torch.Tensor:
     """``y = A @ x`` for BSR ``A`` (``data`` of shape ``(nblocks, br,
     bc)``): the kernel on CUDA tensors, the plain version on CPU tensors.
 
-    A matrix with no block rows or no blocks launches nothing.
+    ``variant`` names the kernel's variant instead of
+    :func:`bsr_spmv_variant`'s choice. It is the tests' and tools' hook to
+    compare two variants on the same operands, as ``bsr_spmm``'s is; no
+    caller in the port sets it. The kernel refuses a variant that does not
+    take the operands, and the wrapper raises. A matrix with no block rows
+    or no blocks launches nothing.
     """
+    if variant is not None and variant not in _VARIANT_CODE:
+        raise ValueError(f"bsr_spmv has no variant {variant!r}; it has "
+                         f"{sorted(_VARIANT_CODE)}")
     data, x, acc = checked_operands("bsr_spmv", indptr, indices, data, x, 1)
     device = x.device
     if device.type == "cpu":
@@ -199,7 +246,7 @@ def bsr_spmv(indptr, indices, data, x) -> torch.Tensor:
     from ._build import launch
 
     name, key = _ENTRY[data.dtype]
-    variant = bsr_spmv_variant(data, x)
+    variant = variant or bsr_spmv_variant(data, x, nbr)
     indptr, indices = indptr.contiguous(), indices.contiguous()
     y = torch.empty(nbr * br, dtype=acc, device=device)
     with torch.cuda.device(device):

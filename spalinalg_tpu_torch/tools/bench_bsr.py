@@ -8,9 +8,10 @@ float64 blocks in the pattern of PETSc ex56's elasticity operator at
 160^3 elements, the benchmark's ``ex56-160`` (161^3 block rows, each node
 coupled to its up to 27 neighbours), ``bsr @ x`` only) and product
 (``bsr @ x``; ``bsr @ X`` with k = 64, and on tri128 also k = 16 and 32)
-it prints one JSON line: the kernel's time, the time of
-``torch.sparse_bsr_tensor(...) @ x`` on the same inputs (null for bfloat16
-blocks, which torch takes only as a bfloat16 product), the kernel's max
+it prints one JSON line: the kernel's time, its plain version's time, the
+time of ``torch.sparse_bsr_tensor(...) @ x`` on the same inputs (null for
+bfloat16 blocks, which torch takes only as a bfloat16 product), the
+kernel's max
 |err| against its plain version, the variant that ran (where the package
 has variants) and the package it measured; then, for banded8, the time of
 a forward + backward ``bsr @ X`` step (autograd to the blocks and X).
@@ -227,6 +228,8 @@ def main() -> int:
                         .abs().max())
             del y
             ms = time_ms(lambda: kern(ip, ix, data, rhs))
+            plain_ms = time_ms(
+                lambda: mv_mod.bsr_spmv_plain(ip, ix, data, rhs), STEPS)
             lib_ms = None
             if name != "bfloat16":
                 lib = torch.sparse_bsr_tensor(ip, ix, data, bsr.shape)
@@ -235,7 +238,7 @@ def main() -> int:
             print(json.dumps({
                 "label": args.label, "shape": shape, "dtype": name, "k": k,
                 "op": "bsr_spmv" if k == 1 else "bsr_spmm", "ms": ms,
-                "library_ms": lib_ms, "max_abs_err": err,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": err,
                 "variant": ran[0] if ran else None,
                 "package": sp.__file__, "card": card}), flush=True)
             del rhs

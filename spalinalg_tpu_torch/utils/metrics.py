@@ -8,7 +8,8 @@ CPU tensors), so a reader of the records can tell the two apart. The
 paths: ``csr_spmv``, ``csc_spmv``, ``csr_spmm``, ``csc_spmm``, ``spgemm``
 and ``dia_spmv``, each ``:cuda`` or ``:plain``; ``bsr_spmv`` and
 ``bsr_spmm``, each ``:plain`` or ``:cuda:`` and the kernel's variant
-(``bsr_spmv:cuda:vector`` / ``:scalar``, ``bsr_spmm:cuda:tiled`` /
+(``bsr_spmv:cuda:vector`` / ``:stream`` / ``:scalar``,
+``bsr_spmm:cuda:tiled`` /
 ``:register``);
 ``dia_spmm:torch`` (plain torch on any device: the JAX package has no
 kernel for a 2-D operand either); ``spgemm_symbolic:native|numpy``; the

@@ -11,7 +11,7 @@ tests/test_torch_bsr_assembly.py -m card``).
 - ``cg(bsr, b, precondition="jacobi")`` with no CSR form against
   ``cg(bsr.to_csr(), ...)``;
 - the spans ``spal.bsr.build`` and ``spal.bsr_spmv``;
-- on the card: the 3 x 3 float64 kernel (``scalar`` variant) against its
+- on the card: the 3 x 3 float64 kernel (``stream`` variant) against its
   plain version on PETSc ex56's operator at 16^3 elements.
 """
 
@@ -215,7 +215,7 @@ def test_spans_of_the_bsr_path():
 @pytest.mark.card
 def test_ex56_scalar_kernel_against_plain_on_the_card(card):
     """PETSc ex56's operator at 16^3 elements (14,739 unknowns), assembled
-    on the card: its 3 x 3 float64 blocks run the ``scalar`` variant, held
+    on the card: its 3 x 3 float64 blocks run the ``stream`` variant, held
     against the plain version entry by entry at ``1e-13·(|A|·|x|)``."""
     from spbench.structures import hex8_elasticity
 
@@ -225,9 +225,9 @@ def test_ex56_scalar_kernel_against_plain_on_the_card(card):
         n, n, *hex8_elasticity.triplets(ne, device=card))
     assert a.n_blocks == hex8_elasticity.counts(ne)["blocks"]
     x = torch.rand(n, dtype=torch.float64, device=card) + 0.5
-    before = bsr_spmv_mod.VARIANT_LAUNCHES["scalar"]
+    before = bsr_spmv_mod.VARIANT_LAUNCHES["stream"]
     y = a @ x
-    assert bsr_spmv_mod.VARIANT_LAUNCHES["scalar"] == before + 1
+    assert bsr_spmv_mod.VARIANT_LAUNCHES["stream"] == before + 1
     plain = bsr_spmv_mod.bsr_spmv_plain(a.indptr, a.indices, a.data, x)
     scale = bsr_spmv_mod.bsr_spmv_plain(a.indptr, a.indices, a.data.abs(),
                                         x.abs())

@@ -1,8 +1,8 @@
 """The BSR kernels' variant choice, and the plain versions at the shapes
 that sit on either side of it, against the JAX package.
 
-The BSR sources have variants (``csrc/bsr_spmv.cu``: ``vector`` and
-``scalar``; ``csrc/bsr_spmm.cu``: ``tiled``, ``staged`` and ``register``),
+The BSR sources have variants (``csrc/bsr_spmv.cu``: ``vector``,
+``stream`` and ``scalar``; ``csrc/bsr_spmm.cu``: ``tiled``, ``staged`` and ``register``),
 picked in Python by ``bsr_spmv_variant`` / ``bsr_spmm_variant`` from
 shapes, dtypes and addresses and passed to the kernel by name. Those
 functions run on any device, so the choice is checked here on CPU tensors,
@@ -64,8 +64,10 @@ def _operands(br, bc, dtype, k=None, nblocks=3, nbc=2, shift=None):
     return kernel_operands(data, x)[:2]
 
 
-# (br, bc): the SpMV variant for float32, bfloat16 and float64 blocks. The
-# vector variant needs bc * itemsize to be a multiple of 16 bytes.
+# (br, bc): the SpMV variant for float32, bfloat16 and float64 blocks, in a
+# block row of 96 blocks where they hold at most 32 values. The vector variant needs bc * itemsize to be a
+# multiple of 16 bytes; where it is not, the stream variant takes blocks of
+# at most 32 values.
 SPMV_CASES = {
     (8, 8): ("vector", "vector", "vector"),        # banded8
     (128, 128): ("vector", "vector", "vector"),    # tri128
@@ -73,11 +75,19 @@ SPMV_CASES = {
     (64, 64): ("vector", "vector", "vector"),
     (384, 384): ("vector", "vector", "vector"),
     (4, 8): ("vector", "vector", "vector"),
-    (8, 4): ("vector", "scalar", "vector"),        # 8 bytes of bf16
+    (8, 4): ("vector", "stream", "vector"),        # 8 bytes of bf16
     (5, 40): ("vector", "vector", "vector"),
     (40, 18): ("scalar", "scalar", "vector"),      # 72 / 36 / 144 bytes
-    (3, 3): ("scalar", "scalar", "scalar"),
-    (1, 1): ("scalar", "scalar", "scalar"),
+    (3, 3): ("stream", "stream", "stream"),        # ex56
+    (1, 1): ("stream", "stream", "stream"),
+    (3, 1): ("stream", "stream", "stream"),
+    (5, 5): ("stream", "stream", "stream"),
+    (10, 3): ("stream", "stream", "stream"),       # the largest br at bc = 3
+    (11, 3): ("scalar", "scalar", "scalar"),       # 33 values
+    (32, 1): ("stream", "stream", "stream"),       # the largest br at bc = 1
+    (33, 1): ("scalar", "scalar", "scalar"),
+    (2, 16): ("vector", "vector", "vector"),       # 32 values, 16-byte rows
+    (4, 9): ("scalar", "scalar", "scalar"),        # 36 values
 }
 
 
@@ -85,12 +95,45 @@ SPMV_CASES = {
 @pytest.mark.parametrize("bs", list(SPMV_CASES), ids=str)
 def test_spmv_variant(bs, dtype):
     want = SPMV_CASES[bs][list(DTYPES).index(dtype)]
-    assert bsr_spmv_variant(*_operands(*bs, dtype)) == want
-    # a data or x view off a 16-byte boundary takes the scalar variant
+    small = bs[0] * bs[1] <= 32
+    nblocks = 96 if small else 3
+    assert bsr_spmv_variant(*_operands(*bs, dtype, nblocks=nblocks), 1) \
+        == want
+    # a data or x view off a 16-byte boundary takes the stream variant
+    # where a block holds at most 32 values, else the scalar one
+    off = "stream" if small else "scalar"
     for shift in ("data", "x"):
-        data, x = _operands(*bs, dtype, shift=shift)
+        data, x = _operands(*bs, dtype, nblocks=nblocks, shift=shift)
         assert data.data_ptr() % 16 or x.data_ptr() % 16
-        assert bsr_spmv_variant(data, x) == "scalar"
+        assert bsr_spmv_variant(data, x, 1) == off
+
+
+# (br, bc), blocks, block rows: the stream variant needs block rows of
+# STREAM_MIN_STEPS = 3 warp steps (32 // (br * bc) blocks a step) on
+# average; below, the scalar variant runs.
+ROW_CASES = {
+    ((3, 3), 9, 1): "stream",
+    ((3, 3), 8, 1): "scalar",
+    ((3, 3), 111_284_641, 4_173_281): "stream",   # ex56 at -ne 160
+    ((3, 3), 17_000, 2_000): "scalar",            # 8.5 blocks a block row
+    ((1, 1), 96, 1): "stream",
+    ((1, 1), 95, 1): "scalar",
+    ((3, 1), 30, 1): "stream",
+    ((3, 1), 29, 1): "scalar",
+    ((5, 5), 3, 1): "stream",
+    ((5, 5), 2, 1): "scalar",
+    ((32, 1), 3, 1): "stream",
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(ROW_CASES), ids=str)
+def test_spmv_variant_follows_the_mean_block_row(case, dtype):
+    (br, bc), nblocks, nbr = case
+    data = torch.zeros(1, br, bc, dtype=DTYPES[dtype]).expand(nblocks, br, bc)
+    x = torch.zeros(bc, dtype=torch.float64 if dtype == "float64"
+                    else torch.float32)
+    assert bsr_spmv_variant(data, x, nbr) == ROW_CASES[case]
 
 
 # (br, bc, k): the SpMM variant for float32, bfloat16 and float64 blocks.
@@ -176,7 +219,8 @@ def test_cpu_wrappers_count_no_launches():
     after = [dict(m.LAUNCHES) for m in (bsr_spmv_mod, bsr_spmm_mod)] + [
         dict(m.VARIANT_LAUNCHES) for m in (bsr_spmv_mod, bsr_spmm_mod)]
     assert after == before
-    assert set(bsr_spmv_mod.VARIANT_LAUNCHES) == {"scalar", "vector"}
+    assert set(bsr_spmv_mod.VARIANT_LAUNCHES) == {"scalar", "vector",
+                                                  "stream"}
     assert set(bsr_spmm_mod.VARIANT_LAUNCHES) == {"register", "tiled",
                                                   "staged"}
 
@@ -198,6 +242,24 @@ def test_variant_override():
     assert bsr_spmm_mod.VARIANT_LAUNCHES == before
     with pytest.raises(ValueError, match="no variant 'vector'"):
         bsr_spmm(ptr, ind, data, X, variant="vector")
+
+
+def test_spmv_variant_override():
+    """``bsr_spmv(..., variant=...)`` names a variant on purpose, as
+    ``bsr_spmm`` does; on the CPU the plain version runs whatever is named
+    and counts nothing. A name the kernel has not raises."""
+    ptr = torch.tensor([0, 1, 1], dtype=torch.int32)
+    ind = torch.tensor([0], dtype=torch.int32)
+    data = torch.arange(9.0, dtype=torch.float64).reshape(1, 3, 3)
+    x = torch.ones(3, dtype=torch.float64)
+    before = dict(bsr_spmv_mod.VARIANT_LAUNCHES)
+    ys = [bsr_spmv(ptr, ind, data, x, variant=v)
+          for v in (None, "scalar", "vector", "stream")]
+    for y in ys[1:]:
+        torch.testing.assert_close(y, ys[0], rtol=0, atol=0)
+    assert bsr_spmv_mod.VARIANT_LAUNCHES == before
+    with pytest.raises(ValueError, match="no variant 'tiled'"):
+        bsr_spmv(ptr, ind, data, x, variant="tiled")
 
 
 def test_metrics_path_is_lazy():
