@@ -69,23 +69,22 @@ pass; each prints its seconds):
 7. SpGEMM, BASELINE config[2]: ``A·A`` on ``bench.py``'s power-law
    generator (zipf 1.8, capped at 512, seed 1) at n = 2**19, in float32
    and float64; host times of the native symbolic phase and of the plan
-   upload, the plan's device bytes. The main path's product (the terms
-   variant, the one every product runs) against the plain version slot by
-   slot, both kernel variants named on purpose against it, each bitwise
-   repeatable (terms bitwise the main path's), gradients against the
-   plain autograd; edge structures built as real A and B (empty rows of A,
-   entries whose B row is empty, repeated and unsorted columns in A and B
-   rows, an exact cancellation kept as 0, a row of more than 10k terms,
-   a row whose 12,000 terms share one slot, value arrays longer than nnz,
-   rows in every bin of the rowwise row plan, a C row exactly at the
-   shared-memory budget and one just past it, n_out == 0 with no launch); ``a * b``, ``csc * csc`` and ``a ** 3``
-   at config[0]'s size against dense products.
+   upload, the plan's device bytes. The main path's product against the
+   plain version slot by slot, the kernel bitwise repeatable and bitwise
+   the main path's, gradients against the plain autograd; edge structures
+   built as real A and B (empty rows of A, entries whose B row is empty,
+   repeated and unsorted columns in A and B rows, an exact cancellation
+   kept as 0, a row of more than 10k terms, a row whose 12,000 terms share
+   one slot, value arrays longer than nnz, two C rows of about 9k slots,
+   n_out == 0 with no launch); ``a * b``, ``csc * csc`` and ``a ** 3`` at
+   config[0]'s size against dense products.
 8. SpMM and SpGEMM times, in turns (plain, kernel, kernel, plain), every
    run and torch's CSR product behind the spin, csr_random and banded
    each; SDDMM at k = 64 beside ``torch.sparse.sampled_addmm``; Aᵀ·G on
-   both matrices as phase 4 times Aᵀ·g; both
-   SpGEMM variants in turns, and ``torch.sparse_csr_tensor(A) @
-   torch.sparse_csr_tensor(A)`` (timed only) as the library call.
+   both matrices as phase 4 times Aᵀ·g; the
+   SpGEMM kernel and its plain version in turns, and
+   ``torch.sparse_csr_tensor(A) @ torch.sparse_csr_tensor(A)`` (timed
+   only) as the library call.
 9. Where the SpMM and SpGEMM time goes: ``torch.profiler`` over a forward +
    backward SpMM step (csr_random: the bucket plan's bytes and the step's
    peak memory) and a SpGEMM numeric step.
@@ -384,7 +383,6 @@ VARIANTS = {"csr_spmv": spmv_mod.VARIANT_LAUNCHES,
             "csr_spmm": spmm_mod.VARIANT_LAUNCHES,
             "csr_sddmm": sddmm_mod.VARIANT_LAUNCHES,
             "csr_transpose": transpose_mod.VARIANT_LAUNCHES,
-            "spgemm": numeric_mod.VARIANT_LAUNCHES,
             "bsr_spmv": bsr_spmv_mod.VARIANT_LAUNCHES,
             "bsr_spmm": bsr_spmm_mod.VARIANT_LAUNCHES}
 # dvals of both CSR backward passes: XLA code in the JAX package.
@@ -446,8 +444,7 @@ MAIN_LAUNCHES = {
 # float32 and the register one in float64, on the banded matrix the staged
 # one in both; its dvals the vector SDDMM on csr_random and csc @ X, the
 # staged one on the banded matrix; the bucket scatter (pass 1) before each
-# Aᵀ·g and each Aᵀ·G but banded's. SpGEMM: the terms variant in both
-# dtypes (rowwise runs only where named). BSR paths, by matrix
+# Aᵀ·g and each Aᵀ·G but banded's. BSR paths, by matrix
 # (forward and Aᵀ·g in each dtype): the vector SpMV on both; the tiled SpMM
 # on tri128, the staged SpMM on banded8's 8 x 8 blocks.
 MAIN_VARIANTS = {
@@ -458,7 +455,6 @@ MAIN_VARIANTS = {
     "SpMM": {"csr_spmm": {"vector": 4, "register": 4, "staged": 4},
              "csr_sddmm": {"vector": 4, "staged": 2},
              "csr_transpose": {"scatter": 4}},
-    "SpGEMM": {"spgemm": {"terms": 2}},
     "BSR bsr @ x": {"tri128": {"vector": 6}, "banded8": {"vector": 4}},
     "BSR bsr @ X": {"tri128": {"tiled": 6}, "banded8": {"staged": 4}},
     "BSR ex56 bsr @ x": {"ex56": {"stream": 1}},
@@ -481,11 +477,11 @@ EXTRA_ROWS = {("bsr_spmv", "banded8"): ("banded8", F32_F64),
 # of its own ("_at"), with the main-path launches that took the bucket
 # route (csr_random; for the SpMM also csc @ X).
 AT_ROWS = ("csr_spmv", "csr_spmm")
-CSR_KERNELS = ("csr_spmv", "csr_spmm", "csr_sddmm", "csr_transpose")
 # Kernels whose variants drive() checks against MAIN_VARIANTS.
-DRIVEN_VARIANTS = CSR_KERNELS + ("spgemm",)
+CSR_KERNELS = ("csr_spmv", "csr_spmm", "csr_sddmm", "csr_transpose")
 TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
 CTA_SHARED = 232448   # bytes of shared memory a CTA may hold on an H100
+LONG_ROW = 9314       # slots of the long C row of the SpGEMM edge pairs
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}
 N_BIG = 2**21
@@ -763,7 +759,7 @@ def record_variants(seen, shape: str, name: str, before) -> None:
 def drive(label: str, path, totals) -> dict:
     """Run one main path between a reset and a read of every launch count;
     fail unless the counts are exactly the path's (MAIN_LAUNCHES), and
-    unless the variants of the CSR and SpGEMM kernels that ran are exactly
+    unless the variants of the CSR kernels that ran are exactly
     its MAIN_VARIANTS. Adds the counts to ``totals``; returns the path's
     outputs."""
     with phase(f"main path {label}"):
@@ -774,7 +770,7 @@ def drive(label: str, path, totals) -> dict:
                for kname, (_, counts) in KERNELS.items()}
         got = {kname: per for kname, per in got.items() if per}
         ran = {kname: {v: n for v, n in VARIANTS[kname].items() if n}
-               for kname in DRIVEN_VARIANTS}
+               for kname in CSR_KERNELS}
         ran = {kname: per for kname, per in ran.items() if per}
     print(f"main path {label} launches: {got}")
     if got != MAIN_LAUNCHES[label]:
@@ -845,18 +841,15 @@ def run_spmm(mats, rhs, seen):
     return out
 
 
-def run_spgemm(gemm, seen):
-    """A forward and backward ``a * a`` per dtype; ``seen["spgemm",
-    "powerlaw", dtype]`` gets the variant each dtype's product ran."""
+def run_spgemm(gemm):
+    """A forward and backward ``a * a`` per dtype."""
     out = {}
     for name, (a, gc) in gemm.items():
-        before = variant_counts()
         values = a.values.detach().clone().requires_grad_(True)
         ag = a.with_values(values)
         c = ag * ag
         c.values.backward(gc)
         out["spgemm", name] = (c, values.grad)
-        record_variants(seen, "powerlaw", name, before)
     return out
 
 
@@ -1198,20 +1191,6 @@ def sddmm_named(rowptr, colind, G, X, n, major, variant, takes, ref, scale,
         raise AssertionError(f"{what}: not bitwise repeatable")
 
 
-def budget_length(itemsize: int) -> int:
-    """The longest C row a cta-bin row of the rowwise variant may have:
-    its column ids, accumulator and tags fit ROW_BUDGET."""
-    def need(length):
-        return numeric_mod.row_bytes(length, numeric_mod.CTA_WARPS, itemsize)
-
-    length = (numeric_mod.ROW_BUDGET - need(0)) // (itemsize + 6)
-    while need(length + 1) <= numeric_mod.ROW_BUDGET:
-        length += 1
-    while need(length) > numeric_mod.ROW_BUDGET:
-        length -= 1
-    return length
-
-
 def spgemm_edge_pairs(device, np_dtype, rng):
     """Real A and B structures for the SpGEMM edge checks, as ``(what, a,
     b, cancel)``: ``cancel`` is the row of C (or None) whose first slot
@@ -1232,10 +1211,10 @@ def spgemm_edge_pairs(device, np_dtype, rng):
     b_col[0] = b_col[1] = 7
     b_val = rng.normal(size=b_col.size)
     b_val[0], b_val[1] = 1.0, -1.0
-    # A: 3000 rows: empty ones, short ones (thread bin), medium ones (warp
-    # bin), heavy ones (cta), one of more than 10k terms over the long B
-    # rows (past the budget), one whose 12,000 terms share one slot (B row
-    # 21 has one entry); unsorted columns with repeats
+    # A: 3000 rows: empty ones, short ones, medium ones, heavy ones, one of
+    # more than 10k terms over the long B rows, one whose 12,000 terms
+    # share one slot (B row 21 has one entry); unsorted columns with
+    # repeats
     na = 3000
     a_len = rng.integers(1, 6, size=na)
     a_len[::7] = 0
@@ -1264,12 +1243,12 @@ def spgemm_edge_pairs(device, np_dtype, rng):
 
     pairs = [("mixed", csr(na, nb, a_ptr, a_col, a_val),
               csr(nb, ncols, b_ptr, b_col, b_val), 1)]
-    # a C row exactly at the shared-memory budget and one just past it: A
-    # rows of distinct columns (shuffled) times the identity
-    at = budget_length(np.dtype(np_dtype).itemsize)
+    # two long C rows, of LONG_ROW slots and one more: A rows of distinct
+    # columns (shuffled) times the identity
+    at = LONG_ROW
     cols = [rng.permutation(at), rng.permutation(at + 1)]
     ptr = np.array([0, at, 2 * at + 1])
-    pairs.append(("budget", csr(2, at + 1, ptr, np.concatenate(cols),
+    pairs.append(("long", csr(2, at + 1, ptr, np.concatenate(cols),
                                 rng.normal(size=2 * at + 1)),
                   csr(at + 1, at + 1, np.arange(at + 2), np.arange(at + 1),
                       rng.normal(size=at + 1)), None))
@@ -1282,63 +1261,42 @@ def spgemm_edge_pairs(device, np_dtype, rng):
 
 
 def spgemm_edge_structures(device) -> None:
-    """Both SpGEMM kernel variants, named on purpose, against the plain
-    version on real A and B structures the main path does not reach
-    (spgemm_edge_pairs), bitwise repeatable; the cancellation kept as an
-    exact 0; the rowwise grids cover every bin, the budget pair puts its
-    rows in the cta and wide bins; n_out == 0 launches nothing."""
+    """The SpGEMM kernel against the plain version on real A and B
+    structures the main path does not reach (spgemm_edge_pairs), bitwise
+    repeatable; the cancellation kept as an exact 0; n_out == 0 launches
+    nothing."""
     rng = np.random.default_rng(5)
-    bins_before = dict(numeric_mod.BIN_LAUNCHES)
     for name, (np_dtype, _) in DTYPES.items():
         for what, a, b, cancel in spgemm_edge_pairs(device, np_dtype, rng):
             plan = spgemm_mod.spgemm_plan(a, b)
             args = (plan.gid, plan.a_idx, plan.b_idx)
             label = f"{name} SpGEMM edge structure {what}"
-            if what == "budget":
-                rows = numeric_mod.row_plan(plan, np.dtype(np_dtype).itemsize)
-                if rows.bins.tolist() != [2, 3]:
-                    raise AssertionError(f"{label}: rows of {plan.n_out // 2}"
-                                         f" slots in bins {rows.bins.tolist()}"
-                                         ", not cta and wide")
             if what == "empty":
                 before = dict(numeric_mod.LAUNCHES)
-                for variant in numeric_mod.VARIANT_LAUNCHES:
-                    out = spgemm_numeric(plan, a.values, b.values,
-                                         variant=variant)
-                    if out.shape != (0,):
-                        raise AssertionError(f"{label}: shape {out.shape}")
+                out = spgemm_numeric(plan, a.values, b.values)
+                if out.shape != (0,):
+                    raise AssertionError(f"{label}: shape {out.shape}")
                 if plan.n_out != 0 or numeric_mod.LAUNCHES != before:
                     raise AssertionError(f"{label}: n_out == 0 launched")
                 continue
             ref = spgemm_numeric_plain(*args, a.values, b.values, plan.n_out)
             scale = spgemm_numeric_plain(*args, a.values.abs(),
                                          b.values.abs(), plan.n_out)
-            for variant in numeric_mod.VARIANT_LAUNCHES:
-                out = spgemm_numeric(plan, a.values, b.values,
-                                     variant=variant)
-                within((out - ref).abs(), scale, TOL[name],
-                       f"{label} ({variant})")
-                if not torch.equal(out, spgemm_numeric(
-                        plan, a.values, b.values, variant=variant)):
-                    raise AssertionError(f"{label} ({variant}): not bitwise "
-                                         "repeatable")
-                if cancel is not None:
-                    g = int(plan.rowptr[cancel])
-                    if float(out[g]) != 0.0 or float(scale[g]) != 2.0:
-                        raise AssertionError(f"{label} ({variant}): the "
-                                             "cancelling slot is not 0")
-    grids = {k: n - bins_before[k]
-             for k, n in numeric_mod.BIN_LAUNCHES.items()}
+            out = spgemm_numeric(plan, a.values, b.values)
+            within((out - ref).abs(), scale, TOL[name], label)
+            if not torch.equal(out, spgemm_numeric(plan, a.values,
+                                                   b.values)):
+                raise AssertionError(f"{label}: not bitwise repeatable")
+            if cancel is not None:
+                g = int(plan.rowptr[cancel])
+                if float(out[g]) != 0.0 or float(scale[g]) != 2.0:
+                    raise AssertionError(f"{label}: the cancelling slot is "
+                                         "not 0")
     torch.cuda.synchronize()
-    if min(grids.values()) == 0:
-        raise AssertionError(f"SpGEMM edge structures: rowwise grids by bin "
-                             f"{grids}: a bin was never launched")
-    print(f"phase 7: SpGEMM edge structures (mixed, budget, empty): both "
-          f"variants == plain within tol in float32 and float64, bitwise "
-          f"repeatable, the cancelling slot exactly 0, "
-          f"rows of {budget_length(4)} / {budget_length(8)} slots (f32 / "
-          f"f64) in the cta bin and one more in the wide bin, n_out == 0 "
-          f"launched nothing; rowwise grids by bin {grids}")
+    print(f"phase 7: SpGEMM edge structures (mixed, long, empty): the kernel "
+          f"== plain within tol in float32 and float64, bitwise repeatable, "
+          f"the cancelling slot exactly 0, C rows of {LONG_ROW} and "
+          f"{LONG_ROW + 1} slots, n_out == 0 launched nothing")
 
 
 def spgemm_dense_checks(csr0, device) -> None:
@@ -2442,10 +2400,9 @@ def check_staged_csr(mats, rhs, device) -> None:
 
 
 def check_spgemm(gemm, plan, main_out, report) -> None:
-    """The main path's ``a * a`` (the terms variant) against the plain
-    numeric phase slot by slot; both variants named on purpose against it
-    and bitwise repeatable, terms bitwise the main path's; the gradient
-    against the plain autograd."""
+    """The main path's ``a * a`` against the plain numeric phase slot by
+    slot; the kernel bitwise repeatable and bitwise the main path's; the
+    gradient against the plain autograd."""
     for name, (a, gc) in gemm.items():
         tol = TOL[name]
         c, dvals = main_out["spgemm", name]
@@ -2462,21 +2419,13 @@ def check_spgemm(gemm, plan, main_out, report) -> None:
         scale = spgemm_numeric_plain(*args, v.abs(), v.abs(), plan.n_out)
         err = (c.values.detach() - ref).abs()
         within(err, scale, tol, f"{name} SpGEMM")
-        errs = {}
-        for variant in numeric_mod.VARIANT_LAUNCHES:
-            runs = [spgemm_numeric(plan, v, v, variant=variant)
-                    for _ in range(2)]
-            e = (runs[0] - ref).abs()
-            within(e, scale, tol, f"{name} SpGEMM {variant}")
-            if not bitwise_equal(*runs):
-                raise AssertionError(f"{name}: SpGEMM {variant} results "
-                                     "differ run to run")
-            if variant == "terms" and not torch.equal(runs[0],
-                                                      c.values.detach()):
-                raise AssertionError(f"{name}: the main path's A·A is not "
-                                     "the terms kernel's")
-            errs[variant] = float(e.max())
-            del runs, e
+        runs = [spgemm_numeric(plan, v, v) for _ in range(2)]
+        if not bitwise_equal(*runs):
+            raise AssertionError(f"{name}: SpGEMM results differ run to run")
+        if not torch.equal(runs[0], c.values.detach()):
+            raise AssertionError(f"{name}: the main path's A·A is not the "
+                                 "kernel's")
+        del runs
         v_p = v.detach().clone().requires_grad_(True)
         (dv_p,) = torch.autograd.grad(
             spgemm_numeric_plain(*args, v_p, v_p, plan.n_out), (v_p,), gc)
@@ -2485,40 +2434,19 @@ def check_spgemm(gemm, plan, main_out, report) -> None:
             0, plan.a_idx, gg * v.abs()[plan.b_idx]).index_add_(
             0, plan.b_idx, gg * v.abs()[plan.a_idx])
         within((dvals - dv_p).abs(), scale_dv, tol, f"{name} SpGEMM dvals")
-        report["spgemm", name] = {"max_abs_err": float(err.max()),
-                                  "variant": "terms",
-                                  "variant_max_abs_err": errs}
-        rows = numeric_mod.row_plan(plan, v.element_size())
+        report["spgemm", name] = {"max_abs_err": float(err.max())}
         print(f"phase 7: {name} A·A n={a.nrows} nnz_a={a.nnz} terms="
               f"{plan.a_idx.numel()} n_out={plan.n_out}: the main path "
-              f"(terms) == plain within {tol}*sum|a||b| slot by slot (max "
-              f"|err| {float(err.max()):.3e}); named on purpose, max |err| "
-              f"{errs}, each bitwise repeatable; the gradient matches the "
-              f"plain autograd; rowwise row plan: rows by bin "
-              f"{dict(zip(numeric_mod.BINS, rows.counts))}, "
-              f"{rows.grids.shape[0]} grids")
+              f"== plain within {tol}*sum|a||b| slot by slot (max |err| "
+              f"{float(err.max()):.3e}), bitwise repeatable; the gradient "
+              f"matches the plain autograd")
         del ref, scale, err, v_p, dv_p, gg, scale_dv
 
 
-def plan_bytes(plan) -> tuple:
-    """Device bytes of a SpGEMM plan: the term list, slot pointers and C's
-    structure (what the plan held before the rowwise variant), and with
-    the row plans built so far (the operand structures are views of the
-    operands' own arrays: no bytes of their own)."""
-    def nbytes(t):
-        return t.numel() * t.element_size()
-    before = sum(nbytes(t) for t in (plan.a_idx, plan.b_idx, plan.gid,
-                                     plan.tptr, plan.rowptr, plan.colind))
-    rows = sum(nbytes(t) for r in plan.row_plans.values()
-               for t in (r.terms, r.bins, r.rows))
-    return before, before + rows
-
-
 def time_spgemm(gemm, plan, report, card: str) -> None:
-    """The terms variant (the one products run) and the plain version in
-    turns, and both variants in turns (terms first and last), behind the
-    spin; the library call (timed only); the bound from the function's
-    bytes (the term list's printed beside it)."""
+    """The kernel and the plain version in turns, behind the spin; the
+    library call (timed only); the bound from the function's bytes (the
+    term list's printed beside it)."""
     n_terms = plan.a_idx.numel()
     args = (plan.gid, plan.a_idx, plan.b_idx)
     for name, (a, _) in gemm.items():
@@ -2527,10 +2455,6 @@ def time_spgemm(gemm, plan, report, card: str) -> None:
         k_ms, p_ms, (p1, k1, k2, p2) = turns(
             lambda: spgemm_numeric(plan, v, v),
             lambda: spgemm_numeric_plain(*args, v, v, plan.n_out),
-            TIMED_LAUNCHES, TIMED_LAUNCHES, spin=True)
-        o_ms, _, (d1, o1, o2, d2) = turns(
-            lambda: spgemm_numeric(plan, v, v, variant="rowwise"),
-            lambda: spgemm_numeric(plan, v, v, variant="terms"),
             TIMED_LAUNCHES, TIMED_LAUNCHES, spin=True)
         lib = torch.sparse_csr_tensor(a.rowptr, a.colind, v,
                                       (a.nrows, a.ncols))
@@ -2545,26 +2469,24 @@ def time_spgemm(gemm, plan, report, card: str) -> None:
         terms_bytes = (8 * n_terms + 4 * (plan.n_out + 1)
                        + itemsize * (a.nnz + plan.n_out))
         b = bound(nbytes, 2 * n_terms, name)
-        for label, ms in (("kernel (terms, dispatched)", k_ms),
-                          ("kernel (rowwise, named)", o_ms), ("plain", p_ms),
+        for label, ms in (("kernel", k_ms), ("plain", p_ms),
                           ("library torch.sparse_csr_tensor(A) @ "
                            "torch.sparse_csr_tensor(A)", lib_ms)):
             print(f"phase 8: {name} SpGEMM numeric {label}: {ms:.4f} ms, "
                   f"{n_terms / ms / 1e6:.3f} Gterms/s | {card}")
-        print(f"phase 8: {name} SpGEMM turns (ms): plain {p1:.4f}, terms "
-              f"{k1:.4f}, terms {k2:.4f}, plain {p2:.4f}; terms {d1:.4f}, "
-              f"rowwise {o1:.4f}, rowwise {o2:.4f}, terms {d2:.4f}")
+        print(f"phase 8: {name} SpGEMM turns (ms): plain {p1:.4f}, kernel "
+              f"{k1:.4f}, kernel {k2:.4f}, plain {p2:.4f}")
         print(f"phase 8: {name} SpGEMM bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']}: the function's {nbytes} bytes); the term "
               f"list's count, {terms_bytes} bytes, would give "
               f"{terms_bytes / (HBM_TBPS * 1e12) * 1e3:.4f} ms")
         report["spgemm", name].update(
-            ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-            variant_ms={"terms": k_ms, "rowwise": o_ms}, **b)
-    before, after = plan_bytes(plan)
-    print(f"phase 8: A·A plan device bytes: {before} (term list, slot "
-          f"pointers, C's structure) -> {after} with the row plans the "
-          f"named rowwise runs built")
+            ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, **b)
+    held = sum(t.numel() * t.element_size()
+               for t in (plan.a_idx, plan.b_idx, plan.gid, plan.tptr,
+                         plan.rowptr, plan.colind))
+    print(f"phase 8: A·A plan device bytes: {held} (term list, slot "
+          f"pointers, C's structure)")
 
 
 def time_spmm_spgemm(mats, rhs, gemm, plan, report, card: str) -> None:
@@ -5347,7 +5269,7 @@ def run(t_start: float, tmpdir: str) -> int:
     main_out.update(drive("SpMV", lambda: run_spmv(big, seen), launches))
     main_out.update(drive("SpMM", lambda: run_spmm(mats, rhs, seen),
                           launches))
-    main_out.update(drive("SpGEMM", lambda: run_spgemm(gemm, seen),
+    main_out.update(drive("SpGEMM", lambda: run_spgemm(gemm),
                           launches))
 
     # ---- phase 2: config[0] against the dense product -----------------

@@ -50,10 +50,6 @@ _ENTRIES = {
     # (tptr, a_idx, b_idx, a, b, out, n_out, stream)
     **{f"spal_spgemm_terms_{t}": [_P] * 6 + [ctypes.c_longlong, _P]
        for t in ("f32", "f64")},
-    # (a_ptr, a_col, a, b_ptr, b_col, b, c_ptr, c_col, out, rows, grids,
-    #  ngrids, budget, stream)
-    **{f"spal_spgemm_rowwise_{t}": [_P] * 11 + [ctypes.c_longlong] * 2 + [_P]
-       for t in ("f32", "f64")},
     # (indptr, indices, data, x, y, nbr, br, bc, nblocks, variant, stream)
     **{f"spal_bsr_spmv_{t}": [_P] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_longlong,

@@ -14,15 +14,11 @@ Symbolic/numeric split, as in the JAX package:
    coordinates, and record each term's output slot. The native library
    (:mod:`spalinalg_tpu_torch.native.lib`) does this when A has more than
    4096 entries, NumPy otherwise; both give the same plan. The plan's
-   tensors are int32 on the operands' device; it also keeps the operand
-   structures it was planned on, which the kernel's ``rowwise`` variant
-   walks.
+   tensors are int32 on the operands' device.
 2. *Numeric phase* (device, differentiable): the SpGEMM kernel
-   (``csrc/spgemm_numeric.cu``) on CUDA tensors, its plain torch version
-   on the term list on CPU tensors (:mod:`.kernels.spgemm_numeric`). The
-   kernel's ``terms`` variant, a walk of the plan's term list, is the one
-   every product runs; the row-wise walk of the CSR arrays of A, B and C
-   (``rowwise``) runs only where it is named.
+   (``csrc/spgemm_numeric.cu``), a walk of the plan's term list, on CUDA
+   tensors, its plain torch version on the term list on CPU tensors
+   (:mod:`.kernels.spgemm_numeric`).
 
 Plans are cached per structure pair and live as long as the structures
 (:class:`~spalinalg_tpu_torch.utils.plancache.StructureCache`). The path
@@ -42,7 +38,7 @@ Examples
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -69,13 +65,9 @@ class SpgemmPlan:
     ``gid`` maps each term to its output slot (sorted); ``rowptr``/
     ``colind`` are the output CSR structure (exact nnz, cancellation zeros
     kept); ``tptr`` (``n_out + 1``) points at each slot's first term (the
-    ``terms`` kernel variant reads it). ``a_ptr``/``a_col``/``b_ptr``/
-    ``b_col`` are the operand structures the plan was made from (views of
-    the operands' own arrays: CSC pairs give their mirrored structures);
-    the ``rowwise`` variant walks them and C's, with the row plans in
-    ``row_plans`` (one per value size, built when it first runs). ``nnz_a``/
-    ``nnz_b`` are the operands' entry counts, which the value arrays must
-    cover. All tensors are int32 on the operands' device.
+    kernel reads it). ``nnz_a``/``nnz_b`` are the operands' entry counts,
+    which the value arrays must cover. All tensors are int32 on the
+    operands' device.
     """
 
     nrows: int
@@ -89,11 +81,6 @@ class SpgemmPlan:
     tptr: torch.Tensor
     nnz_a: int
     nnz_b: int
-    a_ptr: torch.Tensor
-    a_col: torch.Tensor
-    b_ptr: torch.Tensor
-    b_col: torch.Tensor
-    row_plans: dict = field(default_factory=dict, repr=False)
 
     def num_flops(self) -> int:
         """2 × product-term count (multiply + add)."""
@@ -167,14 +154,10 @@ def spgemm_plan(a, b) -> SpgemmPlan:
     tptr = torch.searchsorted(
         gid, torch.arange(n_out + 1, dtype=INDEX_DTYPE, device=a.device),
         out_int32=True)
-    # New tensor objects on the operands' storage: a cached plan must not
-    # keep alive the tensors its cache entry is keyed on.
     return SpgemmPlan(nrows=a.nrows, ncols=b.ncols, a_idx=a_idx, b_idx=b_idx,
                       gid=gid, rowptr=rowptr, colind=colind, n_out=n_out,
                       tptr=tptr, nnz_a=int(acol.size),
-                      nnz_b=int(bcol.size), a_ptr=a._ptr.detach(),
-                      a_col=a._minor.detach(), b_ptr=b._ptr.detach(),
-                      b_col=b._minor.detach())
+                      nnz_b=int(bcol.size))
 
 
 def spgemm_apply(plan: SpgemmPlan, a_values: torch.Tensor,

@@ -21,11 +21,9 @@ prints one JSON line per product:
 ``--spgemm`` times instead SpGEMM ``A·A`` in float32 and float64 on
 config[2]'s power-law matrix of ``chip_smoke.py`` (zipf 1.8 row lengths
 capped at 512, uniform columns, seed 1, n = 2**19) and on the 5-point
-Laplacian of a 512 x 512 grid (``lap2d``: 25 terms a row of C, every row
-in the ``rowwise`` variant's thread bin). With the plan cached, ``spgemm``
-is a whole product ``a * a`` and ``spgemm_numeric`` the numeric kernel
-alone as the package dispatches it (and each variant by name where the
-package has variants, ``op`` ``spgemm_variant``). ``spgemm_first`` (the
+Laplacian of a 512 x 512 grid (``lap2d``: 25 terms a row of C). With the
+plan cached, ``spgemm`` is a whole product ``a * a`` and
+``spgemm_numeric`` the numeric kernel alone. ``spgemm_first`` (the
 power-law matrix) is the first ``a * a`` on fresh copies of its structure:
 host seconds with the symbolic phase and the plan's upload, the card's
 peak bytes above those allocated before it, and the bytes still held once
@@ -334,33 +332,23 @@ def spgemm(emit, sp, device) -> None:
     from spalinalg_tpu_torch.ops import spgemm as sg
     from spalinalg_tpu_torch.ops.kernels import spgemm_numeric as nm
 
-    variants = list(getattr(nm, "VARIANT_LAUNCHES", {}))
     for shape, mats in (("power_law", power_law(sp, device)),
                         ("lap2d", laplacian5(sp, device))):
         for name, a in mats.items():
-            spgemm_case(emit, sp, sg, nm, variants, shape, name, a)
+            spgemm_case(emit, sp, sg, nm, shape, name, a)
         del mats
         torch.cuda.empty_cache()
 
 
-def spgemm_case(emit, sp, sg, nm, variants, shape, name, a) -> None:
+def spgemm_case(emit, sp, sg, nm, shape, name, a) -> None:
     """One matrix and dtype of :func:`spgemm`."""
     plan = sg._cached_plan(a, a)
     v = a.values
     common = {"shape": shape, "n": a.nrows, "nnz": a.nnz,
               "terms": int(plan.a_idx.numel()), "dtype": name}
-    if variants:
-        kernel = lambda: nm.spgemm_numeric(plan, v, v)  # noqa: E731
-    else:
-        kernel = lambda: nm.spgemm_numeric(  # noqa: E731
-            plan.tptr, plan.gid, plan.a_idx, plan.b_idx, v, v,
-            plan.n_out)
     emit(op="spgemm", **common, ms=time_ms(lambda: a * a, STEPS))
-    emit(op="spgemm_numeric", **common, ms=time_ms(kernel))
-    for variant in variants:
-        emit(op="spgemm_variant", **common, variant=variant,
-             ms=time_ms(lambda: nm.spgemm_numeric(plan, v, v,
-                                                  variant=variant)))
+    emit(op="spgemm_numeric", **common,
+         ms=time_ms(lambda: nm.spgemm_numeric(plan, v, v)))
     del plan
     torch.cuda.empty_cache()
     if shape == "power_law":

@@ -278,8 +278,7 @@ def test_no_plain_torch_off_the_cpu():
                                            device="meta"), 2)
     plan = tsp.SpgemmPlan(nrows=2, ncols=2, a_idx=ind, b_idx=ind, gid=ind,
                           rowptr=ptr, colind=ind, n_out=2, tptr=ptr,
-                          nnz_a=2, nnz_b=2, a_ptr=ptr, a_col=ind, b_ptr=ptr,
-                          b_col=ind)
+                          nnz_a=2, nnz_b=2)
     with pytest.raises(ValueError, match="no spgemm_numeric kernel for device"):
         spgemm_numeric(plan, val, val)
     blocks = torch.ones(2, 1, 1, dtype=torch.float64, device="meta")

@@ -8,7 +8,8 @@ are made with NumPy from a seed and handed to both packages.
   ``spalinalg_tpu.spgemm_plan``'s, on both sides of the 4096-entry native
   threshold;
 - values against ``spgemm_apply`` (scaled error ``<= tol·Σ|a||b|``, 1e-12
-  f64, 1e-5 f32) and against the TPU kernel's own function,
+  f64, 1e-5 f32), also on rows with repeated and unsorted columns, and
+  against the TPU kernel's own function,
   ``pair_route_apply(..., interpret=True)`` (f32, at the tolerance of
   ``tests/test_pair_route.py``);
 - gradients against ``jax.grad`` through ``spgemm_apply``;
@@ -36,8 +37,7 @@ from spalinalg_tpu.ops.kernels.pair_route import (build_pair_route_plan,
 from spalinalg_tpu_torch.io import csr_from_arrays
 from spalinalg_tpu_torch.native import lib as native
 from spalinalg_tpu_torch.ops import spgemm as tsg
-from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import (spgemm_numeric,
-                                                           spgemm_rows)
+from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import spgemm_numeric
 
 
 @pytest.fixture(autouse=True)
@@ -132,19 +132,9 @@ def test_plan_equals_jax(case, path):
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(),
                                       np.asarray(getattr(jplan, field)))
-    # the structures it was planned on, as views of the operands' arrays
-    for got, mat in ((tplan.a_ptr, ta._ptr), (tplan.a_col, ta._minor),
-                     (tplan.b_ptr, tb._ptr), (tplan.b_col, tb._minor)):
-        assert got is not mat and got.data_ptr() == mat.data_ptr()
-        assert torch.equal(got, mat)
-    # the slot pointers, and the row plan's term counts: the slots' term
-    # ranges, row by row
+    # the slot pointers: each slot's first term
     tptr = np.searchsorted(tplan.gid.numpy(), np.arange(tplan.n_out + 1))
     np.testing.assert_array_equal(tplan.tptr.numpy(), tptr)
-    rowptr = tplan.rowptr.numpy()
-    rows = spgemm_rows(tplan.a_ptr, tplan.a_col, tplan.b_ptr, tplan.rowptr, 8)
-    np.testing.assert_array_equal(rows.terms.numpy(),
-                                  tptr[rowptr[1:]] - tptr[rowptr[:-1]])
 
 
 def test_native_and_numpy_symbolic_agree():
@@ -172,14 +162,43 @@ def test_empty_product_plan():
 # ----------------------------------------------------------------- values
 
 
+def _unsorted(n, ncols, cap, seed, dtype):
+    """Host CSR arrays with zipf row lengths (every 11th row empty) and
+    uniform columns, unsorted and repeating within a row."""
+    rng = np.random.default_rng(seed)
+    deg = np.minimum(rng.zipf(1.8, size=n), cap)
+    deg[::11] = 0
+    rowptr = np.concatenate([[0], np.cumsum(deg)])
+    colind = rng.integers(0, ncols, size=int(rowptr[-1]))
+    values = rng.normal(size=colind.size).astype(dtype)
+    return n, ncols, rowptr, colind, values
+
+
+def _trusted(n, m, rowptr, colind, values):
+    """Both packages' CSR through their trusted constructors: repeated and
+    unsorted columns stay as they are."""
+    return (jsp.CsrMatrix._from_parts(
+                n, m, jnp.asarray(rowptr, jnp.int32),
+                jnp.asarray(colind, jnp.int32), jnp.asarray(values)),
+            tsp.CsrMatrix._from_parts(
+                n, m, torch.from_numpy(rowptr.astype(np.int32)),
+                torch.from_numpy(colind.astype(np.int32)),
+                torch.from_numpy(values)))
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("case", ["power_law", "large_native"])
+@pytest.mark.parametrize("case", ["power_law", "large_native", "unsorted"])
 def test_values_match_spgemm_apply(dtype, case):
-    n = 200 if case == "power_law" else 1200
-    a_args = _power_law(n, 47, dtype)
-    b_args = _uniform(n, 0, 6, 48, dtype)
-    ja, ta = _both(*a_args)
-    jb, tb = _both(*b_args)
+    if case == "unsorted":
+        a_args = _unsorted(300, 300, 64, 78, dtype)
+        b_args = _unsorted(300, 250, 200, 79, dtype)
+        (ja, ta), (jb, tb) = _trusted(*a_args), _trusted(*b_args)
+    else:
+        n = 200 if case == "power_law" else 1200
+        a_args = _power_law(n, 47, dtype)
+        b_args = _uniform(n, 0, 6, 48, dtype)
+        ja, ta = _both(*a_args)
+        jb, tb = _both(*b_args)
     jplan, tplan = jsp.spgemm_plan(ja, jb), tsp.spgemm_plan(ta, tb)
     want = np.asarray(jsp.spgemm_apply(jplan, ja.values, jb.values))
     got = tsp.spgemm_apply(tplan, ta.values, tb.values)
@@ -272,16 +291,14 @@ def test_numeric_wrapper_checks():
     with pytest.raises(tsp.ShapeError):   # rowptr for another row count
         spgemm_numeric(dataclasses.replace(
             empty, rowptr=torch.zeros(3, dtype=torch.int32)), v, v)
-    with pytest.raises(tsp.DTypeError):   # an int64 operand structure
-        spgemm_numeric(dataclasses.replace(empty, a_ptr=empty.a_ptr.long()),
+    with pytest.raises(tsp.DTypeError):   # an int64 term list
+        spgemm_numeric(dataclasses.replace(empty, gid=empty.gid.long()),
                        v, v)
     one = tsp.spgemm_plan(*(tsp.CsrMatrix(1, 1, [0, 1], [0], [1.0]),) * 2)
     half = spgemm_numeric(one, v.bfloat16(), v.float())
     assert half.dtype == torch.float32 and half.tolist() == [1.0]
     with pytest.raises(tsp.ShapeError):   # values shorter than the operand
         spgemm_numeric(one, v[:0], v)
-    with pytest.raises(ValueError, match="unknown spgemm_numeric variant"):
-        spgemm_numeric(one, v, v, variant="merge")
 
 
 # ------------------------------------------------------- whole products
