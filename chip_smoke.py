@@ -119,7 +119,12 @@ pass; each prints its seconds):
     (``tools/bench_bsr.py``'s, 111,284,641 blocks), ``bsr @ x`` once
     between a reset and a read of the counts (one launch, the stream
     variant), against the plain version within ``1e-13·(|A||x|)``, a
-    bitwise repeat, timed in turns beside torch's BSR call.
+    bitwise repeat, timed in turns beside torch's BSR call. Then the
+    Jacobi diagonal's main path: ``diagonal`` of HPCG's 27-point operator
+    at 256**3 (values drawn on the card, float32, bfloat16 and float64) and
+    of ex56's blocks, one launch each of ``csrc/diagonal.cu``; the diagonal
+    and its Jacobi inverse bitwise the plain version's; the inverse timed
+    in turns behind the spin beside its bound.
 12. DeviceCoo: ``coo.to_device().to_csr_device()`` on the card for phase 3's
     triplets (both dtypes) and config[0]'s (duplicates and zeros): the
     padded CSR holds ``CsrMatrix.from_coo``'s structure exactly and its
@@ -154,11 +159,12 @@ pass; each prints its seconds):
     (``to_bsr(8)``) of the 64**3 Laplacian, float32. Each solve runs once
     between a reset and a read of the launch counts, which must be exactly
     the SpMVs its iterations need (CG: iterations + 1) on the CSR or BSR
-    SpMV kernel, and nothing else; on each solver's matrix and dtype that
+    SpMV kernel, one diagonal launch for a Jacobi set-up on a CSR matrix,
+    and nothing else; on each solver's matrix and dtype that
     kernel is held against its plain version (``b`` as the operand,
     within ``TOL·|A||x|``); ``||b - A·x||``, recomputed in float64 by the
     plain SpMV, must be within 1.01 x tol; the metrics path must name
-    ``csr_spmv:cuda:*`` / ``bsr_spmv:cuda:*``. Prints iterations, ms per
+    ``csr_spmv:cuda:*`` / ``bsr_spmv:cuda:*`` (and ``diagonal:cuda``). Prints iterations, ms per
     iteration beside the SpMV kernel's ms, and the device operations of
     one IC(0) application.
 17. BASELINE config[3]: ``cholesky`` -> ``cholesky_solve`` on the 5-point
@@ -313,6 +319,7 @@ from spalinalg_tpu_torch.ops.kernels import csr_sddmm as sddmm_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmm as spmm_mod
 from spalinalg_tpu_torch.ops.kernels import csr_transpose as transpose_mod
 from spalinalg_tpu_torch.ops.kernels import dia_spmv as dia_mod
+from spalinalg_tpu_torch.ops.kernels import diagonal as diag_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmv as spmv_mod
 from spalinalg_tpu_torch.ops.kernels import spgemm_numeric as numeric_mod
 from spalinalg_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm
@@ -332,6 +339,10 @@ from spalinalg_tpu_torch.ops.kernels.csr_spmv import (BUDGET, STAGE_BUDGET,
 from spalinalg_tpu_torch.ops.kernels.dia_spmv import (_shifted_products,
                                                       dia_spmv,
                                                       dia_spmv_plain)
+from spalinalg_tpu_torch.ops.kernels.diagonal import (diagonal_plain,
+                                                      diagonal as
+                                                      stored_diagonal)
+from spalinalg_tpu_torch.ops.reduce_api import diagonal as mat_diagonal
 from spalinalg_tpu_torch.ops.kernels.spgemm_numeric import (
     spgemm_numeric, spgemm_numeric_plain)
 from spalinalg_tpu_torch.linalg import (bicgstab, cg, chebyshev, cholesky,
@@ -374,6 +385,7 @@ KERNELS = {
     "bsr_spmm": ("spalinalg_tpu_torch/csrc/bsr_spmm.cu",
                  bsr_spmm_mod.LAUNCHES),
     "dia_spmv": ("spalinalg_tpu_torch/csrc/dia_spmv.cu", dia_mod.LAUNCHES),
+    "diagonal": ("spalinalg_tpu_torch/csrc/diagonal.cu", diag_mod.LAUNCHES),
     "wide_gather": ("spalinalg_tpu_torch/csrc/wide_gather.cu",
                     probe.LAUNCHES),
 }
@@ -393,6 +405,9 @@ SDDMM_REPLACES = ("spalinalg_tpu/ops/kernels/csr_route.py:1093 and :1364 "
 # transposed structure) and pass 1 of their bucket route take the place of.
 AT_REPLACES = ("spalinalg_tpu/ops/kernels/csr_route.py:1096 and :1367 "
                "(XLA scatter-add of dx, dX; no Pallas kernel)")
+# The Jacobi diagonal: XLA code in the JAX package.
+DIAG_REPLACES = ("spalinalg_tpu/ops/reduce_api.py::diagonal (XLA; no Pallas "
+                 "kernel)")
 REPLACES = {
     ("csr_spmv", "float32"): "spalinalg_tpu/ops/kernels/csr_route.py:930",
     ("csr_spmv", "float64"): "spalinalg_tpu/ops/kernels/csr_route_df.py:47",
@@ -412,6 +427,9 @@ REPLACES = {
     ("bsr_spmm", "float64"): "spalinalg_tpu/ops/kernels/bsr_stream.py:194",
     ("dia_spmv", "float32"): "spalinalg_tpu/ops/kernels/dia_stream.py:58",
     ("dia_spmv", "float64"): "spalinalg_tpu/ops/kernels/dia_df.py:59",
+    ("diagonal", "float32"): DIAG_REPLACES,
+    ("diagonal", "bfloat16"): DIAG_REPLACES,
+    ("diagonal", "float64"): DIAG_REPLACES,
     ("wide_gather", "float32"): "tools/probe_widegather.py:39",
 }
 # Launches of each main path: config[0] forward (f64); a forward, an Aᵀ·g
@@ -421,6 +439,7 @@ REPLACES = {
 # the perm route); one numeric phase per SpGEMM
 # dtype; a forward and an Aᵀ·g (Aᵀ·G) for each BSR matrix: tri128 in three dtypes, banded8 in two;
 # a forward and an Aᵀ·g for each DIA matrix, dia9 and lap3d, per dtype; the
+# diagonal of HPCG's operator in three dtypes and of ex56's blocks; the
 # probe's check, warm-up and timed launches.
 MAIN_LAUNCHES = {
     "config[0]": {"csr_spmv": {"float64": 1}},
@@ -434,6 +453,8 @@ MAIN_LAUNCHES = {
     "BSR bsr @ x": {"bsr_spmv": {"float32": 4, "bfloat16": 2, "float64": 4}},
     "BSR bsr @ X": {"bsr_spmm": {"float32": 4, "bfloat16": 2, "float64": 4}},
     "BSR ex56 bsr @ x": {"bsr_spmv": {"float64": 1}},
+    "Jacobi diagonal": {"diagonal": {"float32": 1, "bfloat16": 1,
+                                     "float64": 2}},
     "DIA dia @ x": {"dia_spmv": {"float32": 4, "float64": 4}},
     "B10 probe": {"wide_gather": {"float32": 1 + probe.WARMUP + probe.TIMED}},
 }
@@ -465,11 +486,13 @@ MAIN_VARIANTS = {
 # gets the launches of its own matrix's main path.
 # Keyed by (kernel, row suffix); the value names the row's matrix in the
 # record of variants a main path ran and the row's dtypes. ex56's bsr @ x
-# (float64) is the main path of the stream SpMV.
+# (float64) is the main path of the stream SpMV; ex56's diagonal (float64)
+# has a row beside HPCG's (the diagonal kernel's main rows).
 F32_F64 = ("float32", "float64")
 EXTRA_ROWS = {("bsr_spmv", "banded8"): ("banded8", F32_F64),
               ("bsr_spmm", "banded8"): ("banded8", F32_F64),
               ("bsr_spmv", "ex56"): ("ex56", ("float64",)),
+              ("diagonal", "ex56"): ("ex56", ("float64",)),
               ("csr_spmm", "banded"): ("banded", F32_F64),
               ("csr_sddmm", "banded"): ("banded", F32_F64),
               ("csr_sddmm", "k1"): ("spmv", F32_F64)}
@@ -518,6 +541,7 @@ BSR_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 N_DIA = 2**25    # bench.py's dia cells (n = 2**22) scaled past the L2
 DIA9_OFFSETS = [-300, -130, -1, 0, 1, 7, 129, 250, 333]
 LAP_K = 256      # lap3d: the 7-point Laplacian of a LAP_K**3 grid
+HPCG_K = 256     # the Jacobi diagonal's CSR: HPCG's operator on HPCG_K**3
 STENCIL_K = 64   # the stencil path's grid
 KRYLOV_K = 128   # phase 16: CG on the 7-point Laplacian of a KRYLOV_K**3 grid
 PRECOND_K = 64   # phase 16: IC(0), ILU(0) and BSR CG on PRECOND_K**3 grids
@@ -3080,6 +3104,77 @@ def check_ex56(bsr, x, y, report, card) -> None:
         "library_ms": lib_ms, **b}
 
 
+def hpcg_inputs(device):
+    """``{name: CsrMatrix}``: HPCG's 27-point pattern at HPCG_K**3 rows
+    (the benchmark's ``hpcg-256`` structure, ``tools/bench_bsr.py``'s
+    ``grid27_pattern``) with values drawn on the card, so that a wrong
+    position shows, in float64, float32 and bfloat16."""
+    indptr, indices = grid27_pattern(HPCG_K, device)
+    n = HPCG_K ** 3
+    gen = torch.Generator(device=device).manual_seed(19)
+    values = torch.randn(indices.numel(), generator=gen, dtype=torch.float64,
+                         device=device)
+    out = {name: CsrMatrix._from_parts(n, n, indptr, indices, values.to(dt))
+           for name, dt in BSR_DTYPES.items()}
+    print(f"phase 11: HPCG {HPCG_K}^3: n={n} nnz={indices.numel()}, "
+          f"float32, bfloat16 and float64")
+    return out
+
+
+def run_diagonal(hpcg, bsr, seen):
+    """The Jacobi diagonal's main path: ``diagonal`` of HPCG's operator in
+    each dtype and of ex56's 3 x 3 blocks, once each;
+    ``seen["diagonal", "ex56", "float64"]`` gets the launches counted
+    across ex56's call (its own kernel-line row)."""
+    out = {("hpcg", name): mat_diagonal(a) for name, a in hpcg.items()}
+    before = diag_mod.LAUNCHES["float64"]
+    out["ex56", "float64"] = mat_diagonal(bsr)
+    seen["diagonal", "ex56", "float64"] = {
+        "launches": diag_mod.LAUNCHES["float64"] - before}
+    return out
+
+
+def check_diagonal(hpcg, bsr, out, report, card) -> None:
+    """The diagonal kernel against its plain version on the main path's
+    matrices: the diagonal and the Jacobi inverse bit for bit; then the
+    inverse (the Jacobi set-up's one launch) and the plain version in
+    turns behind the spin, beside the bound from compulsory bytes (the
+    walked indices, the row pointers, the diagonal values read and the
+    output written)."""
+    cases = {("hpcg", name): (f"HPCG {HPCG_K}^3 {name}", name,
+                              (a.rowptr, a.colind, a.values, a.nrows))
+             for name, a in hpcg.items()}
+    cases["ex56", "float64"] = ("ex56 float64 3 x 3", "float64_ex56",
+                                (bsr.indptr, bsr.indices, bsr.data,
+                                 bsr.nrows // 3))
+    for key, (what, row, (ptr, idx, vals, length)) in cases.items():
+        for invert, got in ((False, out[key]),
+                            (True, stored_diagonal(ptr, idx, vals, length,
+                                                   invert=True))):
+            if not bitwise_equal(got, diagonal_plain(ptr, idx, vals, length,
+                                                     invert=invert)):
+                raise AssertionError(f"diagonal {what} (invert {invert}): "
+                                     "kernel != plain version")
+        k_ms, p_ms, (p1, k1, k2, p2) = turns(
+            lambda: stored_diagonal(ptr, idx, vals, length, invert=True),
+            lambda: diagonal_plain(ptr, idx, vals, length, invert=True),
+            TIMED_LAUNCHES, 3, spin=True)
+        free_memory()
+        per_row = vals.element_size() * (1 if vals.ndim == 1 else
+                                         vals.shape[1])
+        walked = int(ptr[length]) - int(ptr[0])
+        b = bound(4 * walked + 4 * (length + 1) + 2 * per_row * length, 0,
+                  "float64")
+        print(f"phase 11: diagonal {what}: the diagonal and its inverse "
+              f"bitwise the plain version's; kernel (inverse) {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms (turns: plain {p1:.4f}, kernel "
+              f"{k1:.4f}, kernel {k2:.4f}, plain {p2:.4f}), bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; "
+              f"{100 * b['bound_ms'] / k_ms:.1f} % of it) | {card}")
+        report["diagonal", row] = {"max_abs_err": 0.0, "ms": k_ms,
+                                   "plain_ms": p_ms, "library_ms": None, **b}
+
+
 def check_device_coo(coos, big, host_seconds, coo0, csr0, x0,
                      device) -> None:
     """Phase 12: ``coo.to_device().to_csr_device()`` on the card against
@@ -3537,9 +3632,9 @@ def check_residual(what: str, A64, x, b, tol: float) -> float:
     return resid
 
 
-def check_paths(what: str, fn, prefix: str) -> str:
+def check_paths(what: str, fn, prefix) -> str:
     """Run ``fn`` with the metrics recorder on; fail unless every product
-    it recorded ran a kernel (``prefix``)."""
+    it recorded ran a kernel (``prefix``, a string or a tuple of them)."""
     rec = metrics.enable()
     rec.records.clear()
     try:
@@ -3581,15 +3676,16 @@ def krylov_phase(device, card: str, solver_launches) -> None:
         paths = check_paths(
             f"CG {name}",
             lambda: cg(A, b, maxiter=2, precondition="jacobi"),
-            "csr_spmv:cuda:")
+            ("csr_spmv:cuda:", "diagonal:cuda"))
         held = hold_spmv(f"CG {name}", A, b)
         # the Jacobi setup, the first residual and its dot products
         _, setup_s, _ = solver_run(
             lambda: cg(A, b, maxiter=0, precondition="jacobi"))
         res, sec, got = solver_run(
             lambda: cg(A, b, tol=tol, precondition="jacobi"))
-        expect_launches(f"CG {name}", got, "csr_spmv", name,
-                        res.iterations + 1, solver_launches)
+        expect_counts(f"CG {name}", got,
+                      {"csr_spmv": {name: res.iterations + 1},
+                       "diagonal": {name: 1}}, solver_launches)
         resid = check_residual(f"CG {name}", A64, res.x, b, tol)
         spmv_ms = time_ms(lambda: A @ b, TIMED_LAUNCHES, spin=True)
         itemsize = A.values.element_size()
@@ -3644,8 +3740,9 @@ def krylov_phase(device, card: str, solver_launches) -> None:
     cg(P64, b, maxiter=2, precondition="jacobi")      # warm-up
     jac, jsec, got = solver_run(
         lambda: cg(P64, b, tol=tol, precondition="jacobi"))
-    expect_launches("PCG Jacobi", got, "csr_spmv", "float64",
-                    jac.iterations + 1, solver_launches)
+    expect_counts("PCG Jacobi", got,
+                  {"csr_spmv": {"float64": jac.iterations + 1},
+                   "diagonal": {"float64": 1}}, solver_launches)
     res, sec, got = solver_run(lambda: cg(P64, b, tol=tol, precondition=M))
     expect_launches("PCG IC(0)", got, "csr_spmv", "float64",
                     res.iterations + 1, solver_launches)
@@ -5175,12 +5272,14 @@ def kernel_line(launches, report, seen, solver_launches,
     for (kname, suffix), (shape, names) in EXTRA_ROWS.items():
         for name in names:
             per = variants(kname, name, (shape,))
-            rows.append({"name": f"{kname}_{name}_{suffix}", "route": "cuda",
-                         "source": KERNELS[kname][0],
-                         "replaces": REPLACES[kname, name],
-                         "launches": sum(per.values()),
-                         **report[kname, f"{name}_{suffix}"],
-                         "variants": per})
+            row = {"name": f"{kname}_{name}_{suffix}", "route": "cuda",
+                   "source": KERNELS[kname][0],
+                   "replaces": REPLACES[kname, name],
+                   "launches": sum(per.values()),
+                   **report[kname, f"{name}_{suffix}"]}
+            if kname in VARIANTS:
+                row["variants"] = per
+            rows.append(row)
     for kname in AT_ROWS:
         for name in ("float32", "float64"):
             per = variants(f"{kname}_at", name)
@@ -5353,7 +5452,16 @@ def run(t_start: float, tmpdir: str) -> int:
     check_variants("BSR ex56 bsr @ x", "bsr_spmv", seen)
     with phase("phase 11 ex56"):
         check_ex56(*ex56, ex56_y, report, card)
-    del ex56, ex56_y
+    del ex56_y
+    free_memory()
+    # the Jacobi diagonal: HPCG's operator and ex56's blocks
+    with phase("inputs: HPCG 256^3"):
+        hpcg = hpcg_inputs(device)
+    diag_out = drive("Jacobi diagonal",
+                     lambda: run_diagonal(hpcg, ex56[0], seen), launches)
+    with phase("phase 11 diagonal"):
+        check_diagonal(hpcg, ex56[0], diag_out, report, card)
+    del ex56, hpcg, diag_out
     free_memory()
 
     # ---- DeviceCoo: COO -> CSR on the card (phase 12) -------------------

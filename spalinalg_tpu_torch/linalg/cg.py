@@ -37,7 +37,7 @@ import torch
 
 from ..device import resolve_device
 from ..formats.bsr import BsrMatrix
-from ..ops.reduce_api import diagonal
+from ..ops.reduce_api import _diagonal
 from ..parallel.spmv import is_dist, summed
 from ..utils.profiling import annotate
 
@@ -100,18 +100,19 @@ def _jacobi_precond(A) -> Callable[[torch.Tensor], torch.Tensor]:
     rank's rows of a ``DistCsr``, built on its device (a zero or missing
     diagonal entry counts as 1). A ``BsrMatrix``, or what another
     operand's ``to_csr`` hands back, gives its diagonal from its own
-    blocks (``ops/reduce_api.py::diagonal``)."""
+    blocks (``ops/reduce_api.py::diagonal``). On the card the diagonal
+    and its inverse are one kernel launch (``ops/kernels/diagonal.py``)."""
     if is_dist(A):
         rows = A.brow.long()
         on_diag = (A.colind.long() == rows + A.rank * A.rows_per_shard) & (
             rows < A.rows_per_shard)
         d = torch.ones(A.rows_per_shard, dtype=A.dtype, device=A.device)
         d[rows[on_diag]] = A.values[on_diag]
+        inv = torch.where(d != 0, 1 / torch.where(d != 0, d, 1), 1)
     else:
         if hasattr(A, "to_csr") and not isinstance(A, BsrMatrix):
             A = A.to_csr()         # a BsrMatrix keeps its blocks
-        d = diagonal(A)
-    inv = torch.where(d != 0, 1 / torch.where(d != 0, d, 1), 1)
+        inv = _diagonal(A, invert=True)
     return lambda r: inv * r
 
 

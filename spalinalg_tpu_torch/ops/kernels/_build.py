@@ -68,6 +68,10 @@ _ENTRIES = {
        + [ctypes.c_longlong] * 2 + [ctypes.c_int, _P] for t in ("f32", "f64")},
     # (xt, idx, val, out, S, N, K, L, stream)
     "spal_wide_gather_f32": [_P] * 4 + [ctypes.c_longlong] * 4 + [_P],
+    # (ptr, idx, values, out, nrows_out, row0, col_shift, b, invert, vec,
+    #  stream)
+    **{f"spal_diagonal_{t}": [_P] * 4 + [ctypes.c_longlong] * 6 + [_P]
+       for t in ("f32", "bf16", "f64")},
 }
 
 

@@ -3,7 +3,7 @@
 ``spalinalg_tpu/ops/reduce_api.py``; the `scipy.sparse` query surface).
 
 Axis sums are SpMV against a ones vector (the port's SpMV kernel on the
-card); ``diagonal`` gathers through an index built on the device;
+card); ``diagonal`` walks each row once in a kernel on the card;
 ``multiply`` (Hadamard) intersects the two patterns on the host and
 multiplies the matched values on the matrices' device.
 
@@ -85,63 +85,33 @@ def mat_mean(mat, axis: Optional[int] = None) -> torch.Tensor:
 def diagonal(mat, k: int = 0) -> torch.Tensor:
     """The ``k``-th diagonal as a dense vector on the matrix's device
     (scipy semantics: absent entries are zeros; of a slot stored twice,
-    the last entry counts). Runs on the device without a read back. A
-    ``BsrMatrix`` with square blocks gives its main diagonal from its
-    diagonal blocks, with no CSR form; its other diagonals go through
-    ``to_csr``."""
-    from ..convert.engine import major_ids
+    the last entry counts). One kernel launch on the card
+    (``ops/kernels/diagonal.py``), no read back. A ``BsrMatrix`` with
+    square blocks gives its main diagonal from its diagonal blocks, with
+    no CSR form; its other diagonals go through ``to_csr``."""
+    return _diagonal(mat, k)
+
+
+def _diagonal(mat, k: int = 0, *, invert: bool = False) -> torch.Tensor:
+    """:func:`diagonal`, or with ``invert`` the Jacobi inverse of the
+    main one (``1 / d``, 1 where ``d`` is 0 or absent) from the same
+    launch."""
     from ..formats.bsr import BsrMatrix
+    from .kernels.diagonal import diagonal as stored_diagonal
 
     if isinstance(mat, BsrMatrix) and k == 0:
         br, bc = mat.blocksize
         if br == bc:
-            return _block_diagonal(mat)
+            length = min(mat.nrows // br, mat.ncols // br)
+            return stored_diagonal(mat.indptr, mat.indices, mat.data, length,
+                                   invert=invert)
     csr = _as_csr(mat)
     nrows, ncols = csr.shape
     length = min(nrows + min(k, 0), ncols - max(k, 0))
     if length <= 0:
         raise ShapeError(f"diagonal {k} outside a {nrows}x{ncols} matrix")
-    nse = csr.nse
-    dev = csr.device
-    rows = major_ids(csr.rowptr, nse).long()        # padding -> nrows
-    hit = (csr.colind.long() - rows == k) & (rows < nrows)
-    pos = torch.arange(nse, device=dev)
-    # entries off the diagonal scatter a no-op -1, spread over the slots
-    # so that no one slot takes all their atomics
-    dest = torch.where(hit, rows - max(-k, 0), pos % length)
-    slot = torch.full((length,), -1, dtype=torch.int64, device=dev)
-    slot.scatter_reduce_(0, dest, torch.where(hit, pos, -1), "amax")
-    slot = torch.where(slot < 0, nse, slot)     # nse: the zero appended below
-    return torch.cat([csr.values[:nse], csr.values.new_zeros(1)])[slot]
-
-
-def _block_diagonal(bsr) -> torch.Tensor:
-    """The main diagonal of square-block ``bsr``: each diagonal block's
-    own diagonal, in order, zeros where the block is absent. One pass over
-    the block indices, as :func:`diagonal` makes over CSR entries: a block
-    stored twice counts its last copy; blocks at or past ``indptr[-1]``
-    are padding."""
-    b = bsr.blocksize[0]
-    nbr = bsr.nrows // b
-    length = min(nbr, bsr.ncols // b)
-    nb = bsr.n_blocks
-    if nb == 0:
-        return bsr.data.new_zeros(length * b)
-    ptr = bsr.indptr
-    # each block's row (padding -> nbr, a slot never read), from the row
-    # lengths alone
-    counts = torch.cat([ptr[1:] - ptr[:-1], nb - ptr[-1:]]).long()
-    rows = torch.repeat_interleave(counts, output_size=nb)      # int64
-    hit = bsr.indices == rows
-    # each row's last diagonal block, -1 where none: every block offers to
-    # its own row, so no slot takes more than a row's atomics
-    pos = torch.arange(nb, dtype=torch.int32, device=bsr.device)
-    slot = torch.full((nbr + 1,), -1, dtype=torch.int32, device=bsr.device)
-    slot.scatter_reduce_(0, rows, torch.where(hit, pos, -1), "amax")
-    del rows, hit, pos
-    slot = slot[:length]
-    diag = bsr.data[slot.clamp(min=0).long()].diagonal(dim1=1, dim2=2)
-    return torch.where(slot[:, None] >= 0, diag, 0).reshape(-1)
+    return stored_diagonal(csr.rowptr, csr.colind, csr.values, length, k,
+                           invert=invert)
 
 
 def multiply(a, b):
