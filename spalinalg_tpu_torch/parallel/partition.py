@@ -65,10 +65,11 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..convert.engine import major_ids
 from ..device import resolve_device
+from ..dtypes import INDEX_DTYPE
 from ..errors import ShapeError
 from ..formats.compressed import CsrMatrix
 
-__all__ = ["DistCsr", "partition_csr", "make_row_mesh"]
+__all__ = ["DistCsr", "partition_csr", "shard_from_rows", "make_row_mesh"]
 
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -162,22 +163,6 @@ def _padded(t: torch.Tensor, n: int, device) -> torch.Tensor:
     return out
 
 
-def _halo_width(minor: torch.Tensor, row_starts, ent_starts) -> int:
-    """``max(r0 - min col, max col - (r1 - 1), 0)`` over the shards that
-    hold entries: how far a shard's columns reach past its rows."""
-    lo, hi = [], []
-    for p in range(len(row_starts) - 1):
-        e0, e1 = int(ent_starts[p]), int(ent_starts[p + 1])
-        if e1 > e0:
-            cols = minor[e0:e1]
-            lo.append(int(row_starts[p]) - cols.min())
-            hi.append(cols.max() - (int(row_starts[p + 1]) - 1))
-    if not lo:
-        return 0
-    reach = torch.stack([torch.stack(lo), torch.stack(hi)]).max()
-    return max(int(reach), 0)
-
-
 @dataclass(frozen=True, eq=False)
 class DistCsr:
     """Row-partitioned CSR over a 1-D mesh: this rank's shard."""
@@ -196,6 +181,10 @@ class DistCsr:
     # [p·cols_per - h, (p + 1)·cols_per + h) in "halo" mode, global in
     # "allgather" mode; the products run the CSR kernels on it
     local: CsrMatrix = field(repr=False)
+    # "halo": the products' operand windows [left slab | own slice | right
+    # slab], one a (dtype, row shape), made at the first product
+    # (parallel/spmv.py::_window)
+    windows: dict = field(default_factory=dict, init=False, repr=False)
 
     @property
     def n_shards(self) -> int:
@@ -334,29 +323,18 @@ class DistCsr:
                              axis=self.axis)
 
 
-def _partition(ptr: np.ndarray, minor: torch.Tensor, values: torch.Tensor,
-               nrows: int, ncols: int, mesh: DeviceMesh, axis: str,
-               comm: Optional[str]) -> DistCsr:
-    """This rank's shard of the CSR ``(ptr, minor, values)``: ``ptr`` on the
-    host (int64), ``minor`` and ``values`` on any one device. Slices of
-    ``minor`` and ``values`` move to the mesh's device; nothing else of
-    the matrix goes through the host."""
-    P = mesh.size()
-    p = mesh.get_local_rank()
-    dev = mesh_device(mesh)
+def _comm_mode(comm: Optional[str], halo: int, nrows: int, ncols: int,
+               P: int) -> str:
+    """The comm mode for a structure whose columns reach ``halo`` past its
+    rows: ``comm`` checked, or chosen where it is None."""
     rows_per = -(-nrows // P)
     cols_per = -(-ncols // P)
-    row_starts = np.minimum(np.arange(P + 1) * rows_per, nrows)
-    ent_starts = ptr[row_starts]
-    local_nse = max(int(np.diff(ent_starts).max()), 1)
-    halo = _halo_width(minor, row_starts, ent_starts)
-
     square = cols_per == rows_per
     if comm is None:
         # Banded enough that two halo slabs beat a full all-gather, and
         # the column blocks are the row blocks the halo was measured on?
-        comm = "halo" if square and halo <= rows_per // 2 else "allgather"
-    elif comm == "halo":
+        return "halo" if square and halo <= rows_per // 2 else "allgather"
+    if comm == "halo":
         if not square:
             raise ValueError(
                 f"comm='halo' needs column blocks equal to the row blocks, "
@@ -369,16 +347,26 @@ def _partition(ptr: np.ndarray, minor: torch.Tensor, values: torch.Tensor,
                 "'allgather'")
     elif comm != "allgather":
         raise ValueError(f"comm must be 'halo' or 'allgather', got {comm!r}")
+    return comm
 
-    r0, r1 = int(row_starts[p]), int(row_starts[p + 1])
-    e0, e1 = int(ent_starts[p]), int(ent_starts[p + 1])
-    rp = np.full(rows_per + 1, e1 - e0, dtype=np.int64)
-    rp[: r1 - r0 + 1] = ptr[r0:r1 + 1] - e0
-    rowptr = torch.from_numpy(rp.astype(np.int32)).to(dev)
-    colind = _padded(minor[e0:e1], local_nse, dev)
-    vals = _padded(values[e0:e1], local_nse, dev)
-    return shard_from_parts(nrows, ncols, rowptr, colind, vals, mesh, axis,
-                            comm, int(halo))
+
+def _partition(ptr: np.ndarray, minor: torch.Tensor, values: torch.Tensor,
+               nrows: int, ncols: int, mesh: DeviceMesh, axis: str,
+               comm: Optional[str]) -> DistCsr:
+    """This rank's shard of the CSR ``(ptr, minor, values)``, which every
+    rank holds whole: ``ptr`` on the host (int64), ``minor`` and
+    ``values`` on any one device. This rank's rows are sliced there and
+    enter through :func:`shard_from_rows`; nothing else of the matrix
+    moves."""
+    P = mesh.size()
+    rows_per = -(-nrows // P)
+    r0 = min(mesh.get_local_rank() * rows_per, nrows)
+    r1 = min(r0 + rows_per, nrows)
+    e0, e1 = int(ptr[r0]), int(ptr[r1])
+    rowptr = torch.from_numpy((ptr[r0:r1 + 1] - e0).astype(np.int32))
+    own = CsrMatrix._from_parts(r1 - r0, ncols, rowptr.to(minor.device),
+                                minor[e0:e1], values[e0:e1])
+    return shard_from_rows(own, nrows, ncols, mesh, axis=axis, comm=comm)
 
 
 def shard_from_parts(nrows: int, ncols: int, rowptr: torch.Tensor,
@@ -416,12 +404,13 @@ def partition_csr(csr, mesh: DeviceMesh, *, axis: Optional[str] = None,
     same matrix and keeps its own shard. ``axis`` defaults to the mesh's
     axis name.
 
-    Structure work, once per matrix: slice rows into ``P`` equal blocks
-    (padded), equalise the shards' slot counts with zero padding, and
-    choose the comm mode from the structure's reach unless ``comm`` forces
-    it (a forced ``"halo"`` the window cannot cover raises
-    ``ValueError``). Only ``rowptr`` goes through the host; the shard's
-    columns and values are sliced on the matrix's device.
+    Structure work, once per matrix: each rank slices its block of the
+    ``P`` equal row blocks and enters through :func:`shard_from_rows`,
+    which pads it, agrees on the slot count and the reach over the mesh,
+    and chooses the comm mode unless ``comm`` forces it (a forced
+    ``"halo"`` the window cannot cover raises ``ValueError``). Only
+    ``rowptr`` goes through the host; the shard's columns and values are
+    sliced on the matrix's device.
     """
     if axis is None:
         axis = mesh.mesh_dim_names[0]
@@ -429,3 +418,51 @@ def partition_csr(csr, mesh: DeviceMesh, *, axis: Optional[str] = None,
     nnz = int(ptr[-1])
     return _partition(ptr, csr.colind[:nnz], csr.values[:nnz], csr.nrows,
                       csr.ncols, mesh, axis, comm)
+
+
+def shard_from_rows(local: CsrMatrix, nrows: int, ncols: int,
+                    mesh: DeviceMesh, *, axis: Optional[str] = None,
+                    comm: Optional[str] = None) -> DistCsr:
+    """This rank's :class:`DistCsr` from its own block of rows: every rank
+    passes ``local``, rows ``[p·rows_per, p·rows_per + local.nrows)`` of
+    the ``nrows x ncols`` matrix with global column ids, on the mesh's
+    device (``rows_per = ceil(nrows / P)``; the last rank's block may be
+    shorter). Only this rank's rows are ever held or moved.
+
+    The rank pads its rows to ``rows_per`` and its slots to the largest
+    shard's count, and measures how far its columns reach past its rows;
+    one ``all_reduce`` (MAX) over the mesh agrees on the slot count and
+    the halo width. The comm mode is chosen, or checked (a ``ValueError``
+    where it cannot serve). :func:`partition_csr` enters here with each
+    rank's slice of the whole matrix.
+    """
+    if axis is None:
+        axis = mesh.mesh_dim_names[0]
+    P = mesh.size()
+    p = mesh.get_local_rank()
+    dev = mesh_device(mesh)
+    rows_per = -(-nrows // P)
+    r0 = min(p * rows_per, nrows)
+    r1 = min(r0 + rows_per, nrows)
+    if tuple(local.shape) != (r1 - r0, ncols):
+        raise ShapeError(
+            f"rank {p} holds rows [{r0}, {r1}) of a {nrows} x {ncols} "
+            f"matrix over {P} ranks: expected a {r1 - r0} x {ncols} block, "
+            f"got {tuple(local.shape)}")
+    nnz = int(local.rowptr[-1])
+    minor = local.colind[:nnz].to(dev)
+    agreed = torch.zeros(2, dtype=torch.int64, device=dev)
+    agreed[0] = nnz
+    if nnz:
+        agreed[1] = torch.stack([r0 - minor.min(), minor.max() - (r1 - 1)]
+                                ).max()
+    dist.all_reduce(agreed, op=dist.ReduceOp.MAX, group=mesh.get_group())
+    local_nse, halo = (int(v) for v in agreed.cpu())
+    local_nse, halo = max(local_nse, 1), max(halo, 0)
+    comm = _comm_mode(comm, halo, nrows, ncols, P)
+    rowptr = torch.full((rows_per + 1,), nnz, dtype=INDEX_DTYPE, device=dev)
+    rowptr[: r1 - r0 + 1] = local.rowptr[: r1 - r0 + 1]
+    return shard_from_parts(nrows, ncols, rowptr,
+                            _padded(minor, local_nse, dev),
+                            _padded(local.values[:nnz], local_nse, dev),
+                            mesh, axis, comm, halo)

@@ -12,11 +12,16 @@ chain products with no resharding.
   to its left and right neighbours and receives theirs, in one
   ``batch_isend_irecv``; edge ranks get zero slabs, as the JAX package's
   non-cyclic ``ppermute`` gives them. The local block's columns are
-  already localised to ``[left slab, own slice, right slab]``.
+  already localised to ``[left slab, own slice, right slab]``, a window
+  kept on the ``DistCsr`` (one a dtype and row shape) that the slabs are
+  received into and the own slice copied into: no allocation a product.
+  The exchange and the copy are the span ``spal.halo``.
 
 Either way the local product is one ``local @ x`` through the port's CSR
 dispatch: the CSR SpMV kernel for a vector, the CSR SpMM kernel for a
-block, on the card. Reductions (:func:`dist_dot`) are an ``all_reduce``.
+block, on the card. Reductions (:func:`dist_dot`) are an ``all_reduce``,
+the span ``spal.allreduce``. Both spans take device time on the operand's
+card (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from ..errors import ShapeError
+from ..utils.profiling import annotate
 from .partition import DistCsr, gather_rows
 
 __all__ = ["shard_vector", "unshard_vector", "dist_spmv", "dist_spmm",
@@ -81,29 +87,50 @@ def _check_operand(d: DistCsr, x: torch.Tensor, ndim: int) -> None:
         raise ValueError(f"operand on {x.device}, shard on {d.device}")
 
 
+def _window(d: DistCsr, x: torch.Tensor) -> torch.Tensor:
+    """``d``'s halo operand ``[left slab | own slice | right slab]`` for
+    operands shaped as ``x``: made once, zeroed, and kept on ``d``, so an
+    edge rank's missing slab stays zero."""
+    key = (x.dtype, tuple(x.shape[1:]))
+    w = d.windows.get(key)
+    if w is None:
+        w = x.new_zeros((x.shape[0] + 2 * d.halo_width,) + key[1])
+        d.windows[key] = w
+    return w
+
+
 def _operand(d: DistCsr, x: torch.Tensor) -> torch.Tensor:
     """The part of the operand the local block reads: the whole gathered
     operand (all-gather) or ``[left slab, own slice, right slab]``
-    (halo)."""
+    (halo), the neighbours' slabs received into ``d``'s window and the own
+    slice copied between them."""
     if d.comm == "allgather":
         return gather_rows(x, d.mesh)
     h = d.halo_width
     if h == 0:
         return x
-    P, p, group = d.n_shards, d.rank, d.group
-    left = x.new_zeros((h,) + tuple(x.shape[1:]))
-    right = torch.zeros_like(left)
-    ops = []
-    if p > 0:
-        ops += [dist.P2POp(dist.isend, x[:h].contiguous(), p - 1, group),
-                dist.P2POp(dist.irecv, left, p - 1, group)]
-    if p < P - 1:
-        ops += [dist.P2POp(dist.isend, x[-h:].contiguous(), p + 1, group),
-                dist.P2POp(dist.irecv, right, p + 1, group)]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or d.values.requires_grad):
+        raise ValueError(
+            "a halo DistCsr product reuses its operand window from call to "
+            "call, so it is not differentiable; run it under "
+            "torch.no_grad()")
+    P, p, group, n = d.n_shards, d.rank, d.group, x.shape[0]
+    with annotate("spal.halo", device=x.device):
+        w = _window(d, x)
+        ops = []
+        if p > 0:
+            ops += [dist.P2POp(dist.isend, x[:h].contiguous(), p - 1, group),
+                    dist.P2POp(dist.irecv, w[:h], p - 1, group)]
+        if p < P - 1:
+            ops += [dist.P2POp(dist.isend, x[-h:].contiguous(), p + 1,
+                               group),
+                    dist.P2POp(dist.irecv, w[h + n:], p + 1, group)]
+        works = dist.batch_isend_irecv(ops) if ops else []
+        w[h:h + n].copy_(x)
+        for work in works:
             work.wait()
-    return torch.cat([left, x, right])
+    return w
 
 
 def dist_spmv(dist_mat: DistCsr, x_local: torch.Tensor) -> torch.Tensor:
@@ -124,8 +151,9 @@ def dist_spmm(dist_mat: DistCsr, X_local: torch.Tensor) -> torch.Tensor:
 
 def allreduce_sum(t: torch.Tensor, dist_mat) -> torch.Tensor:
     """``t`` summed over the ranks of ``dist_mat``'s mesh, in place (pass
-    a temporary); returns ``t``."""
-    dist.all_reduce(t, group=dist_mat.mesh.get_group())
+    a temporary); returns ``t``. The span ``spal.allreduce``."""
+    with annotate("spal.allreduce", device=t.device):
+        dist.all_reduce(t, group=dist_mat.mesh.get_group())
     return t
 
 

@@ -25,7 +25,13 @@ The port's spans, each named ``spal.<...>``:
 - ``spal.bsr_spmv``: a BSR ``A @ x``, from ``ops/bsr_ops.py`` to the
   kernel launch's return;
 - ``spal.bsr.build``: ``BsrMatrix.from_block_triplets``, the block
-  assembly on the device, with device time.
+  assembly on the device, with device time;
+- ``spal.halo``: a ``DistCsr`` product's halo exchange with its
+  neighbours into the operand window and the copy of the own slice
+  (``parallel/spmv.py::_operand``), with device time;
+- ``spal.allreduce``: a sum over the mesh (``parallel/spmv.py::
+  allreduce_sum``: the distributed solvers' dot products), with device
+  time.
 
 :func:`trace_to` writes a Chrome trace of a block over the CPU and, where
 there is a card, CUDA activities, and :func:`device_sync` waits for every

@@ -27,7 +27,13 @@ mesh on the same inputs, and each test compares one case:
   4 ranks refused on one;
 - ``initialize`` (the gang itself; a no-op at one process),
   ``heartbeat``, ``global_device_summary``;
-- the three JAX faults the port repairs, each against the dense product.
+- the three JAX faults the port repairs, each against the dense product;
+- the port's own rank-local entry, ``shard_from_rows`` (each rank's rows
+  give ``partition_csr``'s shard bit for bit; the halo width agreed; the
+  same errors), the ``DistCsr`` Jacobi against the torch chain it
+  replaced, bit for bit, CG on HPCG's 27-point stencil against a
+  matrix-free reference, and the spans ``spal.halo`` and
+  ``spal.allreduce``.
 
 Every wait has a timeout: the process group's (60 s), the parent's (180
 s), after which the children are killed and the tests fail.
@@ -110,6 +116,58 @@ def fault2_csr():
     vals = np.concatenate([np.full(40, 2.0), np.ones(25)])
     rows, cols = np.concatenate([i, j]), np.concatenate([i, j + 15])
     return sps.csr_matrix((vals, (rows, cols)), shape=(40, 40))
+
+
+def stencil27(nx, ny, nz):
+    """HPCG's 27-point operator (diagonal 26, every neighbour -1), rows
+    numbered ``(z·ny + y)·nx + x``: 27·I less the 3 x 3 x 3 box sum."""
+    def ones3(n):
+        return sps.diags([1.0, 1.0, 1.0], [-1, 0, 1], shape=(n, n))
+
+    box = sps.kron(ones3(nz), sps.kron(ones3(ny), ones3(nx)))
+    return (27.0 * sps.eye(nx * ny * nz) - box).tocsr()
+
+
+def stencil27_apply(x, grid):
+    """The same operator applied without a matrix (torch, any dtype)."""
+    import torch.nn.functional as F
+
+    nx, ny, nz = grid
+    g = F.pad(x.view(nz, ny, nx), (1, 1, 1, 1, 1, 1))
+    s = g[:, :, :-2] + g[:, :, 1:-1] + g[:, :, 2:]
+    s = s[:, :-2] + s[:, 1:-1] + s[:, 2:]
+    s = s[:-2] + s[1:-1] + s[2:]
+    return (27 * x.view(nz, ny, nx) - s).reshape(-1)
+
+
+def reach_csr():
+    """``banded_csr(96, 3, 12)`` and one entry ``A[70, 80]``: rank 2 of 4
+    (rows 48-71) reaches 9 columns past its rows, the others 3."""
+    S = banded_csr(96, 3, 12).tolil()
+    S[70, 80] = 0.5
+    return S.tocsr()
+
+
+def zero_diag_csr():
+    """``lap1d(96)`` with the diagonal of rows 5, 50 and 90 stored as 0 and
+    the diagonal entry of row 30 left out."""
+    S = lap1d(96).tocoo()
+    d = (S.row == S.col)
+    vals = np.where(d & np.isin(S.row, [5, 50, 90]), 0.0, S.data)
+    keep = ~(d & (S.row == 30))
+    return sps.csr_matrix((vals[keep], (S.row[keep], S.col[keep])),
+                          shape=S.shape)
+
+
+STENCIL = (8, 8, 32)       # 2048 rows: 512 a rank, a halo of 8·8
+
+
+def rank_rows(S, rank):
+    """Rank ``rank``'s block of rows of ``S`` (global columns), as
+    ``partition_csr`` cuts them."""
+    n = S.shape[0]
+    per = -(-n // P)
+    return S[min(rank * per, n):min((rank + 1) * per, n)]
 
 
 MATS = {"random": lambda: random_csr(100, 100, 0.05, 11),
@@ -390,6 +448,158 @@ def _cases(mesh, workdir):
                 "local_shape": [back.local.shape, d.local.shape],
                 "y": _np(dist_spmv(back, x)), "y_orig": _np(dist_spmv(d, x)),
                 "path": path}
+        return out
+
+    from_rows = dict(MATS, stencil=lambda: stencil27(*STENCIL),
+                     reach=reach_csr)
+    for mname, build in from_rows.items():
+        @case(f"from_rows/{mname}")
+        def _(build=build):
+            """This rank's rows through ``shard_from_rows`` beside the
+            whole matrix through ``partition_csr``."""
+            from spalinalg_tpu_torch.parallel.partition import shard_from_rows
+
+            S = build()
+            rank = mesh.get_local_rank()
+            mine = shard_from_rows(port_csr(rank_rows(S, rank)), *S.shape,
+                                   mesh)
+            whole = partition_csr(port_csr(S), mesh)
+            return {"rows": _shard_arrays(mine),
+                    "whole": _shard_arrays(whole),
+                    "local": [_np(t) for t in (mine.local.rowptr,
+                                               mine.local.colind,
+                                               mine.local.values)],
+                    "local_whole": [_np(t) for t in (whole.local.rowptr,
+                                                     whole.local.colind,
+                                                     whole.local.values)],
+                    "local_shape": [mine.local.shape, whole.local.shape]}
+
+    @case("from_rows_errors")
+    def _():
+        from spalinalg_tpu_torch.parallel.partition import shard_from_rows
+
+        S = fault2_csr()
+        rank = mesh.get_local_rank()
+        out = {}
+        for key, fn in (
+                ("rows", lambda: shard_from_rows(
+                    port_csr(rank_rows(S, rank)), 40, 40, mesh,
+                    comm="halo")),
+                ("whole", lambda: partition_csr(port_csr(S), mesh,
+                                                comm="halo")),
+                ("mode", lambda: shard_from_rows(
+                    port_csr(rank_rows(S, rank)), 40, 40, mesh,
+                    comm="ring"))):
+            try:
+                fn()
+                out[key] = None
+            except ValueError as e:
+                out[key] = str(e)
+        try:
+            shard_from_rows(port_csr(S[:3]), 40, 40, mesh)
+            out["shape"] = None
+        except ShapeError as e:
+            out["shape"] = str(e)
+        return out
+
+    jacobi_mats = {"stencil": lambda: stencil27(*STENCIL),
+                   "zero_diag": zero_diag_csr,
+                   "random": MATS["random"], "nondiv": MATS["nondiv"]}
+    for mname, build in jacobi_mats.items():
+        @case(f"jacobi/{mname}")
+        def _(build=build):
+            """The Jacobi inverse ``cg`` builds on a ``DistCsr``, and the
+            torch chain it replaced, recomputed here from the shard."""
+            from spalinalg_tpu_torch.linalg.cg import _jacobi_precond
+
+            d = partition_csr(port_csr(build()), mesh)
+            ones = torch.ones(d.rows_per_shard, dtype=d.dtype)
+            rows = d.brow.long()
+            on_diag = (d.colind.long() == rows + d.rank * d.rows_per_shard
+                       ) & (rows < d.rows_per_shard)
+            diag = torch.ones(d.rows_per_shard, dtype=d.dtype)
+            diag[rows[on_diag]] = d.values[on_diag]
+            chain = torch.where(diag != 0,
+                                1 / torch.where(diag != 0, diag, 1), 1)
+            return {"kernel": _np(_jacobi_precond(d)(ones)),
+                    "chain": _np(chain)}
+
+    @case("solver/cg_stencil")
+    def _():
+        from spalinalg_tpu_torch.parallel.partition import shard_from_rows
+
+        S = stencil27(*STENCIL)
+        rank = mesh.get_local_rank()
+        d = shard_from_rows(port_csr(rank_rows(S, rank)), *S.shape, mesh,
+                            comm="halo")
+        b = shard_vector(vec(S.shape[0], 77), d)
+        res = tla.cg(d, b, tol=0.0, maxiter=12, precondition="jacobi")
+        return {"x": _np(unshard_vector(res.x, d)),
+                "residual": float(res.residual),
+                "iterations": int(res.iterations)}
+
+    @case("spans")
+    def _():
+        """The distributed spans' counts in the registry: on under
+        ``tracing()``, nothing recorded off."""
+        from spalinalg_tpu_torch.parallel.partition import shard_from_rows
+        from spalinalg_tpu_torch.utils import profiling
+
+        S = stencil27(*STENCIL)
+        rank = mesh.get_local_rank()
+        d = shard_from_rows(port_csr(rank_rows(S, rank)), *S.shape, mesh,
+                            comm="halo")
+        x = shard_vector(vec(S.shape[0], 78), d)
+        names = ("spal.halo", "spal.allreduce", "spal.precond")
+        profiling.reset()
+        with profiling.tracing():
+            dist_spmv(d, x)
+            dist_dot(x, x, d)
+            tla.cg(d, x, tol=0.0, maxiter=3, precondition="jacobi")
+        on = {k: v["count"] for k, v in profiling.span_totals().items()
+              if k in names}
+        profiling.reset()
+        with profiling.tracing():
+            res = tla.cg(d, x, tol=1e-3 * float(dist_dot(x, x, d)) ** 0.5,
+                         precondition="jacobi")
+        from spalinalg_tpu_torch.linalg.cg import AHEAD
+
+        converged = {"iterations": int(res.iterations), "ahead": AHEAD,
+                     "halo": profiling.span_totals()["spal.halo"]["count"]}
+        profiling.reset()
+        dist_spmv(d, x)
+        dist_dot(x, x, d)
+        off = dict(profiling.span_totals())
+        return {"on": on, "off": off, "halo_width": d.halo_width,
+                "converged": converged}
+
+    @case("window")
+    def _():
+        """Products on one halo ``DistCsr`` in turn, vectors and a block:
+        each reads the window kept on the shard, refilled every call."""
+        from spalinalg_tpu_torch.parallel.partition import shard_from_rows
+        from spalinalg_tpu_torch.parallel.spmv import _operand
+
+        S = stencil27(*STENCIL)
+        n = S.shape[0]
+        rank = mesh.get_local_rank()
+        d = shard_from_rows(port_csr(rank_rows(S, rank)), *S.shape, mesh,
+                            comm="halo")
+        x1, x2 = shard_vector(vec(n, 81), d), shard_vector(vec(n, 82), d)
+        X = shard_matrix_rows(vec(n, 83, (n, K)), d)
+        ys = [unshard_vector(dist_spmv(d, x), d) for x in (x1, x2)]
+        Y = unshard_vector(dist_spmm(d, X), d)
+        ys.append(unshard_vector(dist_spmv(d, x1), d))
+        w = _operand(d, x2)
+        h = d.halo_width
+        out = {"y": [_np(y) for y in ys], "Y": _np(Y),
+               "windows": len(d.windows),
+               "same": w.data_ptr() == _operand(d, x1).data_ptr(),
+               "left": _np(w[:h]), "right": _np(w[-h:]), "grad": None}
+        try:
+            dist_spmv(d, x1.clone().requires_grad_())
+        except ValueError as e:
+            out["grad"] = str(e)
         return out
 
     @case("fault1")
@@ -945,6 +1155,215 @@ def test_fault3_bsr_keeps_float64(gang):
     y = replicated(gang, "fault3", "y")
     scale = np.abs(dense) @ np.abs(x)
     assert np.all(np.abs(y - dense @ x) <= 1e-12 * scale)
+
+
+@pytest.mark.parametrize("mname", ["random", "banded", "nondiv", "stencil",
+                                   "reach"])
+@pytest.mark.parametrize("rank", range(P))
+def test_shard_from_rows_matches_partition(gang, mname, rank):
+    """Each rank's own rows through ``shard_from_rows`` give the shard that
+    ``partition_csr`` cuts from the whole matrix, bit for bit: arrays,
+    comm mode, halo width and the local block."""
+    out = result(gang, f"from_rows/{mname}", rank)
+    got, want = out["rows"], out["whole"]
+    for key in ("rowptr", "colind", "values", "brow"):
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    for key in ("comm", "halo_width", "rows_per_shard"):
+        assert got[key] == want[key], key
+    for a, b in zip(out["local"], out["local_whole"]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert out["local_shape"][0] == out["local_shape"][1]
+
+
+def test_shard_from_rows_halo_is_agreed(gang):
+    """The halo width is the widest rank's reach, on every rank: a plane,
+    8·8, for the stencil's z-slabs (a slab's first row that has the
+    neighbour ``-nx·ny - nx - 1`` lies ``nx + 1`` rows into it); 9 for
+    ``reach_csr``, whose rank 2 alone reaches past 3."""
+    stencil = [result(gang, "from_rows/stencil", r)["rows"]
+               for r in range(P)]
+    assert {(o["comm"], o["halo_width"]) for o in stencil} == {("halo", 64)}
+    reach = [result(gang, "from_rows/reach", r)["rows"] for r in range(P)]
+    assert {(o["comm"], o["halo_width"]) for o in reach} == {("halo", 9)}
+
+
+@pytest.mark.parametrize("what", ["rows", "mode", "shape"])
+def test_shard_from_rows_errors(gang, what):
+    """A forced halo wider than a shard raises ``partition_csr``'s own
+    ``ValueError`` on every rank; an unknown mode and a block of the wrong
+    rows raise too."""
+    if what == "shape":            # each rank names its own rows
+        for rank in range(P):
+            msg = result(gang, "from_rows_errors", rank)["shape"]
+            assert msg is not None and f"rank {rank} holds rows [" in msg
+            assert "expected a 10 x 40 block, got (3, 40)" in msg
+        return
+    msg = replicated(gang, "from_rows_errors", what)
+    assert msg is not None, f"{what}: shard_from_rows did not raise"
+    if what == "rows":
+        assert msg == replicated(gang, "from_rows_errors", "whole")
+        assert "15" in msg and "10" in msg
+    else:
+        assert "'ring'" in msg
+
+
+@pytest.mark.parametrize("mname", ["stencil", "zero_diag", "random",
+                                   "nondiv"])
+@pytest.mark.parametrize("rank", range(P))
+def test_dist_jacobi_bitwise(gang, mname, rank):
+    """The ``DistCsr`` Jacobi through ``ops/kernels/diagonal.py`` equals
+    the torch chain it replaced, bit for bit: stored zeros, a missing
+    diagonal entry and the last rank's padding rows give 1."""
+    out = result(gang, f"jacobi/{mname}", rank)
+    assert out["kernel"].dtype == out["chain"].dtype
+    np.testing.assert_array_equal(out["kernel"], out["chain"])
+
+
+def test_dist_cg_stencil_against_reference(gang):
+    """CG with Jacobi on the stencil's ``DistCsr`` (each rank's rows through
+    ``shard_from_rows``, halo mode) against Jacobi-CG on the operator
+    applied without a matrix on the whole grid, in float64: the same
+    iteration count, ``x`` and the residual within 1e-12 relative."""
+    b = torch.from_numpy(vec(int(np.prod(STENCIL)), 77))
+    inv = 1.0 / 26.0
+    x = torch.zeros_like(b)
+    r = b.clone()
+    z = inv * r
+    p = z
+    rz, rr = torch.dot(r, z), torch.dot(r, r)
+    for _ in range(12):
+        ap = stencil27_apply(p, STENCIL)
+        alpha = rz / torch.dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = inv * r
+        rz_new, rr = torch.dot(r, z), torch.dot(r, r)
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+    res = float(torch.sqrt(rr))
+    assert replicated(gang, "solver/cg_stencil", "iterations") == 12
+    got = replicated(gang, "solver/cg_stencil", "x")
+    assert np.abs(got - x.numpy()).max() <= 1e-12 * np.abs(x.numpy()).max()
+    got_res = replicated(gang, "solver/cg_stencil", "residual")
+    assert abs(got_res - res) <= 1e-12 * res
+    assert res < 0.5 * float(torch.linalg.vector_norm(b))   # it moved
+
+
+@pytest.mark.parametrize("rank", range(P))
+def test_dist_spans(gang, rank):
+    """Under ``profiling.tracing()`` every rank opens ``spal.halo`` once a
+    product (one ``dist_spmv`` and a 3-step CG's 4) and
+    ``spal.allreduce`` once a sum (one ``dist_dot`` and the CG's 1 + 2·3);
+    a CG stopped by its tolerance runs ``AHEAD`` products more than its
+    steps need; off, nothing is recorded."""
+    out = result(gang, "spans", rank)
+    assert out["halo_width"] > 0
+    assert out["on"] == {"spal.halo": 5, "spal.allreduce": 8,
+                         "spal.precond": 1}
+    assert out["off"] == {}
+    # a solve stopped by its tolerance: the first residual's product, one
+    # a step, and the steps run ahead of the test and dropped
+    conv = out["converged"]
+    assert 0 < conv["iterations"] < 100 and conv["ahead"] >= 1
+    assert conv["halo"] == conv["iterations"] + 1 + conv["ahead"]
+
+
+@pytest.mark.parametrize("rank", range(P))
+def test_halo_window_is_reused(gang, rank):
+    """Halo products in turn on one ``DistCsr`` (two vectors, a block, the
+    first vector again) each give ``A·x``: the slabs are received into one
+    window a (dtype, row shape), kept on the shard, whose edge slabs stay
+    zero; a product that would need gradients is refused."""
+    out = result(gang, "window", rank)
+    S = stencil27(*STENCIL)
+    n = S.shape[0]
+    x1, x2 = vec(n, 81), vec(n, 82)
+    for got, x in zip(out["y"], (x1, x2, x1)):
+        np.testing.assert_allclose(got, S @ x, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(out["Y"], S @ vec(n, 83, (n, K)),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(out["y"][0], out["y"][2])
+    assert out["windows"] == 2 and out["same"]
+    if rank == 0:
+        assert not out["left"].any()
+    if rank == P - 1:
+        assert not out["right"].any()
+    assert out["grad"] is not None and "torch.no_grad()" in out["grad"]
+
+
+@pytest.mark.parametrize("ahead", [1, 2, 3])
+@pytest.mark.parametrize("tol,maxiter", [(0.0, 7), (1e-8, 500), (1e-8, 9),
+                                         (1e9, 5)])
+def test_cg_loop_ahead_gives_the_same_steps(ahead, tol, maxiter):
+    """``_cg_loop`` run ``ahead`` steps ahead of its test returns the bits,
+    iteration count and residual of the loop that tests before each step:
+    stopped by ``maxiter``, by the tolerance, and at once; the products it
+    runs past the stop are at most ``ahead``."""
+    from spalinalg_tpu_torch.linalg.cg import _cg_loop, _dots
+
+    import spalinalg_tpu_torch as tsp
+
+    A = port_csr(lap2d(12))
+    b = torch.from_numpy(vec(144, 90))
+    inv = 1.0 / torch.from_numpy(lap2d(12).diagonal())
+    runs = []
+    for lead in (0, ahead):
+        products = []
+
+        def matvec(v):
+            products.append(1)
+            return A @ v
+
+        with tsp.default_device("cpu"):
+            res = _cg_loop(matvec, b, torch.zeros_like(b), tol, maxiter,
+                           lambda r: inv * r, _dots(A), ahead=lead)
+        runs.append((res, len(products)))
+    (want, n0), (got, n) = runs
+    assert got.iterations == want.iterations
+    assert torch.equal(got.x, want.x)
+    assert torch.equal(got.residual, want.residual)
+    assert n0 == want.iterations + 1
+    assert n - n0 == min(ahead, maxiter - want.iterations)
+
+
+@pytest.mark.card
+def test_dist_cg_with_another_card_current():
+    """CG on a ``DistCsr`` on card 1 (a one-rank NCCL mesh) while card 0
+    is current: the run-ahead's test is read from card 1's stream, so the
+    solve takes the steps, and reaches the answer, that it takes with
+    card 1 current and that the CPU takes."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import torch.distributed as dist
+
+    import spalinalg_tpu_torch.linalg as tla
+    from spalinalg_tpu_torch.parallel import (make_row_mesh, partition_csr,
+                                              shard_vector, unshard_vector)
+
+    assert not dist.is_initialized()
+    S = lap2d(40)
+    b = vec(S.shape[0], 91)
+    want = tla.cg(port_csr(S), torch.from_numpy(b), tol=1e-9,
+                  precondition="jacobi")
+    try:
+        mesh = make_row_mesh(device="cuda:1")
+        d = partition_csr(port_csr(S), mesh)
+        runs = []
+        for current in (0, 1):
+            with torch.cuda.device(current):
+                res = tla.cg(d, shard_vector(b, d), tol=1e-9,
+                             precondition="jacobi")
+                runs.append((int(res.iterations),
+                             unshard_vector(res.x, d).cpu()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for its, x in runs:
+        assert its == want.iterations
+        np.testing.assert_allclose(x.numpy(), want.x.numpy(), rtol=1e-9,
+                                   atol=1e-12)
 
 
 def test_one_rank_mesh_in_process():
