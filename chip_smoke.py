@@ -315,6 +315,7 @@ from spalinalg_tpu_torch.ops import spgemm as spgemm_mod
 from spalinalg_tpu_torch.ops.kernels import _build
 from spalinalg_tpu_torch.ops.kernels import bsr_spmm as bsr_spmm_mod
 from spalinalg_tpu_torch.ops.kernels import bsr_spmv as bsr_spmv_mod
+from spalinalg_tpu_torch.ops.kernels import cg_step as step_mod
 from spalinalg_tpu_torch.ops.kernels import csr_sddmm as sddmm_mod
 from spalinalg_tpu_torch.ops.kernels import csr_spmm as spmm_mod
 from spalinalg_tpu_torch.ops.kernels import csr_transpose as transpose_mod
@@ -327,6 +328,7 @@ from spalinalg_tpu_torch.ops.kernels.bsr_spmv import (STREAM_MAX_VALUES,
                                                       _block_outer, bsr_spmv,
                                                       bsr_spmv_plain,
                                                       transposed_blocks)
+from spalinalg_tpu_torch.ops.kernels.cg_step import cg_step_plain
 from spalinalg_tpu_torch.ops.kernels.csr_sddmm import (csr_sddmm,
                                                        csr_sddmm_plain)
 from spalinalg_tpu_torch.ops.kernels.csr_spmm import csr_spmm, csr_spmm_plain
@@ -386,6 +388,7 @@ KERNELS = {
                  bsr_spmm_mod.LAUNCHES),
     "dia_spmv": ("spalinalg_tpu_torch/csrc/dia_spmv.cu", dia_mod.LAUNCHES),
     "diagonal": ("spalinalg_tpu_torch/csrc/diagonal.cu", diag_mod.LAUNCHES),
+    "cg_step": ("spalinalg_tpu_torch/csrc/cg_step.cu", step_mod.LAUNCHES),
     "wide_gather": ("spalinalg_tpu_torch/csrc/wide_gather.cu",
                     probe.LAUNCHES),
 }
@@ -407,6 +410,9 @@ AT_REPLACES = ("spalinalg_tpu/ops/kernels/csr_route.py:1096 and :1367 "
                "(XLA scatter-add of dx, dX; no Pallas kernel)")
 # The Jacobi diagonal: XLA code in the JAX package.
 DIAG_REPLACES = ("spalinalg_tpu/ops/reduce_api.py::diagonal (XLA; no Pallas "
+                 "kernel)")
+# The CG step's vector work: XLA code inside the JAX package's loop.
+STEP_REPLACES = ("spalinalg_tpu/linalg/cg.py's step (XLA; no Pallas "
                  "kernel)")
 REPLACES = {
     ("csr_spmv", "float32"): "spalinalg_tpu/ops/kernels/csr_route.py:930",
@@ -430,6 +436,8 @@ REPLACES = {
     ("diagonal", "float32"): DIAG_REPLACES,
     ("diagonal", "bfloat16"): DIAG_REPLACES,
     ("diagonal", "float64"): DIAG_REPLACES,
+    ("cg_step", "float32"): STEP_REPLACES,
+    ("cg_step", "float64"): STEP_REPLACES,
     ("wide_gather", "float32"): "tools/probe_widegather.py:39",
 }
 # Launches of each main path: config[0] forward (f64); a forward, an Aᵀ·g
@@ -439,8 +447,10 @@ REPLACES = {
 # the perm route); one numeric phase per SpGEMM
 # dtype; a forward and an Aᵀ·g (Aᵀ·G) for each BSR matrix: tri128 in three dtypes, banded8 in two;
 # a forward and an Aᵀ·g for each DIA matrix, dia9 and lap3d, per dtype; the
-# diagonal of HPCG's operator in three dtypes and of ex56's blocks; the
-# probe's check, warm-up and timed launches.
+# diagonal of HPCG's operator in three dtypes and of ex56's blocks; one CG
+# step (the first residual's dots and three passes) at HPCG's 256^3 in two
+# dtypes and at ex56's size;
+# the probe's check, warm-up and timed launches.
 MAIN_LAUNCHES = {
     "config[0]": {"csr_spmv": {"float64": 1}},
     "SpMV": {"csr_spmv": {"float32": 2, "float64": 2},
@@ -455,6 +465,7 @@ MAIN_LAUNCHES = {
     "BSR ex56 bsr @ x": {"bsr_spmv": {"float64": 1}},
     "Jacobi diagonal": {"diagonal": {"float32": 1, "bfloat16": 1,
                                      "float64": 2}},
+    "CG step": {"cg_step": {"float32": 4, "float64": 8}},
     "DIA dia @ x": {"dia_spmv": {"float32": 4, "float64": 4}},
     "B10 probe": {"wide_gather": {"float32": 1 + probe.WARMUP + probe.TIMED}},
 }
@@ -486,13 +497,14 @@ MAIN_VARIANTS = {
 # gets the launches of its own matrix's main path.
 # Keyed by (kernel, row suffix); the value names the row's matrix in the
 # record of variants a main path ran and the row's dtypes. ex56's bsr @ x
-# (float64) is the main path of the stream SpMV; ex56's diagonal (float64)
-# has a row beside HPCG's (the diagonal kernel's main rows).
+# (float64) is the main path of the stream SpMV; ex56's diagonal and CG
+# step (float64) have rows beside HPCG's (those kernels' main rows).
 F32_F64 = ("float32", "float64")
 EXTRA_ROWS = {("bsr_spmv", "banded8"): ("banded8", F32_F64),
               ("bsr_spmm", "banded8"): ("banded8", F32_F64),
               ("bsr_spmv", "ex56"): ("ex56", ("float64",)),
               ("diagonal", "ex56"): ("ex56", ("float64",)),
+              ("cg_step", "ex56"): ("ex56", ("float64",)),
               ("csr_spmm", "banded"): ("banded", F32_F64),
               ("csr_sddmm", "banded"): ("banded", F32_F64),
               ("csr_sddmm", "k1"): ("spmv", F32_F64)}
@@ -542,6 +554,11 @@ N_DIA = 2**25    # bench.py's dia cells (n = 2**22) scaled past the L2
 DIA9_OFFSETS = [-300, -130, -1, 0, 1, 7, 129, 250, 333]
 LAP_K = 256      # lap3d: the 7-point Laplacian of a LAP_K**3 grid
 HPCG_K = 256     # the Jacobi diagonal's CSR: HPCG's operator on HPCG_K**3
+# The CG step's dots against float64 torch.dot, relative to sum |u·v|:
+# sums of 1.3-1.7e7 products in another order (read at most 1.8e-16 and
+# 8.6e-8 on the card); a sum that drops a tenth of its blocks is off by
+# about 0.3.
+STEP_DOT_TOL = {"float64": 1e-12, "float32": 1e-6}
 STENCIL_K = 64   # the stencil path's grid
 KRYLOV_K = 128   # phase 16: CG on the 7-point Laplacian of a KRYLOV_K**3 grid
 PRECOND_K = 64   # phase 16: IC(0), ILU(0) and BSR CG on PRECOND_K**3 grids
@@ -3175,6 +3192,142 @@ def check_diagonal(hpcg, bsr, out, report, card) -> None:
                                    "plain_ms": p_ms, "library_ms": None, **b}
 
 
+def step_launches(steps: int) -> int:
+    """CG-step launches of a fused solve that enqueues ``steps`` steps:
+    three passes a step and the first residual's dots."""
+    return 3 * steps + 1
+
+
+def cg_step_inputs(device):
+    """``{(shape, name): (x, r, p, ap, inv, rz)}``: CG vectors drawn on
+    the card at HPCG's 256**3 unknowns (float64 and float32) and ex56's
+    3·161**3 = 12,519,843 (float64), the Jacobi inverse in [0.5, 2)."""
+    gen = torch.Generator(device=device).manual_seed(23)
+    out = {}
+    for shape, n, names in (("hpcg", HPCG_K ** 3, ("float64", "float32")),
+                            ("ex56", 3 * EX56_NODES ** 3, ("float64",))):
+        for name in names:
+            dtype = DTYPES[name][1]
+
+            def draw(lo=-1.0, hi=1.0):
+                return torch.empty(n, dtype=dtype, device=device).uniform_(
+                    lo, hi, generator=gen)
+
+            out[shape, name] = (draw(), draw(), draw(), draw(), draw(0.5, 2.0),
+                                draw(0.5, 1.5)[:1].clone())
+        print(f"phase 11: CG step vectors n={n} ({shape}), "
+              f"{', '.join(names)}, Jacobi")
+    return out
+
+
+def fused_step(x, r, p, ap, inv, rz, ws):
+    """One step of the three passes, ``r`` and ``p`` in place:
+    ``(x', [p·ap, r·z, r·r])``."""
+    pap = step_mod.pap(p, ap, ws)
+    sums = step_mod.update(r, ap, inv, rz, pap, ws)
+    x = step_mod.direction(x, r, p, inv, rz, pap, sums[0])
+    return x, torch.cat([pap, sums])
+
+
+def run_cg_step(step_in, seen):
+    """The CG step's main path, as a solve runs it: the first residual's
+    dots, then one step (three launches) on copies of each case's ``r``
+    and ``p``; ``seen["cg_step", "ex56", "float64"]`` gets the launches of
+    ex56's."""
+    out = {}
+    for key, (x, r, p, ap, inv, rz) in step_in.items():
+        before = step_mod.LAUNCHES["float64"]
+        ws = step_mod.workspace(x)
+        first = step_mod.dots(r, inv, ws)
+        r1, p1 = r.clone(), p.clone()
+        x1, sums = fused_step(x, r1, p1, ap, inv, rz, ws)
+        out[key] = (x1, r1, p1, sums, first)
+        if key == ("ex56", "float64"):
+            seen["cg_step", "ex56", "float64"] = {
+                "launches": step_mod.LAUNCHES["float64"] - before}
+    return out
+
+
+def check_cg_step(step_in, out, report, card) -> None:
+    """The three passes against the torch step (``cg_step_plain``) fed
+    their own dots: x', r and p bit for bit; the dots of every pass and
+    the first residual's (``dots``) within STEP_DOT_TOL of float64
+    ``torch.dot`` and the same bits launch after launch; then the passes
+    and the torch step in turns behind the spin, each pass alone, beside
+    the bound: 12 n-vectors read or written."""
+    for key, (x, r, p, ap, inv, rz) in step_in.items():
+        shape, name = key
+        what = f"CG step {shape} {name} (n={x.numel()})"
+        x1, r1, p1, sums, first = out[key]
+        fed = [list(sums[:1]), list(sums[1:])]
+        want = cg_step_plain(x, r, p, ap, rz.reshape(()), lambda v: inv * v,
+                             lambda pairs: [v.reshape(()) for v in
+                                            fed.pop(0)])
+        for label, got, w in (("x'", x1, want[0]), ("r", r1, want[1]),
+                              ("p", p1, want[2])):
+            if not bitwise_equal(got, w):
+                raise AssertionError(f"{what}: {label} != the torch step's")
+        errs = []
+        for got, u, v in ((sums[0], p, ap), (sums[1], r1, inv * r1),
+                          (sums[2], r1, r1), (first[0], r, inv * r),
+                          (first[1], r, r)):
+            exact = torch.dot(u.double(), v.double())
+            scale = torch.dot(u.double().abs(), v.double().abs())
+            errs.append(float((got.double() - exact).abs() / scale))
+        if max(errs) > STEP_DOT_TOL[name]:
+            raise AssertionError(f"{what}: dots {errs} past "
+                                 f"{STEP_DOT_TOL[name]}·sum|u·v|")
+        ws = step_mod.workspace(x)
+        for _ in range(2):
+            if not bitwise_equal(step_mod.dots(r, inv, ws), first):
+                raise AssertionError(f"{what}: the first residual's dots "
+                                     f"differ launch to launch")
+            r2, p2 = r.clone(), p.clone()
+            if not bitwise_equal(fused_step(x, r2, p2, ap, inv, rz, ws)[1],
+                                 sums):
+                raise AssertionError(f"{what}: dots differ launch to launch")
+        del r2, p2
+        # the timed steps run on working copies, r and p updated in place
+        rw, pw = r.clone(), p.clone()
+        rz0 = rz.reshape(())
+        torch_dots = lambda pairs: [torch.dot(u, v) for u, v in pairs]
+        k_ms, p_ms, (q1, k1, k2, q2) = turns(
+            lambda: fused_step(x, rw, pw, ap, inv, rz, ws),
+            lambda: cg_step_plain(x, rw, pw, ap, rz0, lambda v: inv * v,
+                                  torch_dots),
+            TIMED_LAUNCHES, TIMED_LAUNCHES, spin=True)
+        pap = step_mod.pap(pw, ap, ws)
+        sw = step_mod.update(rw, ap, inv, rz, pap, ws)
+        passes = {
+            "pap": (2, lambda: step_mod.pap(pw, ap, ws)),
+            "update": (4, lambda: step_mod.update(rw, ap, inv, rz, pap, ws)),
+            "direction": (6, lambda: step_mod.direction(x, rw, pw, inv, rz,
+                                                        pap, sw[0])),
+            "dots": (2, lambda: step_mod.dots(rw, inv, ws))}
+        itemsize = x.element_size()
+        each = []
+        for pname, (vectors, fn) in passes.items():
+            ms = time_ms(fn, TIMED_LAUNCHES, spin=True)
+            pb = bound(vectors * itemsize * x.numel(), 0, name)["bound_ms"]
+            each.append(f"{pname} {ms:.4f} ms (bound {pb:.4f}, "
+                        f"{100 * pb / ms:.1f} %)")
+        del rw, pw, sw
+        free_memory()
+        b = bound(12 * itemsize * x.numel(), 0, name)
+        print(f"phase 11: {what}: x', r and p bitwise the torch step's "
+              f"given the kernels' dots (relative errors "
+              f"{', '.join(f'{e:.2e}' for e in errs)}: pap, update's two, "
+              f"the first residual's two); dots bitwise repeatable; "
+              f"three passes {k_ms:.4f} ms, torch step {p_ms:.4f} ms (turns: "
+              f"torch {q1:.4f}, passes {k1:.4f}, passes {k2:.4f}, torch "
+              f"{q2:.4f}), bound {b['bound_ms']:.4f} ms (12 vectors, "
+              f"{b['bound_by']}; {100 * b['bound_ms'] / k_ms:.1f} % of it); "
+              f"{'; '.join(each)} | {card}")
+        row = name if shape == "hpcg" else f"{name}_{shape}"
+        report["cg_step", row] = {"max_abs_err": 0.0, "ms": k_ms,
+                                  "plain_ms": p_ms, "library_ms": None, **b}
+
+
 def check_device_coo(coos, big, host_seconds, coo0, csr0, x0,
                      device) -> None:
     """Phase 12: ``coo.to_device().to_csr_device()`` on the card against
@@ -3676,7 +3829,7 @@ def krylov_phase(device, card: str, solver_launches) -> None:
         paths = check_paths(
             f"CG {name}",
             lambda: cg(A, b, maxiter=2, precondition="jacobi"),
-            ("csr_spmv:cuda:", "diagonal:cuda"))
+            ("csr_spmv:cuda:", "diagonal:cuda", "cg_step:cuda:fused"))
         held = hold_spmv(f"CG {name}", A, b)
         # the Jacobi setup, the first residual and its dot products
         _, setup_s, _ = solver_run(
@@ -3685,7 +3838,9 @@ def krylov_phase(device, card: str, solver_launches) -> None:
             lambda: cg(A, b, tol=tol, precondition="jacobi"))
         expect_counts(f"CG {name}", got,
                       {"csr_spmv": {name: res.iterations + 1},
-                       "diagonal": {name: 1}}, solver_launches)
+                       "diagonal": {name: 1},
+                       "cg_step": {name: step_launches(res.iterations)}},
+                      solver_launches)
         resid = check_residual(f"CG {name}", A64, res.x, b, tol)
         spmv_ms = time_ms(lambda: A @ b, TIMED_LAUNCHES, spin=True)
         itemsize = A.values.element_size()
@@ -3742,7 +3897,9 @@ def krylov_phase(device, card: str, solver_launches) -> None:
         lambda: cg(P64, b, tol=tol, precondition="jacobi"))
     expect_counts("PCG Jacobi", got,
                   {"csr_spmv": {"float64": jac.iterations + 1},
-                   "diagonal": {"float64": 1}}, solver_launches)
+                   "diagonal": {"float64": 1},
+                   "cg_step": {"float64": step_launches(jac.iterations)}},
+                  solver_launches)
     res, sec, got = solver_run(lambda: cg(P64, b, tol=tol, precondition=M))
     expect_launches("PCG IC(0)", got, "csr_spmv", "float64",
                     res.iterations + 1, solver_launches)
@@ -3763,11 +3920,13 @@ def krylov_phase(device, card: str, solver_launches) -> None:
     b32 = b.float()
     tol32 = CG_RTOL["float32"] * float(torch.linalg.vector_norm(b32.double()))
     paths = check_paths("CG on BSR", lambda: cg(B, b32, maxiter=2),
-                        "bsr_spmv:cuda:")
+                        ("bsr_spmv:cuda:", "cg_step:cuda:fused"))
     held = hold_spmv("CG on BSR", B, b32)
     res, sec, got = solver_run(lambda: cg(B, b32, tol=tol32))
-    expect_launches("CG on BSR", got, "bsr_spmv", "float32",
-                    res.iterations + 1, solver_launches)
+    expect_counts("CG on BSR", got,
+                  {"bsr_spmv": {"float32": res.iterations + 1},
+                   "cg_step": {"float32": step_launches(res.iterations)}},
+                  solver_launches)
     resid = check_residual("CG on BSR", P64, res.x, b32, tol32)
     spmv_ms = time_ms(lambda: B @ b32, TIMED_LAUNCHES, spin=True)
     print(f"phase 16: CG on csr.to_bsr(8) {PRECOND_K}^3 float32: "
@@ -4676,7 +4835,8 @@ def dist_cg(mesh, device, card: str, dist_launches) -> None:
     ``cg`` on the CsrMatrix: the same iteration count, one B1 launch a
     step, one for the first residual and one for each of the ``AHEAD``
     steps the loop runs ahead of its test and drops at convergence, one
-    diagonal launch for the Jacobi set-up."""
+    diagonal launch for the Jacobi set-up, three CG-step launches for each
+    step enqueued and one for the first residual's dots."""
     from spalinalg_tpu_torch.linalg.cg import AHEAD
 
     A = stencil_csr(KRYLOV_K, 3, device)
@@ -4693,7 +4853,9 @@ def dist_cg(mesh, device, card: str, dist_launches) -> None:
                                                     precondition="jacobi"),
                            {"csr_spmv": {"float64": ref.iterations + 1
                                          + AHEAD},
-                            "diagonal": {"float64": 1}}, dist_launches)
+                            "diagonal": {"float64": 1},
+                            "cg_step": {"float64": step_launches(
+                                ref.iterations + AHEAD)}}, dist_launches)
     if res.iterations != ref.iterations:
         raise AssertionError(f"DistCsr CG: {res.iterations} iterations, "
                              f"cg on the CsrMatrix {ref.iterations}")
@@ -5468,6 +5630,14 @@ def run(t_start: float, tmpdir: str) -> int:
     with phase("phase 11 diagonal"):
         check_diagonal(hpcg, ex56[0], diag_out, report, card)
     del ex56, hpcg, diag_out
+    free_memory()
+    # the CG step's three passes: HPCG's 256^3 unknowns and ex56's
+    with phase("inputs: CG step vectors"):
+        step_in = cg_step_inputs(device)
+    step_out = drive("CG step", lambda: run_cg_step(step_in, seen), launches)
+    with phase("phase 11 CG step"):
+        check_cg_step(step_in, step_out, report, card)
+    del step_in, step_out
     free_memory()
 
     # ---- DeviceCoo: COO -> CSR on the card (phase 12) -------------------

@@ -19,6 +19,17 @@ dot products are summed over the mesh, ``r·z`` and ``r·r`` in one
 read-back of ``r·r`` waits for the slowest rank's host, and the cards keep
 the next steps' work meanwhile.
 
+On the card, the step's vector work after the product is three kernel
+passes (``ops/kernels/cg_step.py``: ``p·ap``; the update of ``r`` with
+``r·z`` and ``r·r``; ``x`` and the new direction), in place of the torch
+step's 24 passes over n-vectors, where the operand is a ``CsrMatrix``,
+``BsrMatrix`` or ``DistCsr``, the preconditioner the built-in Jacobi or
+none, and the vectors float32 or float64, contiguous, on one card
+(:func:`_fuses`). Every other solve takes the torch step
+(``cg_step_plain``). The metrics path says which: ``cg_step:cuda:fused`` or
+``cg_step:plain``; the span ``spal.cg.update`` covers the update and the
+direction.
+
 Examples
 --------
 >>> import torch
@@ -35,15 +46,20 @@ Examples
 from __future__ import annotations
 
 from collections import deque
+from functools import partial
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..device import resolve_device
 from ..formats.bsr import BsrMatrix
+from ..formats.compressed import CsrMatrix
+from ..ops.kernels import cg_step
 from ..ops.kernels.diagonal import diagonal as stored_diagonal
 from ..ops.reduce_api import _diagonal
+from ..parallel.partition import DistCsr
 from ..parallel.spmv import is_dist, summed
+from ..utils.metrics import instrument
 from ..utils.profiling import annotate
 
 __all__ = ["cg", "CgResult"]
@@ -104,10 +120,36 @@ def _above(rr: torch.Tensor, tol: float, now: bool) -> Callable[[], bool]:
     return read
 
 
-def _cg_loop(matvec, b, x0, tol, maxiter, psolve, dots,
-             ahead: int = 0) -> CgResult:
-    """(Preconditioned) CG; stops when ``r·r <= tol²`` or after
-    ``maxiter`` steps. ``dots`` is :func:`_dots` of the operand.
+def _fuses(A, psolve, vectors) -> bool:
+    """Whether :func:`_cg_loop` runs its step as the card's kernels: ``A``
+    a ``CsrMatrix``, ``BsrMatrix`` or ``DistCsr``, ``psolve`` the built-in
+    :class:`Jacobi` or None, and ``vectors`` (with the Jacobi inverse) ones
+    the kernels take (``cg_step.takes``)."""
+    if not isinstance(A, (CsrMatrix, BsrMatrix, DistCsr)):
+        return False
+    if psolve is not None and not isinstance(psolve, Jacobi):
+        return False
+    inv = () if psolve is None else (psolve.inv,)
+    return cg_step.takes(*vectors, *inv)
+
+
+def _fused_step(inv, total, ws):
+    """The step as the card's three passes: ``(x, r, p, ap, rz) -> (x', r,
+    p, rz', rr)``, ``r`` and ``p`` updated in place, each dot summed by
+    ``total`` (over a ``DistCsr``'s mesh) before the pass that reads it."""
+    def step(x, r, p, ap, rz):
+        pap = total(cg_step.pap(p, ap, ws))
+        with annotate("spal.cg.update"):
+            sums = total(cg_step.update(r, ap, inv, rz, pap, ws))
+            rz_next, rr = sums.unbind()
+            x = cg_step.direction(x, r, p, inv, rz, pap, rz_next)
+        return x, r, p, rz_next, rr
+    return step
+
+
+def _cg_loop(A, b, x0, tol, maxiter, psolve, ahead: int = 0) -> CgResult:
+    """(Preconditioned) CG on ``A`` (anything with ``@``, or a
+    ``DistCsr``); stops when ``r·r <= tol²`` or after ``maxiter`` steps.
 
     With ``ahead`` > 0, up to ``ahead`` steps are enqueued past the last
     step whose test has been read, so the cards keep that much work queued
@@ -121,35 +163,61 @@ def _cg_loop(matvec, b, x0, tol, maxiter, psolve, dots,
     host holds the read-back, and running ahead there is not measured
     yet: it would add up to ``ahead`` products to every solve stopped by
     its tolerance, and a one-card solve stays at one product a step and
-    one for the first residual."""
-    psolve = psolve if psolve is not None else (lambda r: r)
+    one for the first residual.
+
+    The step runs as the card's kernels where :func:`_fuses` holds, else
+    as the torch step. The fused step keeps ``x`` out of place (the steps
+    run ahead hold theirs) and updates ``r`` and ``p`` in place."""
     x = x0
-    r = b - matvec(x)
-    z = psolve(r)
-    p = z
-    rz, rr = dots([(r, z), (r, r)])
+    ax = A @ x
+    r = b - ax
+    if _fuses(A, psolve, (x, ax, r)):
+        inv = None if psolve is None else psolve.inv
+        ws = cg_step.workspace(r)
+        total = summed(A)
+        rz, rr = total(cg_step.dots(r, inv, ws)).unbind()
+        p = r.clone() if inv is None else inv * r
+        step, path = _fused_step(inv, total, ws), f"{r.device.type}:fused"
+    else:
+        psolve = psolve if psolve is not None else (lambda r: r)
+        z = psolve(r)
+        p = z
+        dots = _dots(A)
+        rz, rr = dots([(r, z), (r, r)])
+        step = partial(cg_step.cg_step_plain, psolve=psolve, dots=dots)
+        path = "plain"
+    del ax
     # (x, rr, its test) after each step enqueued and not yet known taken
     steps = deque([(x, rr, _above(rr, tol, ahead > 0))])
     k = 0
     while True:
         while len(steps) <= ahead and k + len(steps) <= maxiter:
-            ap = matvec(p)
-            (pap,) = dots([(p, ap)])
-            alpha = rz / pap
-            x = x + alpha * p
-            r = r - alpha * ap
-            z = psolve(r)
-            rz_next, rr = dots([(r, z), (r, r)])
+            ap = A @ p
+            x, r, p, rz, rr = instrument(
+                "cg_step", lambda: step(x, r, p, ap, rz), path=path,
+                device=r.device, nnz=r.numel())
             steps.append((x, rr, _above(rr, tol, ahead > 0)))
-            p = z + (rz_next / rz) * p
-            rz = rz_next
         x_k, rr_k, going = steps.popleft()
         if k == maxiter or not going():
             return CgResult(x=x_k, iterations=k, residual=torch.sqrt(rr_k))
         k += 1
 
 
-def _jacobi_precond(A) -> Callable[[torch.Tensor], torch.Tensor]:
+class Jacobi:
+    """The built-in Jacobi preconditioner, ``r -> inv·r``; ``inv`` (the
+    inverse diagonal) is kept for :func:`_cg_loop`, whose card step applies
+    it inside its kernels."""
+
+    __slots__ = ("inv",)
+
+    def __init__(self, inv: torch.Tensor):
+        self.inv = inv
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return self.inv * r
+
+
+def _jacobi_precond(A) -> Jacobi:
     """Inverse-diagonal preconditioner of a CSR/BSR matrix, or of this
     rank's rows of a ``DistCsr``, built on its device (a zero or missing
     diagonal entry counts as 1). A ``BsrMatrix``, or what another
@@ -165,7 +233,7 @@ def _jacobi_precond(A) -> Callable[[torch.Tensor], torch.Tensor]:
         if hasattr(A, "to_csr") and not isinstance(A, BsrMatrix):
             A = A.to_csr()         # a BsrMatrix keeps its blocks
         inv = _diagonal(A, invert=True)
-    return lambda r: inv * r
+    return Jacobi(inv)
 
 
 def resolve_precond(M, A, *, jacobi: bool = True, error=ValueError):
@@ -225,5 +293,5 @@ def cg(
     with annotate("spal.precond", device=b.device):
         psolve = resolve_precond(precondition, A)
     with torch.no_grad():
-        return _cg_loop(lambda v: A @ v, b, x0, tol, maxiter, psolve,
-                        _dots(A), ahead=AHEAD if is_dist(A) else 0)
+        return _cg_loop(A, b, x0, tol, maxiter, psolve,
+                        ahead=AHEAD if is_dist(A) else 0)

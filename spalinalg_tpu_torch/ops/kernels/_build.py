@@ -72,6 +72,18 @@ _ENTRIES = {
     #  stream)
     **{f"spal_diagonal_{t}": [_P] * 4 + [ctypes.c_longlong] * 6 + [_P]
        for t in ("f32", "bf16", "f64")},
+    # (p, ap, partial, partial_len, ticket, out, n, vec, stream) and
+    # (r, inv, partial, partial_len, ticket, out, n, vec, stream)
+    **{f"spal_cg_{name}_{t}": [_P] * 3 + [ctypes.c_longlong, _P, _P]
+       + [ctypes.c_longlong] * 2 + [_P]
+       for name in ("pap", "dots") for t in ("f32", "f64")},
+    # (r, ap, inv, rz, pap, partial, partial_len, ticket, out, n, vec,
+    #  stream)
+    **{f"spal_cg_update_{t}": [_P] * 6 + [ctypes.c_longlong, _P, _P]
+       + [ctypes.c_longlong] * 2 + [_P] for t in ("f32", "f64")},
+    # (x, x_out, r, p, inv, rz, pap, rz_next, n, vec, stream)
+    **{f"spal_cg_direction_{t}": [_P] * 8 + [ctypes.c_longlong] * 2 + [_P]
+       for t in ("f32", "f64")},
 }
 
 

@@ -1301,7 +1301,7 @@ def test_cg_loop_ahead_gives_the_same_steps(ahead, tol, maxiter):
     iteration count and residual of the loop that tests before each step:
     stopped by ``maxiter``, by the tolerance, and at once; the products it
     runs past the stop are at most ``ahead``."""
-    from spalinalg_tpu_torch.linalg.cg import _cg_loop, _dots
+    from spalinalg_tpu_torch.linalg.cg import _cg_loop
 
     import spalinalg_tpu_torch as tsp
 
@@ -1312,13 +1312,14 @@ def test_cg_loop_ahead_gives_the_same_steps(ahead, tol, maxiter):
     for lead in (0, ahead):
         products = []
 
-        def matvec(v):
-            products.append(1)
-            return A @ v
+        class Counted:
+            def __matmul__(self, v):
+                products.append(1)
+                return A @ v
 
         with tsp.default_device("cpu"):
-            res = _cg_loop(matvec, b, torch.zeros_like(b), tol, maxiter,
-                           lambda r: inv * r, _dots(A), ahead=lead)
+            res = _cg_loop(Counted(), b, torch.zeros_like(b), tol, maxiter,
+                           lambda r: inv * r, ahead=lead)
         runs.append((res, len(products)))
     (want, n0), (got, n) = runs
     assert got.iterations == want.iterations

@@ -698,7 +698,8 @@ def test_linalg_tier_no_build_on_cpu(monkeypatch):
 
 def test_solver_metrics_path():
     """The solver's products are the CSR SpMV (its plain version on the
-    CPU), and the supernodal host phases are recorded."""
+    CPU), each step after its product the torch step, and the supernodal
+    host phases are recorded."""
     import spalinalg_tpu_torch.linalg as tla
     from spalinalg_tpu_torch.utils import metrics
 
@@ -708,7 +709,8 @@ def test_solver_metrics_path():
         rec.records.clear()
         res = tla.cg(A, np.ones(36), tol=1e-10)
         paths = [r.path for r in rec.records]
-        assert paths == ["csr_spmv:plain"] * (res.iterations + 1)
+        assert paths == ["csr_spmv:plain"] + [
+            "csr_spmv:plain", "cg_step:plain"] * res.iterations
         rec.records.clear()
         B = A.with_values(A.values.clone())
         B = tsp.CsrMatrix._from_parts(36, 36, B.rowptr.clone(),
